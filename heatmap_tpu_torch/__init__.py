@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of heatmap_tpu's single-shot batch job.
+
+The package runs the reference ``batchMain`` (source -> f64 projection
+-> emissions -> composite-key cascade -> decode -> blobs) with PyTorch
+on an NVIDIA Hopper card. The cascade's per-level segment reduce is a
+hand-written CUDA kernel (``csrc/segment_reduce.cu``), built with
+``nvcc`` at first use (``_build.py``).
+
+It imports torch and numpy only: nothing of JAX and nothing of
+``heatmap_tpu``. Entry points run on the card (``device="cuda"``)
+unless the caller asks for the CPU, where every kernel's plain PyTorch
+version runs instead.
+"""
+
+from heatmap_tpu_torch.devices import resolve_device
+from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_batch, run_job
+
+__version__ = "0.1.0"
+
+__all__ = ["BatchJobConfig", "resolve_device", "run_batch", "run_job"]

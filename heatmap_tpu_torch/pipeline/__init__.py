@@ -1,0 +1,7 @@
+"""The batch job: ingest -> group -> project -> cascade -> blobs.
+
+- ``groups``   — user-id routing rules (reference heatmap.py:64-70).
+- ``timespan`` — timespan labels (reference heatmap.py:38-52).
+- ``cascade``  — the zoom cascade and blob egress.
+- ``batch``    — orchestration equivalent to the reference batchMain.
+"""
