@@ -3,12 +3,26 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of ``heatmap_tpu_torch`` from the sources in
-this checkout, holds each kernel bit-equal to its plain PyTorch version
-on the card, drives the port's main path (the single-shot batch job,
-``run_job``, at the default z21 -> z6 cascade) and checks its output
-against the scatter backend, the CPU and the host projection. Prints one
-JSON line per phase, then the kernels' summary line, the card's name and
-power limit, and as the last line
+this checkout and holds each kernel against its plain PyTorch version on
+the card, at the shapes its paths give it and at larger ones (bit-equal,
+or within the stated ``rtol`` for fractional float weights). Then it
+drives the port's paths, each with the kernels' launch counts set to 0
+just before it and read just after:
+
+- the single-shot batch job, ``run_job``, at the default z21 -> z6
+  cascade, checked against the scatter backend, the CPU and the
+  reference's scalar projection (segment-reduce kernel);
+- the ``tiles`` command at its defaults (the partitioned kernel), with
+  ``--weighted`` (its weighted twin) and on a one-tile window (the
+  window-histogram kernel), each raster bit-equal and each PNG tree
+  byte-identical to the same run on the CPU;
+- the headline step, ``python -m heatmap_tpu_torch.bench`` at its
+  defaults, checked against the plain scatter;
+
+and the Gaussian splat's convolutions on the card against the CPU.
+
+Prints one JSON line per phase, then the kernels' summary line, the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure raises and exits non-zero; without a CUDA device, or
@@ -25,6 +39,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,6 +54,21 @@ N_MAIN = 4_000_000
 N_WEIGHTED = 1_000_000
 N_CROSSCHECK = 200_000
 WEIGHT_BOUND = 100
+#: Points of the window-kernel phases and of the headline step.
+N_WINDOW = 1 << 25
+N_TILES = 4_000_000
+#: Fractional float32 weights sum in another order on each side
+#: (atomics), so the kernel and its plain version are each held to the
+#: float64 sum of the same weights, within f32 rounding (the JAX
+#: package's bound for its weighted kernels). A hot cell of the 2^25
+#: clustered points takes about 2e5 terms; a random-walk rounding error
+#: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
+#: tests, at their sizes, hold 1e-5.
+FRACTIONAL_RTOL = 1e-4
+#: One z8 tile (256 x 256 cells at z16) east of the synthetic hot spot:
+#: the tiles command's window-histogram case.
+SMALL_TILES_BOUNDS = ("--lat-min", "47.1", "--lat-max", "47.95",
+                      "--lon-min", "-122.33", "--lon-max", "-121.0")
 
 
 def emit(obj):
@@ -222,6 +252,7 @@ def phase_run_job(dev):
     from heatmap_tpu_torch.io import MemorySink, SyntheticSource
     from heatmap_tpu_torch.ops import sparse_partitioned as sp
     from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job
+    from heatmap_tpu_torch.tilemath.mercator import project_points
 
     cfg = BatchJobConfig()
     assert cfg.resolved_cascade_backend(dev) == "partitioned"
@@ -239,6 +270,7 @@ def phase_run_job(dev):
             gc_ms[info["generation"]] += (time.perf_counter() - gc_t[0]) * 1e3
 
     gc.callbacks.append(on_gc)
+    project_points.rechecked = 0
     sp.aggregate_sorted_keys_partitioned.launches = 0
     t0 = time.perf_counter()
     blobs = run_job(SyntheticSource(n=N_MAIN, seed=0), sink, cfg,
@@ -246,6 +278,7 @@ def phase_run_job(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = sp.aggregate_sorted_keys_partitioned.launches
+    rechecked = project_points.rechecked
     gc.callbacks.remove(on_gc)
     peak = torch.cuda.max_memory_allocated(dev)
     assert launches == cfg.cascade_config().n_levels + 1 == 16, launches
@@ -262,26 +295,43 @@ def phase_run_job(dev):
           "segment_reduce_ms": timer.ms.get("segment_reduce"),
           "gc_ms_by_generation": gc_ms,
           "blobs": len(blobs), "launches": launches,
+          "projection_rechecked": rechecked,
           "peak_bytes": peak, "equal_to_scatter": True})
     return launches
 
 
+def reference_projection(lat, lon, zoom):
+    """Rows, columns and validity by the reference's scalar CPython
+    ``math`` formula, one point at a time."""
+    from heatmap_tpu_torch.tilemath.mercator import _host_row
+    from heatmap_tpu_torch.tilemath.tile import _column_from_longitude
+
+    n = 1 << zoom
+    rows = np.array([_host_row(x, zoom) for x in np.asarray(lat).tolist()])
+    cols = np.array([float(_column_from_longitude(x, zoom))
+                     for x in np.asarray(lon).tolist()])
+    with np.errstate(invalid="ignore"):
+        valid = ((rows >= 0) & (rows < n) & (cols >= 0) & (cols < n))
+    return rows, cols, valid
+
+
 def phase_projection(data, dev):
-    """The card's f64 projection against the host's numpy projection."""
-    from heatmap_tpu_torch.tilemath.mercator import (
-        project_points,
-        project_points_np,
-    )
+    """The card's f64 projection against the reference's scalar rows:
+    synthetic points, and latitudes within 3 ulps of z21 row edges."""
+    from heatmap_tpu_torch.tilemath.mercator import project_points
 
     def mismatches(lat, lon):
+        before = project_points.rechecked
         r, c, v = project_points(torch.as_tensor(lat, device=dev),
                                  torch.as_tensor(lon, device=dev), 21)
-        nr, nc, nv = project_points_np(lat, lon, 21)
+        rechecked = project_points.rechecked - before
+        wr, wc, wv = reference_projection(lat, lon, 21)
         r, c, v = r.cpu().numpy(), c.cpu().numpy(), v.cpu().numpy()
-        return int(((r != nr) | (c != nc) | (v != nv)).sum())
+        bad = (v != wv) | (wv & ((r != wr) | (c != wc)))
+        return int(bad.sum()), rechecked
 
-    lat, lon = data["latitude"], data["longitude"]
-    synthetic = mismatches(lat, lon)
+    lat, lon = data["latitude"][:1_000_000], data["longitude"][:1_000_000]
+    synthetic, synthetic_rechecked = mismatches(lat, lon)
     # Latitudes within a few ulps of z21 row edges.
     rng = np.random.default_rng(1)
     rows = rng.integers(0, 1 << 21, 100_000)
@@ -295,11 +345,15 @@ def phase_projection(data, dev):
         near += [up, down]
     blat = np.concatenate(near)
     blon = rng.uniform(-180, 180, blat.shape[0])
-    boundary = mismatches(blat, blon)
-    emit({"phase": "projection", "points": int(lat.shape[0]),
-          "mismatches": synthetic, "boundary_points": int(blat.shape[0]),
-          "boundary_mismatches": boundary})
+    boundary, boundary_rechecked = mismatches(blat, blon)
+    emit({"phase": "projection", "reference": "CPython math",
+          "points": int(lat.shape[0]), "mismatches": synthetic,
+          "rechecked": synthetic_rechecked,
+          "boundary_points": int(blat.shape[0]),
+          "boundary_mismatches": boundary,
+          "boundary_rechecked": boundary_rechecked})
     assert synthetic == 0, f"{synthetic} synthetic points moved"
+    assert boundary == 0, f"{boundary} near-edge points moved"
 
 
 def phase_weighted(dev):
@@ -330,6 +384,385 @@ def phase_cpu_crosscheck(dev):
           "blobs": len(card), "equal": True})
 
 
+def window_points(n, zoom, dev, proj_dtype):
+    """The headline's clustered points, projected on the card."""
+    from heatmap_tpu_torch.bench import make_points
+    from heatmap_tpu_torch.tilemath.mercator import project_points
+
+    lat, lon = make_points(n)
+    return project_points(torch.as_tensor(lat, device=dev),
+                          torch.as_tensor(lon, device=dev), zoom,
+                          dtype=proj_dtype)
+
+
+def tiles_args(out, device, *extra):
+    from heatmap_tpu_torch.cli import build_parser
+
+    return build_parser().parse_args(
+        ["tiles", "--input", f"synthetic:{N_TILES}", "--output", out,
+         "--device", device, *extra])
+
+
+def tiles_call(dev, *extra):
+    """``(window, row, col, valid)`` as a ``tiles`` run with ``extra``
+    flags gives them to its binning kernel in its first call: its window,
+    and its first batch of points (about 2^20 after the ingest filter),
+    projected on the card at its zoom and projection dtype."""
+    from heatmap_tpu_torch.cli import tiles_window
+    from heatmap_tpu_torch.io import open_source
+    from heatmap_tpu_torch.pipeline.batch import load_columns
+    from heatmap_tpu_torch.tilemath.mercator import project_points
+
+    args = tiles_args("", dev.type, *extra)
+    batch = next(iter(open_source(args.input).batches(args.batch_size)))
+    cols = load_columns(batch)
+    row, col, valid = project_points(
+        torch.as_tensor(cols["latitude"], device=dev),
+        torch.as_tensor(cols["longitude"], device=dev), args.zoom,
+        dtype=torch.float32 if args.no_x64 else torch.float64)
+    return tiles_window(args), row, col, valid
+
+
+def window_cases(window, row, col, valid, dev, hostile=False):
+    """(name, row, col, kwargs, exact) cases for a window kernel: counts,
+    a mask, integer weights in [0, WEIGHT_BOUND], fractional weights, NaN
+    weights on every dropped lane, no mask, all points in one cell (a
+    count past 2^24), an empty input; with ``hostile``, uniform points
+    over the window and all points outside it."""
+    from heatmap_tpu_torch.ops.histogram import localise
+
+    n = row.shape[0]
+    g = torch.Generator(device=dev).manual_seed(0)
+    ints = torch.randint(0, WEIGHT_BOUND + 1, (n,), device=dev,
+                         generator=g).to(torch.float32)
+    frac = torch.rand(n, device=dev, generator=g) * 10.0
+    mask = valid & (torch.rand(n, device=dev, generator=g) < 0.7)
+    _, _, ok = localise(row, col, window, valid)
+    nan_dropped = torch.where(ok, ints, float("nan"))
+    one_r = torch.full_like(row, window.row0 + window.height // 2)
+    one_c = torch.full_like(col, window.col0 + window.width // 2)
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    cases = [
+        ("counts", row, col, {"valid": valid}, True),
+        ("mask", row, col, {"valid": mask}, True),
+        ("int_weights", row, col, {"valid": valid, "weights": ints}, True),
+        ("frac_weights", row, col, {"valid": valid, "weights": frac}, False),
+        ("nan_on_dropped", row, col,
+         {"valid": valid, "weights": nan_dropped}, True),
+        ("no_mask", row, col, {}, True),
+        ("one_cell", one_r, one_c, {}, True),
+        ("empty", empty, empty, {}, True),
+        ("empty_weighted", empty, empty,
+         {"weights": torch.empty(0, device=dev)}, True),
+    ]
+    if hostile:
+        ur = torch.randint(window.row0, window.row0 + window.height, (n,),
+                           device=dev, generator=g, dtype=torch.int32)
+        uc = torch.randint(window.col0, window.col0 + window.width, (n,),
+                           device=dev, generator=g, dtype=torch.int32)
+        above = window.row0 - 1 - (row.abs() % 1000)
+        cases += [
+            ("uniform", ur, uc, {}, True),
+            ("uniform_int_weights", ur, uc, {"weights": ints}, True),
+            ("all_outside", above, col, {"valid": valid}, True),
+        ]
+    return cases
+
+
+def check_window_kernel(fn, plain, window, cases, **kw):
+    """Each case through the wrapper on the card and through its plain
+    version: bit-equal, or, where not exact, both within FRACTIONAL_RTOL
+    of the float64 sum of the same weights."""
+    from heatmap_tpu_torch.ops.histogram import _scatter_window
+
+    checks = []
+    for name, row, col, args, exact in cases:
+        got = fn(row, col, window, **args, **kw)
+        want = plain(row, col, window, args.get("weights"), args.get("valid"))
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        check = {"case": name, "n": int(row.shape[0]),
+                 "bit_equal": bool(torch.equal(got, want)),
+                 "max_abs_err": float(
+                     (got.double() - want.double()).abs().max())
+                 if got.numel() else 0.0,
+                 "total": float(got.double().sum())}
+        if exact:
+            assert check["bit_equal"], name
+        else:
+            ref = _scatter_window(row, col, window,
+                                  weights=args["weights"].double(),
+                                  valid=args.get("valid"),
+                                  dtype=torch.float64)
+            for side, x in (("kernel", got), ("plain", want)):
+                rel = ((x.double() - ref).abs() / ref.abs().clamp(
+                    min=1e-30)).max()
+                check[f"{side}_max_rel_err"] = float(rel)
+                assert float(rel) <= FRACTIONAL_RTOL, (name, side, float(rel))
+        assert bool(torch.isfinite(got.float()).all()), name
+        checks.append(check)
+    return checks
+
+
+def time_window_kernel(fn, plain, window, row, col, valid, weights=None,
+                       **kw):
+    """ms, plain_ms, library_ms (torch.bincount on the same masked flat
+    index), bound_ms and max_abs_err at one shape."""
+    from heatmap_tpu_torch.ops.partitioned import cell_ids
+
+    hw = window.height * window.width
+    got = fn(row, col, window, weights=weights, valid=valid, **kw)
+    want = plain(row, col, window, weights, valid)
+    err = float((got.double() - want.double()).abs().max())
+    ms = median_ms(lambda: fn(row, col, window, weights=weights,
+                              valid=valid, **kw))
+    plain_ms = median_ms(lambda: plain(row, col, window, weights, valid))
+    # bincount's bins past hw catch the sentinel of dropped points.
+    idx = cell_ids(row, col, window, valid).to(torch.int64)
+    library_ms = median_ms(lambda: torch.bincount(idx, weights, minlength=hw))
+    n = row.shape[0]
+    # Least bytes: row and col (int32), valid (1 B) and the weight (f32)
+    # read once each; the raster (4 B a cell) written once.
+    bytes_moved = n * (4 + 4 + 1 + (4 if weights is not None else 0)) + 4 * hw
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+            "bytes": bytes_moved, "max_abs_err": err,
+            "n": int(n), "window": [window.height, window.width]}
+
+
+def int_weights(n, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randint(0, WEIGHT_BOUND + 1, (n,), device=dev,
+                         generator=g).to(torch.float32)
+
+
+def phase_kernel_window_histogram(dev):
+    """The window-histogram kernel against its plain version: at the
+    one-tile ``tiles`` run's shape (its 256x256 z16 window, one 2^20-point
+    batch), and over 2^25 points on a 256x256 z15 window around the
+    synthetic hot spot, a 32x32 blob window and a 4x32768 window too wide
+    for shared memory (the kernel's global-atomic build). Timed at the
+    ``tiles`` shape (the kernels line) and at the 256x256 z15 window."""
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops.histogram import Window
+    from heatmap_tpu_torch.tilemath.tile import (
+        _column_from_longitude,
+        _row_from_latitude,
+    )
+
+    fn = pk.bin_rowcol_window_pallas
+    checks = {}
+    # The path's own shape: what the one-tile tiles run passes the kernel.
+    window, row, col, valid = tiles_call(dev, *SMALL_TILES_BOUNDS)
+    assert (window.zoom, window.height, window.width) == (16, 256, 256)
+    checks["tiles_256x256_z16"] = check_window_kernel(
+        fn, pk._plain, window, window_cases(window, row, col, valid, dev))
+    tiles_counts = time_window_kernel(fn, pk._plain, window, row, col, valid)
+    tiles_weighted = time_window_kernel(fn, pk._plain, window, row, col,
+                                        valid, int_weights(row.shape[0], dev))
+    del row, col, valid
+
+    row, col, valid = window_points(N_WINDOW, 15, dev, torch.float64)
+    hot_r, hot_c = _row_from_latitude(47.6, 15), _column_from_longitude(
+        -122.3, 15)
+    windows = {
+        "256x256": Window(15, hot_r - 128, hot_c - 128, 256, 256),
+        "32x32": Window(15, hot_r - 16, hot_c - 16, 32, 32),
+        # 32768 int32 columns (128 KiB) exceed the 96 KiB band.
+        "4x32768": Window(15, hot_r - 2, 0, 4, 1 << 15),
+    }
+    for wname, window in windows.items():
+        checks[wname] = check_window_kernel(
+            fn, pk._plain, window, window_cases(window, row, col, valid, dev))
+    big = windows["256x256"]
+    counts = time_window_kernel(fn, pk._plain, big, row, col, valid)
+    weighted = time_window_kernel(fn, pk._plain, big, row, col, valid,
+                                  int_weights(row.shape[0], dev))
+    small = time_window_kernel(fn, pk._plain, windows["32x32"], row, col,
+                               valid)
+    wide = time_window_kernel(fn, pk._plain, windows["4x32768"], row, col,
+                              valid)
+    emit({"phase": "kernel_window_histogram", "bit_equal": True,
+          "fractional_rtol": FRACTIONAL_RTOL, "checks": checks,
+          "tiles_counts": tiles_counts, "tiles_int_weights": tiles_weighted,
+          "counts": counts, "int_weights": weighted, "counts_32x32": small,
+          "counts_4x32768": wide})
+    return tiles_counts
+
+
+def phase_kernel_window_partitioned(dev):
+    """Both run-length kernels against their plain version: at the
+    default ``tiles`` run's shape (its 1792x1280 z16 window, one
+    2^20-point batch), and at the headline window (4096x4096, 2^25
+    points, f32 projection), each with uniform and all-outside points
+    too, the headline with streams 1 and 8. Counts are timed at the
+    headline (the kernels line: a path of their own) and weights at the
+    ``tiles --weighted`` shape (their only path), each at the other
+    shape as well."""
+    from heatmap_tpu_torch.bench import headline_window
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    fn = pt.bin_rowcol_window_partitioned
+    checks = {}
+    window, row, col, valid = tiles_call(dev)
+    assert (window.zoom, window.height, window.width) == (16, 1792, 1280)
+    checks["tiles_1792x1280_z16"] = check_window_kernel(
+        fn, pt._plain, window,
+        window_cases(window, row, col, valid, dev, hostile=True))
+    tiles_counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
+    tiles_weighted = time_window_kernel(fn, pt._plain, window, row, col,
+                                        valid, int_weights(row.shape[0], dev))
+    del row, col, valid
+
+    window = headline_window()
+    row, col, valid = window_points(N_WINDOW, 15, dev, torch.float32)
+    cases = window_cases(window, row, col, valid, dev, hostile=True)
+    for k in (1, 8):
+        checks[f"headline_streams{k}"] = check_window_kernel(
+            fn, pt._plain, window, cases, streams=k)
+    del cases
+    counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
+    weighted = time_window_kernel(fn, pt._plain, window, row, col, valid,
+                                  int_weights(row.shape[0], dev))
+    # The wrapper's sort alone, at the counts shape.
+    ids = pt.cell_ids(row, col, window, valid)
+    sort_ms = median_ms(lambda: torch.sort(ids))
+    emit({"phase": "kernel_window_partitioned", "bit_equal": True,
+          "fractional_rtol": FRACTIONAL_RTOL, "checks": checks,
+          "tiles_counts": tiles_counts, "tiles_int_weights": tiles_weighted,
+          "counts": counts, "int_weights": weighted, "sort_ms": sort_ms})
+    return counts, tiles_weighted
+
+
+def read_tree(root):
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def phase_tiles(dev):
+    """The ``tiles`` command on the card, each raster bit-equal and each
+    PNG tree byte-identical to the same run with ``--device cpu``:
+    defaults on synthetic points (the partitioned kernel), ``--weighted``
+    on integer values (its weighted twin), and a one-tile window (the
+    histogram kernel)."""
+    from heatmap_tpu_torch.cli import run_tiles
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    def counters():
+        return {"window_histogram": pk.bin_rowcol_window_pallas.launches,
+                "window_partitioned":
+                    pt.bin_rowcol_window_partitioned.launches,
+                "window_partitioned_weighted":
+                    pt.bin_rowcol_window_partitioned.weighted_launches}
+
+    def zero():
+        pk.bin_rowcol_window_pallas.launches = 0
+        pt.bin_rowcol_window_partitioned.launches = 0
+        pt.bin_rowcol_window_partitioned.weighted_launches = 0
+
+    runs = {
+        "default": ((), None, "partitioned", "window_partitioned"),
+        "weighted": (("--weighted",), lambda: ValuedSource(N_TILES, seed=3),
+                     "partitioned", "window_partitioned_weighted"),
+        "small_window": (SMALL_TILES_BOUNDS, None, "pallas",
+                         "window_histogram"),
+    }
+    launches = {}
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (extra, make_source, backend, kernel) in runs.items():
+            trees = {}
+            summaries = {}
+            rasters = {}
+            for side, device in (("card", dev.type), ("cpu", "cpu")):
+                out = os.path.join(tmp, name, side)
+                args = tiles_args(out, device, *extra)
+                source = make_source() if make_source else None
+                if side == "card":
+                    zero()
+                summaries[side], raster = run_tiles(args, source=source)
+                if side == "card":
+                    torch.cuda.synchronize()
+                    used = counters()
+                rasters[side] = raster.cpu()
+                trees[side] = read_tree(out)
+            card = summaries["card"]
+            assert card["bin_backend"] == backend, (name, card)
+            assert used[kernel] > 0, (name, used)
+            # Counts, and integer weights with per-cell sums far below
+            # 2^24, are exact on both sides: the rasters are bit-equal.
+            assert rasters["card"].dtype == rasters["cpu"].dtype, name
+            assert torch.equal(rasters["card"], rasters["cpu"]), name
+            assert trees["card"] and trees["card"] == trees["cpu"], name
+            launches[kernel] = used[kernel]
+            results[name] = {"tiles": card["tiles"], "window": card["window"],
+                             "bin_backend": card["bin_backend"],
+                             "seconds": card["seconds"],
+                             "stage_ms": card["stage_ms"],
+                             "cpu_seconds": summaries["cpu"]["seconds"],
+                             "launches": used, "png_bytes": sum(
+                                 len(b) for b in trees["card"].values()),
+                             "raster_max": float(rasters["card"].max()),
+                             "raster_equal_to_cpu": True,
+                             "equal_to_cpu": True}
+    emit({"phase": "tiles", "points": N_TILES, "runs": results})
+    return launches
+
+
+def phase_splat(dev):
+    """The Gaussian splat's two convolutions on the card (TF32 off)
+    against the CPU, on a raster of the tiles defaults' shape."""
+    from heatmap_tpu_torch.ops.splat import gaussian_kernel_1d, splat_raster
+
+    g = torch.Generator().manual_seed(2)
+    raster = torch.randint(1, 1000, (1792, 1280), generator=g,
+                           dtype=torch.int32)
+    kernel = gaussian_kernel_1d(9)
+    card = splat_raster(raster.to(dev), kernel).cpu()
+    host = splat_raster(raster, kernel)
+    rel = float(((card - host).abs() / host.abs()).max())
+    emit({"phase": "splat", "shape": list(raster.shape), "max_rel_err": rel})
+    # TF32 keeps 10 mantissa bits (about 1e-3); f32 agrees far closer.
+    assert rel <= 1e-6, rel
+
+
+def phase_headline(dev):
+    """``python -m heatmap_tpu_torch.bench`` at its defaults, and its step
+    on the card against the plain scatter at the same points."""
+    from heatmap_tpu_torch import bench
+
+    rec = bench.run(device=dev)
+    assert rec["bin_backend_resolved"] == "partitioned", rec
+    assert rec["launches_per_step"] == 1, rec
+    window = bench.headline_window()
+    lat, lon = bench.make_points(N_WINDOW)
+    lat = torch.as_tensor(lat, device=dev)
+    lon = torch.as_tensor(lon, device=dev)
+    _, pyr = bench.step(lat, lon, window, 15, "auto")
+    _, plain = bench.step(lat, lon, window, 15, "xla")
+    assert len(pyr) == len(plain) == 13
+    assert all(torch.equal(a, b) for a, b in zip(pyr, plain))
+    assert int(pyr[-1].sum()) == rec["total"] > 0
+    rec["equal_to_plain_scatter"] = True
+    emit({"phase": "headline", **rec})
+    return rec
+
+
+def kernel_entry(name, source, replaces, launches, timing):
+    return {"name": name, "route": "cuda",
+            "source": f"heatmap_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": "bytes", "library_ms": timing["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -341,24 +774,32 @@ def main() -> int:
     torch.cuda.set_device(dev)
     smi = phase_device()
     kernel, data = phase_kernel(dev)
+    histogram = phase_kernel_window_histogram(dev)
+    part_counts, part_weighted = phase_kernel_window_partitioned(dev)
+    torch.cuda.empty_cache()
     launches = phase_run_job(dev)
     phase_projection(data, dev)
     del data
     phase_weighted(dev)
     phase_cpu_crosscheck(dev)
-    emit({"kernels": [{
-        "name": "segment_reduce",
-        "route": "cuda",
-        "source": "heatmap_tpu_torch/csrc/segment_reduce.cu",
-        "replaces": "heatmap_tpu/ops/sparse_partitioned.py:75",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": kernel["library_ms"],
-    }]})
+    tiles_launches = phase_tiles(dev)
+    phase_splat(dev)
+    phase_headline(dev)
+    emit({"kernels": [
+        kernel_entry("segment_reduce", "segment_reduce.cu",
+                     "heatmap_tpu/ops/sparse_partitioned.py:75", launches,
+                     kernel),
+        kernel_entry("window_histogram", "window_histogram.cu",
+                     "heatmap_tpu/ops/pallas_kernels.py:49",
+                     tiles_launches["window_histogram"], histogram),
+        kernel_entry("window_partitioned", "window_partitioned.cu",
+                     "heatmap_tpu/ops/partitioned.py:104",
+                     tiles_launches["window_partitioned"], part_counts),
+        kernel_entry("window_partitioned_weighted", "window_partitioned.cu",
+                     "heatmap_tpu/ops/partitioned.py:137",
+                     tiles_launches["window_partitioned_weighted"],
+                     part_weighted),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of heatmap_tpu's single-shot batch job.
+"""PyTorch/CUDA port of heatmap_tpu's batch job and window binning.
 
 The package runs the reference ``batchMain`` (source -> f64 projection
--> emissions -> composite-key cascade -> decode -> blobs) with PyTorch
-on an NVIDIA Hopper card. The cascade's per-level segment reduce is a
-hand-written CUDA kernel (``csrc/segment_reduce.cu``), built with
-``nvcc`` at first use (``_build.py``).
+-> emissions -> composite-key cascade -> decode -> blobs) and dense
+window binning (the ``tiles`` command and the headline benchmark,
+``heatmap_tpu_torch.bench``) with PyTorch on an NVIDIA Hopper card. The
+cascade's per-level segment reduce and the two window-binning backends
+are hand-written CUDA kernels (``csrc/*.cu``), built with ``nvcc`` at
+first use (``_build.py``).
 
 It imports torch and numpy only: nothing of JAX and nothing of
 ``heatmap_tpu``. Entry points run on the card (``device="cuda"``)

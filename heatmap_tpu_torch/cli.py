@@ -1,9 +1,10 @@
-"""Command line of the port: ``python -m heatmap_tpu_torch run ...``.
+"""Command line of the port: ``python -m heatmap_tpu_torch run|tiles ...``.
 
-The ``run`` command is the single-shot batch job (reference batchMain):
-points from ``--input`` to heatmap blobs in ``--output``, on the CUDA
-card unless ``--device cpu`` asks for the plain PyTorch versions. Its
-flags keep the names of ``heatmap_tpu``'s ``run`` command.
+``run`` is the single-shot batch job (reference batchMain): points from
+``--input`` to heatmap blobs in ``--output``. ``tiles`` bins points into
+a dense window raster and writes a z/x/y PNG tile tree. Both run on the
+CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
+the kernels, and keep the flag names of ``heatmap_tpu``'s commands.
 """
 
 from __future__ import annotations
@@ -59,6 +60,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weighted partitioned contract: every 'value' "
                    "is an integer in [0, W]")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("tiles", help="points -> z/x/y PNG tile tree")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", default="tiles")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where binning runs (default: the CUDA card; cpu "
+                   "runs the plain PyTorch versions of the kernels)")
+    p.add_argument("--no-x64", action="store_true",
+                   help="project in float32 (the fast path) instead of "
+                   "float64")
+    p.add_argument("--zoom", type=int, default=16,
+                   help="detail (pixel) zoom")
+    p.add_argument("--pixel-delta", type=int, default=8,
+                   help="tile zoom = zoom - pixel_delta; 8 -> 256px tiles")
+    p.add_argument("--lat-min", type=float, default=45.0)
+    p.add_argument("--lat-max", type=float, default=50.0)
+    p.add_argument("--lon-min", type=float, default=-125.0)
+    p.add_argument("--lon-max", type=float, default=-119.0)
+    p.add_argument("--auto-bounds", action="store_true",
+                   help="derive the window from the data's bounding box "
+                   "(one extra pass over the source) instead of the "
+                   "--lat/--lon flags")
+    p.add_argument("--batch-size", type=int, default=1 << 20)
+    p.add_argument("--splat", type=int, default=0, metavar="K",
+                   help="smooth with a KxK Gaussian kernel before "
+                   "rendering (e.g. 9; 0 = off)")
+    p.add_argument("--sigma", type=float, default=None,
+                   help="Gaussian sigma in cells (default K/4)")
+    p.add_argument("--weighted", action="store_true",
+                   help="sum the input's per-point 'value' column instead "
+                   "of counting points")
+    p.add_argument("--bin-backend", default="auto",
+                   choices=("auto", "xla", "pallas", "partitioned"),
+                   help="binning path: auto (on the card, the histogram "
+                   "kernel for windows up to 256x256 cells and the "
+                   "partitioned kernel above; the plain scatter on the "
+                   "CPU), xla (the plain scatter), pallas (the histogram "
+                   "kernel) or partitioned")
+    p.set_defaults(fn=cmd_tiles)
     return ap
 
 
@@ -99,6 +139,147 @@ def cmd_run(args) -> int:
         "device": args.device,
         "cascade_backend": config.resolved_cascade_backend(args.device),
     }), file=sys.stderr)
+    return 0
+
+
+def _scan_bounds(source, batch_size):
+    """Data bounding box, padded 5%, or None for no finite coordinates.
+
+    One pre-pass over the raw lat/lon columns (sources iterate
+    deterministically, so re-reading is safe); NaN and infinite
+    coordinates are skipped, and window_from_bounds clamps to the
+    Mercator-valid band itself.
+    """
+    import numpy as np
+
+    lat_lo = lon_lo = float("inf")
+    lat_hi = lon_hi = float("-inf")
+    for batch in source.batches(batch_size):
+        lat = np.asarray(batch["latitude"], np.float64)
+        lon = np.asarray(batch["longitude"], np.float64)
+        if len(lat) == 0:
+            continue
+        finite = np.isfinite(lat) & np.isfinite(lon)
+        if not finite.any():
+            continue
+        flat, flon = lat[finite], lon[finite]
+        lat_lo = min(lat_lo, float(flat.min()))
+        lat_hi = max(lat_hi, float(flat.max()))
+        lon_lo = min(lon_lo, float(flon.min()))
+        lon_hi = max(lon_hi, float(flon.max()))
+    if lat_lo > lat_hi:
+        return None
+    pad_lat = max(0.05 * (lat_hi - lat_lo), 1e-3)
+    pad_lon = max(0.05 * (lon_hi - lon_lo), 1e-3)
+    return (lat_lo - pad_lat, lat_hi + pad_lat,
+            lon_lo - pad_lon, lon_hi + pad_lon)
+
+
+def tiles_window(args):
+    """The window that ``tiles`` bins into: ``args``'s bounds at
+    ``--zoom``, aligned and padded to whole tiles of ``--pixel-delta``."""
+    from heatmap_tpu_torch.ops.histogram import window_from_bounds
+
+    return window_from_bounds(
+        (args.lat_min, args.lat_max),
+        (args.lon_min, args.lon_max),
+        zoom=args.zoom,
+        align_levels=min(args.pixel_delta, args.zoom),
+        pad_multiple=1 << args.pixel_delta,
+    )
+
+
+def run_tiles(args, source=None):
+    """The ``tiles`` command: bin ``args.input`` into the window raster on
+    ``args.device``, optionally splat it, and write the PNG tile tree.
+    Returns ``(summary, raster)``: the summary that ``tiles`` prints,
+    with the resolved backend and the milliseconds of each stage, and
+    the raster the tiles were rendered from, on ``args.device`` (None
+    when no point was read). ``source``, an opened io Source, replaces
+    ``args.input`` for callers that build their own."""
+    if args.zoom < args.pixel_delta:
+        raise SystemExit(
+            f"--zoom {args.zoom} must be >= --pixel-delta {args.pixel_delta} "
+            "(tile zoom = zoom - pixel_delta)"
+        )
+    if args.splat and (args.splat < 0 or args.splat % 2 == 0):
+        raise SystemExit(f"--splat {args.splat}: kernel size must be odd")
+    if args.sigma is not None and not args.sigma > 0:
+        raise SystemExit(f"--sigma {args.sigma}: must be positive")
+    import torch
+
+    from heatmap_tpu_torch.devices import StageTimer, resolve_device
+    from heatmap_tpu_torch.io import PNGTileSink, open_source
+    from heatmap_tpu_torch.ops.histogram import _pick_backend, bin_rowcol_window
+    from heatmap_tpu_torch.pipeline.batch import load_columns
+    from heatmap_tpu_torch.tilemath.mercator import project_points
+
+    device = resolve_device(args.device)
+    proj_dtype = torch.float32 if args.no_x64 else torch.float64
+    if source is None:
+        # Count-only runs skip the value column; --weighted reads it.
+        source = open_source(args.input, read_value=bool(args.weighted))
+    if args.auto_bounds:
+        bounds = _scan_bounds(source, args.batch_size)
+        if bounds is None:
+            return {"tiles": 0, "output": args.output}, None
+        args.lat_min, args.lat_max, args.lon_min, args.lon_max = bounds
+    window = tiles_window(args)
+    timer = StageTimer(device)
+    raster = None
+    t0 = time.perf_counter()
+    batches = iter(source.batches(args.batch_size))
+    while True:
+        with timer.stage("ingest"):
+            batch = next(batches, None)
+            if batch is not None:
+                cols = load_columns(batch)
+                if args.weighted and "value" not in cols:
+                    raise SystemExit(
+                        "--weighted needs a 'value' column in the input "
+                        "(CSV/JSONL/Parquet column named 'value')"
+                    )
+                lat = torch.as_tensor(cols["latitude"], device=device)
+                lon = torch.as_tensor(cols["longitude"], device=device)
+                weights = (torch.as_tensor(cols["value"], device=device).to(
+                    torch.float32) if args.weighted else None)
+        if batch is None:
+            break
+        with timer.stage("project"):
+            row, col, valid = project_points(lat, lon, window.zoom,
+                                             dtype=proj_dtype)
+        with timer.stage("bin"):
+            part = bin_rowcol_window(row, col, window, weights=weights,
+                                     valid=valid, backend=args.bin_backend)
+            raster = part if raster is None else raster + part
+    if raster is None:
+        return {"tiles": 0, "output": args.output}, None
+    if args.splat:
+        from heatmap_tpu_torch.ops.splat import gaussian_kernel_1d, splat_raster
+
+        with timer.stage("splat"):
+            raster = splat_raster(
+                raster, gaussian_kernel_1d(args.splat, args.sigma))
+    with timer.stage("egress"):
+        sink = PNGTileSink(args.output, pixel_delta=args.pixel_delta)
+        n = sink.write_window(raster.cpu().numpy(), window)
+    summary = {
+        "tiles": n,
+        "tile_zoom": args.zoom - args.pixel_delta,
+        "bounds": [round(args.lat_min, 6), round(args.lat_max, 6),
+                   round(args.lon_min, 6), round(args.lon_max, 6)],
+        "seconds": round(time.perf_counter() - t0, 3),
+        "output": args.output,
+        "device": str(device),
+        "window": [window.height, window.width],
+        "bin_backend": _pick_backend(args.bin_backend, window, device),
+        "stage_ms": {k: sum(v) for k, v in timer.ms.items()},
+    }
+    return summary, raster
+
+
+def cmd_tiles(args) -> int:
+    print(json.dumps(run_tiles(args)[0]))
     return 0
 
 

@@ -1,10 +1,12 @@
-"""Carry the cascade's state between the JAX package and the port.
+"""Carry state between the JAX package and the port.
 
 The system has no trained parameters: its state is the job's inputs
-(made from a seed) and the per-level cascade aggregates. Both packages
-hold a level as ``(keys int64[capacity], sums[capacity], n_unique)``;
-these helpers move that state through numpy, so the same intermediate
-state can feed either package's decode and egress.
+(made from a seed), the per-level cascade aggregates and, for window
+binning, the window and its rasters. Both packages hold a cascade level
+as ``(keys int64[capacity], sums[capacity], n_unique)`` and a window as
+the five integers of its ``Window``; these helpers move that state
+through numpy and plain integers, so the same intermediate state can
+feed either package without the port importing the other.
 """
 
 from __future__ import annotations
@@ -33,3 +35,24 @@ def levels_to_numpy(level_data):
         (keys.cpu().numpy(), sums.cpu().numpy(), int(n))
         for keys, sums, n in level_data
     ]
+
+
+def window_from_fields(zoom: int, row0: int, col0: int, height: int,
+                       width: int):
+    """The port's ``Window`` with these fields (for example those of a
+    JAX ``Window``: ``window_from_fields(**dataclasses.asdict(w))``)."""
+    from heatmap_tpu_torch.ops.histogram import Window
+
+    return Window(zoom=int(zoom), row0=int(row0), col0=int(col0),
+                  height=int(height), width=int(width))
+
+
+def raster_from_numpy(raster, device="cpu"):
+    """A window raster (numpy, or anything ``np.asarray`` takes, such as
+    a JAX array) as a tensor on ``device``, dtype kept."""
+    return torch.from_numpy(np.array(raster, copy=True)).to(device)
+
+
+def raster_to_numpy(raster):
+    """A window raster tensor as a host numpy array, dtype kept."""
+    return raster.detach().cpu().numpy()

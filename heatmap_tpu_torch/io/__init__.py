@@ -1,9 +1,11 @@
-"""Host-side ingest sources and egress sinks of the port."""
+"""Host-side ingest sources, egress sinks and the PNG tile writer of the
+port."""
 
 from heatmap_tpu_torch.io.sinks import (
     BlobSink,
     JSONLBlobSink,
     MemorySink,
+    PNGTileSink,
     open_sink,
 )
 from heatmap_tpu_torch.io.sources import (
@@ -16,5 +18,5 @@ from heatmap_tpu_torch.io.sources import (
 
 __all__ = [
     "BlobSink", "CSVSource", "JSONLBlobSink", "JSONLSource", "MemorySink",
-    "Source", "SyntheticSource", "open_sink", "open_source",
+    "PNGTileSink", "Source", "SyntheticSource", "open_sink", "open_source",
 ]

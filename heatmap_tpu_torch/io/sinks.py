@@ -1,10 +1,10 @@
-"""Egress sinks: heatmap blob writers.
+"""Egress sinks: heatmap blob writers and the PNG tile tree.
 
-Port of the memory and JSONL sinks of heatmap_tpu/io/sinks.py. Records
-are ``(id, heatmap)`` pairs where ``id`` is the composite
+Port of the memory, JSONL and PNG-tile sinks of heatmap_tpu/io/sinks.py.
+Blob records are ``(id, heatmap)`` pairs where ``id`` is the composite
 ``user|timespan|coarseTileId`` key and ``heatmap`` the JSON dict of
-detail-tile counts (reference heatmap.py:156-157). Every sink upserts
-by id, like the reference's Cassandra ``append`` mode.
+detail-tile counts (reference heatmap.py:156-157). Every blob sink
+upserts by id, like the reference's Cassandra ``append`` mode.
 """
 
 from __future__ import annotations
@@ -13,6 +13,10 @@ import dataclasses
 import json
 import os
 from typing import Iterable
+
+import numpy as np
+
+from heatmap_tpu_torch.io.png import raster_to_png
 
 
 class BlobSink:
@@ -103,6 +107,52 @@ class JSONLBlobSink(BlobSink):
                     rec = json.loads(line)
                     out[rec["id"]] = json.loads(rec["heatmap"])
         return out
+
+
+@dataclasses.dataclass
+class PNGTileSink:
+    """Slippy-map PNG tile tree: ``root/z/x/y.png``.
+
+    Renders dense window rasters (ops.histogram.Window layout: rows are
+    tile rows, cols are tile columns at ``window.zoom``) into standard
+    z/x/y web-map tiles of ``2^pixel_delta`` pixels, one pixel per
+    detail cell ``pixel_delta`` zooms finer."""
+
+    root: str
+    pixel_delta: int = 8
+    log_scale: bool = True
+
+    def write_window(self, raster, window, vmax=None) -> int:
+        """Write all complete z/x/y tiles covered by ``raster`` (a
+        (window.height, window.width) host array at window.zoom). Tile
+        zoom is ``window.zoom - pixel_delta``. Returns #tiles."""
+        raster = np.asarray(raster)
+        px = 1 << self.pixel_delta
+        tz = window.zoom - self.pixel_delta
+        if tz < 0:
+            raise ValueError(
+                f"window zoom {window.zoom} < pixel_delta {self.pixel_delta}"
+            )
+        if window.row0 % px or window.col0 % px:
+            raise ValueError("window origin must align to tile size")
+        n_ty, n_tx = raster.shape[0] // px, raster.shape[1] // px
+        vmax = vmax if vmax is not None else float(raster.max() or 1)
+        count = 0
+        for ty in range(n_ty):
+            for tx in range(n_tx):
+                block = raster[ty * px : (ty + 1) * px, tx * px : (tx + 1) * px]
+                if not block.any():
+                    continue
+                y = window.row0 // px + ty
+                x = window.col0 // px + tx
+                d = os.path.join(self.root, str(tz), str(x))
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, f"{y}.png"), "wb") as f:
+                    f.write(
+                        raster_to_png(block, log_scale=self.log_scale, vmax=vmax)
+                    )
+                count += 1
+        return count
 
 
 def open_sink(spec: str) -> BlobSink:

@@ -1,9 +1,11 @@
-"""Sparse zoom pyramids over sorted Morton (or composite) keys.
+"""Zoom pyramids: reshape-sums of dense window rasters, and sparse
+pyramids over sorted Morton (or composite) keys.
 
-Port of the sparse half of heatmap_tpu/ops/pyramid.py. Morton codes
-sorted once at detail zoom stay sorted under the ``>> 2`` parent shift,
-so every coarser level is a segment reduce over the already-sorted
-order:
+Port of heatmap_tpu/ops/pyramid.py. A dense window raster rolls up with
+2x2 reshape-sums (:func:`coarsen_raster`, :func:`pyramid_from_raster`).
+Morton codes sorted once at detail zoom stay sorted under the ``>> 2``
+parent shift, so every coarser sparse level is a segment reduce over the
+already-sorted order:
 
 - :func:`pyramid_sparse_morton` (the "scatter" backend) re-reduces each
   level from the previous level's capacity-sized aggregates;
@@ -21,6 +23,34 @@ from heatmap_tpu_torch.ops import sparse as sparse_ops
 from heatmap_tpu_torch.ops import sparse_partitioned as sp
 
 SENTINEL = torch.iinfo(torch.int64).max
+
+
+def coarsen_raster(raster):
+    """Sum 2x2 blocks: (..., H, W) -> (..., H//2, W//2), in the raster's
+    own dtype (torch would widen an int32 sum to int64).
+
+    Requires even H, W (Window.aligned_to guarantees this for aligned
+    windows).
+    """
+    *batch, h, w = raster.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"raster {tuple(raster.shape)} not 2x2-coarsenable")
+    r = raster.reshape(*batch, h // 2, 2, w // 2, 2)
+    return r.sum(dim=(-3, -1), dtype=raster.dtype)
+
+
+def pyramid_from_raster(raster, levels: int):
+    """Full rollup: returns [raster, coarsen(raster), ...], levels+1 entries.
+
+    The i-th entry is the detail raster coarsened i zooms; with an
+    aligned Window the entry at level i covers rows
+    [row0>>i, (row0+H)>>i) of the global grid at zoom-i.
+    """
+    out = [raster]
+    for _ in range(levels):
+        raster = coarsen_raster(raster)
+        out.append(raster)
+    return out
 
 
 def _level_caps(capacity, n: int, levels: int) -> list:

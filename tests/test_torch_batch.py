@@ -225,7 +225,12 @@ def test_import_hygiene():
     proc = subprocess.run(
         [sys.executable, "-c",
          "import heatmap_tpu_torch, heatmap_tpu_torch.cli, "
-         "heatmap_tpu_torch.interop, sys; "
+         "heatmap_tpu_torch.interop, heatmap_tpu_torch.bench, "
+         "heatmap_tpu_torch.io.png, heatmap_tpu_torch.io.sinks, "
+         "heatmap_tpu_torch.ops.histogram, "
+         "heatmap_tpu_torch.ops.pallas_kernels, "
+         "heatmap_tpu_torch.ops.partitioned, heatmap_tpu_torch.ops.pyramid, "
+         "heatmap_tpu_torch.ops.splat, heatmap_tpu_torch.tilemath.tile, sys; "
          "assert 'jax' not in sys.modules, 'jax imported'; "
          "assert 'heatmap_tpu' not in sys.modules, 'heatmap_tpu imported'"],
         cwd=REPO, capture_output=True, text=True, timeout=120)
