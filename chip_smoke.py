@@ -4,8 +4,10 @@
 
 Builds every CUDA kernel of ``heatmap_tpu_torch`` from the sources in
 this checkout and holds each kernel against its plain PyTorch version on
-the card, at the shapes its paths give it and at larger ones (bit-equal,
-or within the stated ``rtol`` for fractional float weights). Then it
+the card, at the shapes its paths give it, at larger ones and on the
+edge cases of ``heatmap_tpu_torch.kernel_cases`` (bit-equal, or within
+the stated ``rtol`` for fractional float weights; the segment reduce 20
+times per case). Then it
 drives the port's paths, each with the kernels' launch counts set to 0
 just before it and read just after:
 
@@ -17,7 +19,7 @@ just before it and read just after:
   window-histogram kernel), each raster bit-equal and each PNG tree
   byte-identical to the same run on the CPU;
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
-  defaults, checked against the plain scatter;
+  defaults (with its stage split), checked against the plain scatter;
 
 and the Gaussian splat's convolutions on the card against the CPU.
 
@@ -32,6 +34,8 @@ any result. It imports nothing of JAX and nothing of ``heatmap_tpu``.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import gc
 import json
 import math
@@ -54,6 +58,9 @@ N_MAIN = 4_000_000
 N_WEIGHTED = 1_000_000
 N_CROSSCHECK = 200_000
 WEIGHT_BOUND = 100
+#: Runs of the segment reduce per case, each compared with the plain
+#: version: a missing fence in the look-back shows only now and then.
+REPEATS = 20
 #: Points of the window-kernel phases and of the headline step.
 N_WINDOW = 1 << 25
 N_TILES = 4_000_000
@@ -90,6 +97,27 @@ def median_ms(fn, iters=20, warmup=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_us(fn, iters=10):
+    """Device time per call of ``fn`` (us) by kernel, from torch.profiler's
+    CUDA activity over ``iters`` calls after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", 0)
+        if total > 0:
+            name = e.key.removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + total / iters
+    return out
 
 
 def max_abs_err(got, want):
@@ -169,7 +197,13 @@ def phase_device():
 
 def phase_kernel(dev):
     """The segment-reduce kernel against its plain version, on the card,
-    bit for bit, then timed at the main path's shape."""
+    bit for bit, REPEATS times per case: at the main path's keys and at
+    the edge cases of ``kernel_cases`` (runs over tile edges, capacity
+    cuts and sentinel tails at tile edges, one key, all sentinels, at the
+    cascade's shifts; counts and bounded-integer weights, overflow and
+    poison). Then timed at the main path's shape and at each level of
+    the default cascade."""
+    from heatmap_tpu_torch import kernel_cases as kc
     from heatmap_tpu_torch.ops import sparse_partitioned as sp
 
     agg = sp.aggregate_sorted_keys_partitioned
@@ -180,13 +214,15 @@ def phase_kernel(dev):
     checks = []
 
     def check(name, keys, capacity, shift=0, sentinel=SENTINEL, **kw):
-        got = agg(keys, capacity, sentinel=sentinel, shift=shift, **kw)
         want = sp._plain(keys, capacity, sentinel, shift,
                          kw.get("sorted_weights"), kw.get("weight_bound"))
-        torch.cuda.synchronize()
-        assert_bit_equal(got, want, name)
+        for _ in range(REPEATS):
+            got = agg(keys, capacity, sentinel=sentinel, shift=shift, **kw)
+            torch.cuda.synchronize()
+            assert_bit_equal(got, want, name)
         checks.append({"case": name, "n": int(keys.shape[0]),
-                       "capacity": capacity, "n_unique": int(got[2])})
+                       "capacity": capacity, "n_unique": int(got[2]),
+                       "runs": REPEATS})
         return got
 
     # Composite z21 keys with their sentinel padding, at three cascade
@@ -214,6 +250,29 @@ def phase_kernel(dev):
                 weight_bound=WEIGHT_BOUND)
     assert int(got[2]) > n
 
+    # The edge cases, at every cascade shift, counts and weights.
+    for case in kc.SEGMENT_CASES:
+        keys_np, capacity = kc.segment_case(case)
+        keys = torch.as_tensor(keys_np, device=dev)
+        for shift in kc.SEGMENT_SHIFTS:
+            check(f"{case}_shift{shift}", keys, capacity, shift=shift,
+                  sentinel=SENTINEL >> shift)
+        wc = torch.as_tensor(kc.segment_weights(keys_np, WEIGHT_BOUND),
+                             device=dev)
+        check(f"{case}_weighted", keys, capacity, sorted_weights=wc,
+              weight_bound=WEIGHT_BOUND)
+        if case == "capacity_at_tile_edge":
+            for delta in (-1, 1):
+                got = check(f"{case}{delta:+d}", keys, capacity + delta)
+                assert int(got[2]) > capacity + delta
+        if case == "sentinel_tail_mid_tile":
+            for lane in (sp.TILE_KEYS - 1, sp.TILE_KEYS):
+                bad = wc.clone()
+                bad[lane] = float("nan")
+                got = check(f"{case}_poison{lane}", keys, capacity,
+                            sorted_weights=bad, weight_bound=WEIGHT_BOUND)
+                assert int(got[2]) > capacity
+
     # Timing at the main path's shape: level 0 of the default job.
     capacity = n
     err = max_abs_err(agg(skeys, capacity), sp._plain(
@@ -223,6 +282,9 @@ def phase_kernel(dev):
                                            None, None))
     library_ms = median_ms(
         lambda: torch.unique_consecutive(skeys, return_counts=True))
+    weighted_ms = median_ms(lambda: agg(skeys, capacity, sorted_weights=w,
+                                        weight_bound=WEIGHT_BOUND))
+    by_kernel = device_us(lambda: agg(skeys, capacity))
     # Every level of the default cascade alone, at its shift, shifted
     # sentinel and zoom-clamped capacity (as pipeline/cascade.py sets
     # them), away from the job's host work.
@@ -238,8 +300,10 @@ def phase_kernel(dev):
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     emit({"phase": "kernel_segment_reduce", "bit_equal": True,
           "checks": checks, "shape": {"n": n, "capacity": capacity,
-                                      "n_unique": n_unique0},
+                                      "n_unique": n_unique0,
+                                      "tile_keys": sp.TILE_KEYS},
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "weighted_ms": weighted_ms, "device_us": by_kernel,
           "level_ms": level_ms, "bound_ms": bound_ms, "bytes": bytes_moved,
           "max_abs_err": err})
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -590,26 +654,72 @@ def phase_kernel_window_histogram(dev):
     return tiles_counts
 
 
+def global_build_counts(row, col, window, weights=None, valid=None):
+    """Counts through the window-histogram kernel's global-atomic build
+    (``hm_window_histogram_counts_global``) at any window: the sort-free
+    alternative that the bucketed counts kernel was measured against."""
+    from heatmap_tpu_torch import _build
+    from heatmap_tpu_torch.ops.pallas_kernels import check_launch
+
+    assert weights is None
+    lib = _build.load("window_histogram", (
+        ("hm_window_histogram_counts_global",
+         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)),))
+    out = torch.zeros(window.height, window.width, dtype=torch.int32,
+                      device=row.device)
+    check_launch(lib.hm_window_histogram_counts_global(
+        row.data_ptr(), col.data_ptr(),
+        None if valid is None else valid.data_ptr(), row.shape[0],
+        window.row0, window.col0, window.height, window.width,
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "hm_window_histogram_counts_global")
+    return out
+
+
 def phase_kernel_window_partitioned(dev):
-    """Both run-length kernels against their plain version: at the
-    default ``tiles`` run's shape (its 1792x1280 z16 window, one
-    2^20-point batch), and at the headline window (4096x4096, 2^25
-    points, f32 projection), each with uniform and all-outside points
-    too, the headline with streams 1 and 8. Counts are timed at the
-    headline (the kernels line: a path of their own) and weights at the
-    ``tiles --weighted`` shape (their only path), each at the other
-    shape as well."""
+    """The partitioned counts kernel (bucketed) and the weighted
+    run-length kernel against their plain version: at the default
+    ``tiles`` run's shape (its 1792x1280 z16 window, one 2^20-point
+    batch), and at the headline window (4096x4096, 2^25 points, f32
+    projection), each with uniform and all-outside points too, the
+    headline with streams 1 and 8; the counts kernel also on the
+    ``kernel_cases`` windows (ragged sub-blocks, sub-block edges, a hot
+    sub-block split into work items, all outside). Counts are timed at
+    the headline (the kernels line: a path of their own) and weights at
+    the ``tiles --weighted`` shape (their only path), each at the other
+    shape as well; the window-histogram kernel's global-atomic build is
+    checked and timed at both windows beside them."""
+    from heatmap_tpu_torch import interop
+    from heatmap_tpu_torch import kernel_cases as kc
     from heatmap_tpu_torch.bench import headline_window
     from heatmap_tpu_torch.ops import partitioned as pt
 
     fn = pt.bin_rowcol_window_partitioned
     checks = {}
+    for case in kc.WINDOW_CASES:
+        fields, row, col, valid = kc.window_case(case)
+        window = interop.window_from_fields(**fields)
+        row, col, valid = (torch.as_tensor(x, device=dev)
+                           for x in (row, col, valid))
+        checks[case] = check_window_kernel(
+            fn, pt._plain, window,
+            [("counts", row, col, {"valid": valid}, True),
+             ("no_mask", row, col, {}, True)])
     window, row, col, valid = tiles_call(dev)
     assert (window.zoom, window.height, window.width) == (16, 1792, 1280)
     checks["tiles_1792x1280_z16"] = check_window_kernel(
         fn, pt._plain, window,
         window_cases(window, row, col, valid, dev, hostile=True))
+    checks["tiles_global_build"] = check_window_kernel(
+        global_build_counts, pt._plain, window,
+        [("counts", row, col, {"valid": valid}, True)])
     tiles_counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
+    tiles_counts["device_us"] = device_us(
+        lambda: fn(row, col, window, valid=valid))
+    tiles_global = time_window_kernel(global_build_counts, pt._plain, window,
+                                      row, col, valid)
     tiles_weighted = time_window_kernel(fn, pt._plain, window, row, col,
                                         valid, int_weights(row.shape[0], dev))
     del row, col, valid
@@ -621,16 +731,25 @@ def phase_kernel_window_partitioned(dev):
         checks[f"headline_streams{k}"] = check_window_kernel(
             fn, pt._plain, window, cases, streams=k)
     del cases
+    checks["headline_global_build"] = check_window_kernel(
+        global_build_counts, pt._plain, window,
+        [("counts", row, col, {"valid": valid}, True)])
     counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
+    counts["device_us"] = device_us(lambda: fn(row, col, window, valid=valid))
+    global_build = time_window_kernel(global_build_counts, pt._plain, window,
+                                      row, col, valid)
     weighted = time_window_kernel(fn, pt._plain, window, row, col, valid,
                                   int_weights(row.shape[0], dev))
-    # The wrapper's sort alone, at the counts shape.
-    ids = pt.cell_ids(row, col, window, valid)
-    sort_ms = median_ms(lambda: torch.sort(ids))
     emit({"phase": "kernel_window_partitioned", "bit_equal": True,
           "fractional_rtol": FRACTIONAL_RTOL, "checks": checks,
+          "plan": {"headline": dataclasses.asdict(
+                       pt.plan_counts(window, N_WINDOW)),
+                   "sub_side": pt.SUB_SIDE,
+                   "item_points": pt.ITEM_POINTS},
           "tiles_counts": tiles_counts, "tiles_int_weights": tiles_weighted,
-          "counts": counts, "int_weights": weighted, "sort_ms": sort_ms})
+          "tiles_global_build": tiles_global,
+          "counts": counts, "int_weights": weighted,
+          "global_build": global_build})
     return counts, tiles_weighted
 
 
@@ -740,6 +859,9 @@ def phase_headline(dev):
     rec = bench.run(device=dev)
     assert rec["bin_backend_resolved"] == "partitioned", rec
     assert rec["launches_per_step"] == 1, rec
+    split = rec["split_ms"]
+    assert set(split) == {"project", "bin", "pyramid", "sum_sync"}, split
+    assert all(v > 0 for v in split.values()), split
     window = bench.headline_window()
     lat, lon = bench.make_points(N_WINDOW)
     lat = torch.as_tensor(lat, device=dev)
@@ -792,7 +914,7 @@ def main() -> int:
         kernel_entry("window_histogram", "window_histogram.cu",
                      "heatmap_tpu/ops/pallas_kernels.py:49",
                      tiles_launches["window_histogram"], histogram),
-        kernel_entry("window_partitioned", "window_partitioned.cu",
+        kernel_entry("window_partitioned", "window_bucketed.cu",
                      "heatmap_tpu/ops/partitioned.py:104",
                      tiles_launches["window_partitioned"], part_counts),
         kernel_entry("window_partitioned_weighted", "window_partitioned.cu",

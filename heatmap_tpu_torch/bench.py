@@ -10,7 +10,10 @@ projection, window binning, reshape-sum pyramid up to z0) and the same
 single-core numpy baseline. It runs on the device it is given, with no
 probe and no fallback, and prints ONE JSON line of what actually ran:
 points/s, ``vs_baseline``, the device's name, the requested and the
-resolved binning backend, and the kernel launches per step.
+resolved binning backend, the kernel launches per step and, on a CUDA
+device, the step split into its stages (``split_ms``: one more step
+after the timed ones, fenced by CUDA events; the timed steps are not
+fenced).
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ from heatmap_tpu_torch.ops.histogram import (
     BACKENDS,
     _pick_backend,
     bin_points_window,
+    bin_rowcol_window,
     window_from_bounds,
 )
 from heatmap_tpu_torch.ops.pyramid import coarsen_raster
+from heatmap_tpu_torch.tilemath import mercator
 
 
 def make_points(n, seed=0):
@@ -103,6 +108,30 @@ def step(lat, lon, window, levels: int, backend: str,
     return pyr[-1].sum(), pyr
 
 
+def split_step(lat, lon, window, levels: int, backend: str,
+               proj_dtype=torch.float32) -> dict:
+    """ms of one step's stages on a CUDA device, from CUDA events
+    recorded between them: the projection, the binning, the pyramid, and
+    the top-level sum with its host sync. The same work as :func:`step`,
+    written out stage by stage."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    marks[0].record()
+    row, col, valid = mercator.project_points(lat, lon, window.zoom,
+                                              dtype=proj_dtype)
+    marks[1].record()
+    raster = bin_rowcol_window(row, col, window, valid=valid,
+                               backend=backend)
+    marks[2].record()
+    pyr = pyramid_capped(raster, levels)
+    marks[3].record()
+    int(pyr[-1].sum())
+    marks[4].record()
+    torch.cuda.synchronize()
+    names = ("project", "bin", "pyramid", "sum_sync")
+    return {k: a.elapsed_time(b) for k, a, b in zip(names, marks, marks[1:])}
+
+
 def _launches() -> int:
     return (pallas_kernels.bin_rowcol_window_pallas.launches
             + partitioned.bin_rowcol_window_partitioned.launches
@@ -135,6 +164,8 @@ def run(n: int = 1 << 25, zoom: int = 15, steps: int = 5,
         times.append(time.perf_counter() - t0)
     launches = _launches() - launches0
     dt = statistics.median(times)
+    split = (split_step(d_lat, d_lon, window, levels, backend)
+             if dev.type == "cuda" else None)
 
     bl_lat, bl_lon = make_points(baseline_n, seed=1)
     t0 = time.perf_counter()
@@ -157,6 +188,7 @@ def run(n: int = 1 << 25, zoom: int = 15, steps: int = 5,
         "launches_per_step": launches / steps,
         "step_ms": dt * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
+        "split_ms": split,
         "baseline_points_per_s": baseline_n / bl_dt,
         "total": int(total),
     }

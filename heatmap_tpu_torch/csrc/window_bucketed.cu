@@ -1,0 +1,382 @@
+// Bucketed, privatised window counts: the counts path of the large-window
+// ("partitioned") binning backend of heatmap_tpu_torch.ops.partitioned.
+//
+// Replaces heatmap_tpu/ops/partitioned.py::_partition_kernel (with its
+// hosts _partitioned_path and _bin_partitioned_jit). The TPU kernel sorts
+// cell ids into streams only to cut them into chunks that each land in
+// one aligned 256x256 block, whose accumulator it keeps on chip (VMEM
+// slabs) while an MXU matmul adds the chunk. The idea that carries over
+// is grouping points by aligned block, never ordering them by cell.
+//
+// What replaced what. The first port localised the points to int32 cell
+// ids, sorted all of them with torch.sort (about 80% of its time at the
+// headline window: radix-sort traffic of about 2 GB for 2^25 ids) and
+// added each run of equal ids with one atomic. Now four passes, with
+// the window cut into aligned sub-blocks of kSide x kSide cells (a
+// 128x128 int32 sub-block is 64 KiB, so it fits a block's shared memory;
+// a 256x256 one would not):
+//
+//   1. count_kernel: grid (bucket groups, point chunks). Each block
+//      localises the points of its chunk once (row, col, valid: 9 B a
+//      point), drops those outside the window or invalid, and counts
+//      points per sub-block of its group in a shared histogram, with
+//      __match_any_sync merging the lanes of a warp that hit one
+//      sub-block. It adds each non-zero count to the sub-block's global
+//      total with one atomicAdd, and keeps the old value it returns: the
+//      chunk's own offset inside the sub-block's bucket (chunk_base).
+//   2. scan_kernel (one block): exclusive scans of the sub-block totals
+//      into bucket starts, and of their work items (ceil(count /
+//      item_points)) into item starts.
+//   3. scatter_kernel: the same grid and chunks as pass 1. Each block
+//      starts its shared cursors at bucket start + chunk_base and writes
+//      each kept point's local cell offset (14 bits, as uint16) into its
+//      bucket, one shared atomic per warp and sub-block. The order inside
+//      a bucket is free: counts are order-free.
+//   4. bin_kernel: one block per work item, at most item_points points of
+//      one bucket. It zeroes a shared sub-block, adds its points with
+//      shared atomics, and flushes each non-zero cell to the
+//      zeroed raster with one global atomicAdd. Splitting a hot bucket
+//      into items keeps a hot spot (a quarter of the headline's points
+//      in a few sub-blocks) from serialising on one SM.
+//
+// The grid of pass 4 is an upper bound (ceil(n / item_points) + buckets)
+// so nothing waits on the host; blocks past the real item count return.
+// Sub-blocks on the right and bottom edges are ragged: their cells past
+// the window are never hit, so never flushed.
+//
+// Bound: HBM bandwidth. The function needs the points read once (9 B) and
+// the raster written once (4 B a cell); the passes move about 2^25 x
+// (9 + 9 + 2 + 2) B plus zeroing and flushing the raster at the
+// headline. Counts are int32, exact to 2^31 - 1 per cell, and
+// byte-identical run to run.
+//
+// The kernels allocate nothing and launch on the caller's stream; the
+// caller zeroes the raster and the bucket totals. The entry point
+// returns the cudaError_t of its launches, and refuses geometry that the
+// kernels were not built for, so the Python planning cannot drift.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSideShift = 7;
+constexpr int kSide = 1 << kSideShift;
+constexpr int kSubCells = kSide * kSide;
+constexpr int kThreads = 512;
+// Points a thread takes per step of passes 1 and 3, and cells per step
+// of pass 4 (one 16-byte load each).
+constexpr int kQuad = 4;
+constexpr int kCellVec = 8;
+constexpr int kScanThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+// Largest bucket group of passes 1 and 3 (48 KiB of shared memory).
+constexpr int kMaxGroupBuckets = 12288;
+
+struct Geometry {
+  int row0, col0, height, width, sub_cols, buckets;
+};
+
+// Buckets relative to this block's group (-1: dropped, or another
+// group's) and local cell offsets of the kQuad points from i. With vec,
+// the rows, columns and valid bytes come in 16-, 16- and 4-byte loads,
+// so each thread keeps several points in flight.
+__device__ __forceinline__ void load_quad(
+    const int* __restrict__ row, const int* __restrict__ col,
+    const unsigned char* __restrict__ valid, bool vec, long long i,
+    long long end, const Geometry& g, int b0, int group_size,
+    int (&bucket)[kQuad], int (&local)[kQuad]) {
+  int r[kQuad], c[kQuad];
+  bool ok[kQuad];
+  if (vec && i + kQuad <= end) {
+    const int4 rv = __ldg(reinterpret_cast<const int4*>(row + i));
+    const int4 cv = __ldg(reinterpret_cast<const int4*>(col + i));
+    r[0] = rv.x; r[1] = rv.y; r[2] = rv.z; r[3] = rv.w;
+    c[0] = cv.x; c[1] = cv.y; c[2] = cv.z; c[3] = cv.w;
+    uchar4 vv = make_uchar4(1, 1, 1, 1);
+    if (valid != nullptr) {
+      vv = __ldg(reinterpret_cast<const uchar4*>(valid + i));
+    }
+    ok[0] = vv.x; ok[1] = vv.y; ok[2] = vv.z; ok[3] = vv.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      ok[j] = i + j < end;
+      r[j] = ok[j] ? __ldg(row + i + j) : 0;
+      c[j] = ok[j] ? __ldg(col + i + j) : 0;
+      if (ok[j] && valid != nullptr) ok[j] = valid[i + j] != 0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kQuad; ++j) {
+    const long long rr = (long long)r[j] - g.row0;
+    const long long cc = (long long)c[j] - g.col0;
+    bucket[j] = -1;
+    local[j] = 0;
+    if (ok[j] && rr >= 0 && rr < g.height && cc >= 0 && cc < g.width) {
+      const int b = ((int)rr >> kSideShift) * g.sub_cols +
+                    ((int)cc >> kSideShift) - b0;
+      if (b >= 0 && b < group_size) {
+        bucket[j] = b;
+        local[j] =
+            (((int)rr & (kSide - 1)) << kSideShift) | ((int)cc & (kSide - 1));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    count_kernel(const int* __restrict__ row, const int* __restrict__ col,
+                 const unsigned char* __restrict__ valid, bool vec,
+                 long long n, long long per_chunk, Geometry g,
+                 int group_buckets, unsigned* __restrict__ bucket_count,
+                 unsigned* __restrict__ chunk_base) {
+  extern __shared__ unsigned hist[];
+  const int b0 = blockIdx.x * group_buckets;
+  const int group_size = min(group_buckets, g.buckets - b0);
+  for (int i = threadIdx.x; i < group_size; i += kThreads) hist[i] = 0;
+  __syncthreads();
+  const long long begin = (long long)blockIdx.y * per_chunk;
+  const long long end = min(begin + per_chunk, n);
+  const int lane = threadIdx.x & 31;
+  // A bound uniform over the block: every warp runs whole iterations, so
+  // __match_any_sync sees all 32 lanes.
+  for (long long base = begin; base < end; base += kThreads * kQuad) {
+    int bucket[kQuad], local[kQuad];
+    load_quad(row, col, valid, vec, base + threadIdx.x * kQuad, end, g, b0,
+              group_size, bucket, local);
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      const unsigned peers = __match_any_sync(kFull, bucket[j]);
+      if (bucket[j] >= 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(hist + bucket[j], __popc(peers));
+      }
+    }
+  }
+  __syncthreads();
+  unsigned* base_row = chunk_base + (long long)blockIdx.y * g.buckets + b0;
+  for (int i = threadIdx.x; i < group_size; i += kThreads) {
+    const unsigned v = hist[i];
+    if (v != 0) base_row[i] = atomicAdd(bucket_count + b0 + i, v);
+  }
+}
+
+__device__ __forceinline__ unsigned warp_inclusive_sum(unsigned v,
+                                                       int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned u = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// Exclusive scans of the bucket totals (points) and of their work items,
+// buckets + 1 entries each; the last entries are the totals.
+__global__ void __launch_bounds__(kScanThreads)
+    scan_kernel(const unsigned* __restrict__ bucket_count, int buckets,
+                int item_points, unsigned* __restrict__ bucket_start,
+                unsigned* __restrict__ item_start) {
+  __shared__ unsigned warp_points[32], warp_items[32];
+  __shared__ unsigned carry_points, carry_items;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry_points = carry_items = 0;
+  __syncthreads();
+  for (int base = 0; base < buckets; base += kScanThreads) {
+    const int b = base + threadIdx.x;
+    const unsigned p = b < buckets ? bucket_count[b] : 0;
+    const unsigned it = (p + item_points - 1) / item_points;
+    const unsigned ip = warp_inclusive_sum(p, lane);
+    const unsigned ii = warp_inclusive_sum(it, lane);
+    if (lane == 31) {
+      warp_points[warp] = ip;
+      warp_items[warp] = ii;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      warp_points[lane] = warp_inclusive_sum(warp_points[lane], lane);
+      warp_items[lane] = warp_inclusive_sum(warp_items[lane], lane);
+    }
+    __syncthreads();
+    const unsigned before_p = warp > 0 ? warp_points[warp - 1] : 0;
+    const unsigned before_i = warp > 0 ? warp_items[warp - 1] : 0;
+    if (b < buckets) {
+      bucket_start[b] = carry_points + before_p + ip - p;
+      item_start[b] = carry_items + before_i + ii - it;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      carry_points += warp_points[31];
+      carry_items += warp_items[31];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    bucket_start[buckets] = carry_points;
+    item_start[buckets] = carry_items;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const int* __restrict__ row, const int* __restrict__ col,
+                   const unsigned char* __restrict__ valid, bool vec,
+                   long long n, long long per_chunk, Geometry g,
+                   int group_buckets,
+                   const unsigned* __restrict__ bucket_start,
+                   const unsigned* __restrict__ chunk_base,
+                   unsigned short* __restrict__ cells) {
+  extern __shared__ unsigned cursor[];
+  const int b0 = blockIdx.x * group_buckets;
+  const int group_size = min(group_buckets, g.buckets - b0);
+  const unsigned* base_row =
+      chunk_base + (long long)blockIdx.y * g.buckets + b0;
+  // Entries of buckets this chunk never hits are stale and never used.
+  for (int i = threadIdx.x; i < group_size; i += kThreads) {
+    cursor[i] = bucket_start[b0 + i] + base_row[i];
+  }
+  __syncthreads();
+  const long long begin = (long long)blockIdx.y * per_chunk;
+  const long long end = min(begin + per_chunk, n);
+  const int lane = threadIdx.x & 31;
+  for (long long base = begin; base < end; base += kThreads * kQuad) {
+    int bucket[kQuad], local[kQuad];
+    load_quad(row, col, valid, vec, base + threadIdx.x * kQuad, end, g, b0,
+              group_size, bucket, local);
+#pragma unroll
+    for (int j = 0; j < kQuad; ++j) {
+      const unsigned peers = __match_any_sync(kFull, bucket[j]);
+      const int leader = __ffs(peers) - 1;
+      unsigned slot = 0;
+      if (bucket[j] >= 0 && lane == leader) {
+        slot = atomicAdd(cursor + bucket[j], __popc(peers));
+      }
+      slot = __shfl_sync(kFull, slot, leader);
+      if (bucket[j] >= 0) {
+        cells[slot + __popc(peers & ((1u << lane) - 1))] =
+            (unsigned short)local[j];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bin_kernel(const unsigned short* __restrict__ cells,
+               const unsigned* __restrict__ bucket_start,
+               const unsigned* __restrict__ item_start, Geometry g,
+               int item_points, int* __restrict__ out) {
+  extern __shared__ int sub[];
+  const unsigned item = blockIdx.x;
+  if (item >= item_start[g.buckets]) return;
+  // The bucket of this item: the last b with item_start[b] <= item (an
+  // empty bucket shares its start with the next one, so it never wins).
+  int lo = 0, hi = g.buckets - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (item_start[mid] <= item) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const int b = lo;
+  const unsigned first =
+      bucket_start[b] + (item - item_start[b]) * (unsigned)item_points;
+  const unsigned last = min(first + (unsigned)item_points, bucket_start[b + 1]);
+  for (int i = threadIdx.x; i < kSubCells; i += kThreads) sub[i] = 0;
+  __syncthreads();
+  // kCellVec cells a thread per 16-byte load, from the aligned group
+  // that holds `first`; cells outside [first, last) are masked.
+  for (unsigned base = first & ~(unsigned)(kCellVec - 1); base < last;
+       base += kThreads * kCellVec) {
+    const unsigned i0 = base + threadIdx.x * kCellVec;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (i0 < last) v = __ldg(reinterpret_cast<const uint4*>(cells + i0));
+    const unsigned words[4] = {v.x, v.y, v.z, v.w};
+    // One shared atomic a point: the cells of a warp are mostly distinct
+    // here, where __match_any_sync measured slower than the conflicts it
+    // saves.
+#pragma unroll
+    for (int j = 0; j < kCellVec; ++j) {
+      const unsigned i = i0 + j;
+      if (i >= first && i < last) {
+        atomicAdd(sub + ((words[j >> 1] >> (16 * (j & 1))) & 0xffffu), 1);
+      }
+    }
+  }
+  __syncthreads();
+  const int r0 = (b / g.sub_cols) << kSideShift;
+  const int c0 = (b % g.sub_cols) << kSideShift;
+  int* dst = out + (long long)r0 * g.width + c0;
+  for (int i = threadIdx.x; i < kSubCells; i += kThreads) {
+    const int v = sub[i];
+    if (v != 0) {
+      atomicAdd(dst + (long long)(i >> kSideShift) * g.width +
+                    (i & (kSide - 1)),
+                v);
+    }
+  }
+}
+
+}  // namespace
+
+// Counts of (row, col) points into the zeroed int32 raster out (height x
+// width at row0, col0); valid may be null. The geometry comes from
+// ops/partitioned.py's plan: sub-blocks of side x side cells, sub_cols
+// per row and buckets in all; passes 1 and 3 on a (groups, chunks) grid
+// of group_buckets buckets and per_chunk points; pass 4 on items_max
+// blocks of at most item_points points. Scratch: bucket_count (buckets,
+// zeroed), chunk_base (chunks x buckets), bucket_start and item_start
+// (buckets + 1 each), cells (n uint16, 16-byte aligned, with room for
+// the kCellVec - 1 cells that pass 4's aligned loads read past n).
+extern "C" int hm_window_bucketed_counts(
+    const void* row, const void* col, const void* valid, long long n,
+    int row0, int col0, int height, int width, int side, int sub_cols,
+    int buckets, int group_buckets, int groups, int chunks,
+    long long per_chunk, int item_points, long long items_max,
+    void* bucket_count, void* chunk_base, void* bucket_start,
+    void* item_start, void* cells, void* out, void* stream) {
+  if (side != kSide || group_buckets < 1 ||
+      group_buckets > kMaxGroupBuckets || buckets < 1 || groups < 1 ||
+      chunks < 1 || chunks > 65535 || item_points < 1 || n <= 0 ||
+      n > 0x7fffffffLL || (long long)groups * group_buckets < buckets ||
+      (long long)chunks * per_chunk < n ||
+      ((unsigned long long)cells & 15ull) != 0 ||
+      items_max < (n + item_points - 1) / item_points + buckets ||
+      items_max > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Geometry g{row0, col0, height, width, sub_cols, buckets};
+  const dim3 grid((unsigned)groups, (unsigned)chunks);
+  const bool vec = per_chunk % kQuad == 0 &&
+                   (((unsigned long long)row | (unsigned long long)col) &
+                    15ull) == 0 &&
+                   ((unsigned long long)valid & 3ull) == 0;
+  const size_t hist_bytes = (size_t)group_buckets * sizeof(unsigned);
+  count_kernel<<<grid, kThreads, hist_bytes, s>>>(
+      (const int*)row, (const int*)col, (const unsigned char*)valid, vec, n,
+      per_chunk, g, group_buckets, (unsigned*)bucket_count,
+      (unsigned*)chunk_base);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scan_kernel<<<1, kScanThreads, 0, s>>>(
+      (const unsigned*)bucket_count, buckets, item_points,
+      (unsigned*)bucket_start, (unsigned*)item_start);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  scatter_kernel<<<grid, kThreads, hist_bytes, s>>>(
+      (const int*)row, (const int*)col, (const unsigned char*)valid, vec, n,
+      per_chunk, g, group_buckets, (const unsigned*)bucket_start,
+      (const unsigned*)chunk_base, (unsigned short*)cells);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int sub_bytes = kSubCells * (int)sizeof(int);
+  e = cudaFuncSetAttribute(bin_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sub_bytes);
+  if (e != cudaSuccess) return (int)e;
+  bin_kernel<<<(unsigned)items_max, kThreads, sub_bytes, s>>>(
+      (const unsigned short*)cells, (const unsigned*)bucket_start,
+      (const unsigned*)item_start, g, item_points, (int*)out);
+  return (int)cudaGetLastError();
+}

@@ -112,10 +112,10 @@ __global__ void __launch_bounds__(kThreads)
 template <typename Acc>
 int launch(const void* row, const void* col, const void* valid,
            const void* weights, long long n, int row0, int col0, int height,
-           int width, void* out, void* stream) {
+           int width, void* out, void* stream, bool banded = true) {
   if (n <= 0) return (int)cudaSuccess;  // never a zero-size grid
   const long long row_bytes = (long long)width * (long long)sizeof(Acc);
-  const bool shared = row_bytes <= kBandBytes;
+  const bool shared = banded && row_bytes <= kBandBytes;
   const long long band_rows =
       shared ? (kBandBytes / row_bytes < height ? kBandBytes / row_bytes
                                                 : height)
@@ -168,4 +168,15 @@ extern "C" int hm_window_histogram_weighted(const void* row, const void* col,
                                             void* stream) {
   return launch<float>(row, col, valid, weights, n, row0, col0, height, width,
                        out, stream);
+}
+
+// Counts through the global-atomic build at any window width, never the
+// shared-memory bands. Nothing in the package calls it: chip_smoke.py
+// times it against the partitioned counts kernel at that backend's
+// windows (PERF.md).
+extern "C" int hm_window_histogram_counts_global(
+    const void* row, const void* col, const void* valid, long long n,
+    int row0, int col0, int height, int width, void* out, void* stream) {
+  return launch<int>(row, col, valid, nullptr, n, row0, col0, height, width,
+                     out, stream, false);
 }

@@ -1,47 +1,44 @@
-// Run-length binning of sorted cell ids: the large-window ("partitioned")
-// binning backend of heatmap_tpu_torch.ops.partitioned.
+// Run-length binning of sorted cell ids: the weighted path of the
+// large-window ("partitioned") binning backend of
+// heatmap_tpu_torch.ops.partitioned.
 //
-// Replaces heatmap_tpu/ops/partitioned.py::_partition_kernel and
-// ::_partition_kernel_weighted (with their hosts _partitioned_path and
-// _bin_partitioned_jit). The TPU kernels sort the cell ids into streams,
-// cut them into chunks, turn each chunk that lands in one aligned
-// 256x256 block into a one-hot MXU matmul into per-stream block slabs,
-// send the other chunks through a bounded scatter tail, and fall back to
-// a full scatter on hostile data. That machinery exists to reach the
+// Replaces heatmap_tpu/ops/partitioned.py::_partition_kernel_weighted
+// (with its hosts _partitioned_path and _bin_partitioned_jit). The TPU
+// kernel sorts the cell ids into streams, cuts them into chunks, turns
+// each chunk that lands in one aligned 256x256 block into a one-hot MXU
+// matmul (the weight in the column one-hot) into per-stream block slabs,
+// sends the other chunks through a bounded scatter tail, and falls back
+// to a full scatter on hostile data. That machinery exists to reach the
 // MXU; on Hopper none of it is needed:
 //
 //   1. hm_window_cell_ids localises each point, in one pass, to an int32
 //      cell id r * W + c, with dropped points (out of the window, or
 //      invalid) set to the sentinel hw. The caller sorts the ids with
-//      torch.sort (the JAX package leaves its sort to XLA too) and,
-//      weighted, gathers the weights by the sort's indices.
-//   2. hm_window_run_length_*: each thread walks kItems consecutive
-//      sorted ids, sums while the id stays the same, and issues ONE
-//      atomicAdd into the zeroed raster where a run ends. Sorting puts a
-//      hot cell's points next to each other, so a cell that thousands of
-//      clustered GPS points hit sees one atomic per thread that touches
-//      it instead of one per point. The first sentinel ends the thread's
-//      walk (sentinels sort last), so a dropped point's weight is never
-//      read.
+//      torch.sort and gathers the weights by the sort's indices.
+//   2. hm_window_run_length_weighted: each thread walks kItems
+//      consecutive sorted ids, sums while the id stays the same, and
+//      issues ONE atomicAdd into the zeroed raster where a run ends, so a
+//      hot cell sees one atomic per thread that touches it instead of
+//      one per point. The first sentinel ends the thread's walk
+//      (sentinels sort last), so a dropped point's weight is never read.
 //
-// Counts accumulate in int32 atomics: order-free, exact, byte-identical
-// run to run. Weights accumulate in float32, in sorted order inside a
-// thread and by atomics across threads: exact for integer weights with
-// per-cell sums below 2^24, within f32 rounding otherwise (the JAX
-// package's own bound for its weighted kernel).
+// (The counts path no longer sorts: csrc/window_bucketed.cu.)
+//
+// Weights accumulate in float32, in sorted order inside a thread and by
+// atomics across threads: exact for integer weights with per-cell sums
+// below 2^24, within f32 rounding otherwise (the JAX package's own bound
+// for its weighted kernel).
 //
 // Bound: HBM bandwidth, and in practice the sort. Per point the
 // localisation reads 9 B (row, col, valid) and writes a 4 B id; the
-// run-length pass reads the 4 B id (8 B with the weight); the raster is
+// run-length pass reads the id and the weight (8 B); the raster is
 // written once.
 //
-// The raster is zeroed by the caller; the kernel allocates nothing and
-// launches on the caller's stream. Each entry point returns the
+// The raster is zeroed by the caller; the kernels allocate nothing and
+// launch on the caller's stream. Each entry point returns the
 // cudaError_t of the launch.
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -65,16 +62,16 @@ __global__ void cell_ids_kernel(const int* __restrict__ row,
   }
 }
 
-template <typename Acc>
 __global__ void run_length_kernel(const int* __restrict__ ids,
                                   const float* __restrict__ weights,
-                                  long long n, int hw, Acc* __restrict__ out) {
+                                  long long n, int hw,
+                                  float* __restrict__ out) {
   const long long begin =
       ((long long)blockIdx.x * kThreads + threadIdx.x) * kItems;
   if (begin >= n) return;
   const long long end = begin + kItems < n ? begin + kItems : n;
   int run = -1;
-  Acc sum = 0;
+  float sum = 0;
   for (long long i = begin; i < end; ++i) {
     const int id = __ldg(ids + i);
     if (id >= hw) break;  // sentinels sort last: nothing real follows
@@ -83,25 +80,9 @@ __global__ void run_length_kernel(const int* __restrict__ ids,
       run = id;
       sum = 0;
     }
-    if constexpr (std::is_same_v<Acc, int>) {
-      sum += 1;
-    } else {
-      sum += __ldg(weights + i);
-    }
+    sum += __ldg(weights + i);
   }
   if (run >= 0) atomicAdd(out + run, sum);
-}
-
-template <typename Acc>
-int launch(const void* ids, const void* weights, long long n, int hw,
-           void* out, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;  // never a zero-size grid
-  const long long per_block = (long long)kThreads * kItems;
-  const long long blocks = (n + per_block - 1) / per_block;
-  run_length_kernel<Acc><<<(unsigned int)blocks, kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int*)ids, (const float*)weights, n, hw, (Acc*)out);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -122,16 +103,18 @@ extern "C" int hm_window_cell_ids(const void* row, const void* col,
   return (int)cudaGetLastError();
 }
 
-// Sorted int32 cell ids (sentinel hw for dropped points) -> int32 counts.
-extern "C" int hm_window_run_length_counts(const void* sorted_ids, long long n,
-                                           int hw, void* out, void* stream) {
-  return launch<int>(sorted_ids, nullptr, n, hw, out, stream);
-}
-
-// The same with float32 weights in the ids' sorted order -> float32 sums.
+// Sorted int32 cell ids (sentinel hw for dropped points) and float32
+// weights in the ids' sorted order -> float32 sums.
 extern "C" int hm_window_run_length_weighted(const void* sorted_ids,
                                              const void* sorted_weights,
                                              long long n, int hw, void* out,
                                              void* stream) {
-  return launch<float>(sorted_ids, sorted_weights, n, hw, out, stream);
+  if (n <= 0) return (int)cudaSuccess;  // never a zero-size grid
+  const long long per_block = (long long)kThreads * kItems;
+  const long long blocks = (n + per_block - 1) / per_block;
+  run_length_kernel<<<(unsigned int)blocks, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const int*)sorted_ids, (const float*)sorted_weights, n, hw,
+      (float*)out);
+  return (int)cudaGetLastError();
 }

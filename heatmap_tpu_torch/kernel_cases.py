@@ -1,0 +1,170 @@
+"""Edge-case inputs of the segment-reduce and partitioned-counts kernels.
+
+Made with numpy from a seed, so the same inputs reach the card
+(``chip_smoke.py`` holds each kernel bit-equal to its plain version on
+them) and the CPU tests (``tests/test_torch_*.py`` hold the plain
+versions equal to the JAX package on them). The shapes follow the
+kernels' own geometry: segment runs and sentinel tails placed against
+tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys, and points
+placed against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE``
+cells and split into work items of ``ops.partitioned.ITEM_POINTS``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from heatmap_tpu_torch.ops.partitioned import ITEM_POINTS, SUB_SIDE
+from heatmap_tpu_torch.ops.sparse_partitioned import TILE_KEYS
+
+SENTINEL = np.iinfo(np.int64).max
+
+SEGMENT_CASES = (
+    "run_over_tile",
+    "run_over_three_tiles",
+    "capacity_at_tile_edge",
+    "sentinel_tail_mid_tile",
+    "sentinel_tail_at_tile_edge",
+    "below_one_tile",
+    "one_key",
+    "all_sentinel",
+    "many_tiles",
+)
+#: The cascade's shifts are 2 * level: level 1, 5 and 15 (the last
+#: level of the default z21 -> z6 job), beside 0.
+SEGMENT_SHIFTS = (0, 2, 10, 30)
+
+
+def _runs(rng, lengths):
+    """Sorted keys below 2^50: one distinct key per run length."""
+    lengths = np.asarray(lengths, np.int64)
+    keys = np.sort(rng.choice(1 << 50, lengths.size, replace=False))
+    return np.repeat(keys, lengths)
+
+
+def _short_runs(rng, n):
+    """Runs of 1 to 4 keys, ``n`` keys in all."""
+    lengths = rng.integers(1, 5, n)
+    lengths = lengths[: np.searchsorted(np.cumsum(lengths), n) + 1]
+    lengths[-1] -= lengths.sum() - n
+    return lengths[lengths > 0]
+
+
+def segment_case(name: str, tile: int = TILE_KEYS, seed: int = 0):
+    """``(sorted int64 keys, capacity)`` of one named case; sentinel
+    lanes hold int64 max."""
+    rng = np.random.default_rng([seed, SEGMENT_CASES.index(name)])
+    if name == "run_over_tile":
+        # A run of 1.5 tiles that starts a third into tile 0.
+        lengths = np.concatenate([_short_runs(rng, tile // 3),
+                                  [tile + tile // 2],
+                                  _short_runs(rng, tile)])
+        keys = _runs(rng, lengths)
+        return keys, keys.size
+    if name == "run_over_three_tiles":
+        # From the middle of tile 0, over all of tile 1, into tile 2.
+        lengths = np.concatenate([_short_runs(rng, tile // 2),
+                                  [2 * tile + 1],
+                                  _short_runs(rng, tile // 2 + 7)])
+        keys = _runs(rng, lengths)
+        return keys, keys.size
+    if name == "capacity_at_tile_edge":
+        # A run ends exactly at the first tile edge, and capacity keeps
+        # exactly the segments before it.
+        head = _short_runs(rng, tile)
+        keys = _runs(rng, np.concatenate([head, _short_runs(rng, tile + 9)]))
+        return keys, head.size
+    if name == "sentinel_tail_mid_tile":
+        keys = _runs(rng, _short_runs(rng, tile + tile // 2 + 3))
+        keys = np.concatenate([keys, np.full(tile + 11, SENTINEL)])
+        return keys, keys.size
+    if name == "sentinel_tail_at_tile_edge":
+        keys = _runs(rng, _short_runs(rng, 2 * tile))
+        keys = np.concatenate([keys, np.full(tile, SENTINEL)])
+        return keys, keys.size
+    if name == "below_one_tile":
+        keys = _runs(rng, _short_runs(rng, tile // 4 + 1))
+        return keys, keys.size
+    if name == "one_key":
+        return np.asarray([42], np.int64), 4
+    if name == "all_sentinel":
+        return np.full(tile + 5, SENTINEL, np.int64), 16
+    if name == "many_tiles":
+        # Geometric run lengths up to a few tiles, so the look-back
+        # crosses many tiles that open no segment.
+        lengths = np.minimum(rng.geometric(0.02, 24 * tile // 50),
+                             3 * tile)
+        keys = _runs(rng, lengths)[: 12 * tile + 5]
+        return keys, len(np.unique(keys)) // 2
+    raise ValueError(f"unknown segment case {name!r}")
+
+
+def segment_weights(keys, bound: int, seed: int = 0):
+    """Integer float64 weights in [0, ``bound``], one per key."""
+    rng = np.random.default_rng([seed, 99])
+    return rng.integers(0, bound + 1, keys.size).astype(np.float64)
+
+
+WINDOW_CASES = (
+    "ragged",
+    "ragged_thin",
+    "sub_block_edges",
+    "hot_sub_block",
+    "all_outside",
+    "uniform",
+)
+
+
+def window_case(name: str, seed: int = 0):
+    """``(window fields, row int32, col int32, valid bool)`` of one named
+    case; the fields are ``zoom, row0, col0, height, width``, for either
+    package's ``Window``."""
+    rng = np.random.default_rng([seed, WINDOW_CASES.index(name)])
+    side = SUB_SIDE
+    if name == "ragged_thin":
+        # One row of the second sub-block row, and a ragged last column.
+        fields = dict(zoom=13, row0=1000, col0=2000, height=side + 1,
+                      width=4 * side + 37)
+    else:
+        # Sides that are not multiples of the sub-block side.
+        fields = dict(zoom=12, row0=512, col0=256, height=2 * side + 44,
+                      width=side + 72)
+    h, w = fields["height"], fields["width"]
+    r0, c0 = fields["row0"], fields["col0"]
+    if name in ("ragged", "ragged_thin"):
+        n = 20_000
+        row = r0 + rng.integers(-20, h + 20, n)
+        col = c0 + rng.integers(-20, w + 20, n)
+    elif name == "sub_block_edges":
+        # Every cell on a sub-block edge, the window's edges, and just
+        # outside them.
+        rr = np.unique(np.concatenate([np.arange(0, h, side),
+                                       np.arange(side - 1, h, side),
+                                       [-1, h - 1, h]]))
+        cc = np.unique(np.concatenate([np.arange(0, w, side),
+                                       np.arange(side - 1, w, side),
+                                       [-1, w - 1, w]]))
+        r, c = np.meshgrid(rr, cc, indexing="ij")
+        row = np.repeat(r0 + r.ravel(), 3)
+        col = np.repeat(c0 + c.ravel(), 3)
+        n = row.size
+    elif name == "hot_sub_block":
+        # Two and a half work items of points in one ragged sub-block,
+        # most of them on a few cells.
+        n = 5 * ITEM_POINTS // 2
+        row = r0 + 2 * side + rng.integers(0, h - 2 * side, n)
+        col = c0 + side + rng.integers(0, w - side, n)
+        row[: n // 2] = r0 + 2 * side + 3
+        col[: n // 2] = c0 + side + rng.integers(0, 4, n // 2)
+    elif name == "all_outside":
+        n = 5000
+        row = rng.integers(0, r0, n)
+        col = c0 + rng.integers(0, w, n)
+    elif name == "uniform":
+        n = 30_000
+        row = r0 + rng.integers(0, h, n)
+        col = c0 + rng.integers(0, w, n)
+    else:
+        raise ValueError(f"unknown window case {name!r}")
+    valid = rng.random(n) < 0.9
+    return fields, row.astype(np.int32), col.astype(np.int32), valid

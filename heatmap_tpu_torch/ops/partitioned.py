@@ -1,4 +1,4 @@
-"""Large-window binning ("partitioned") on a sort and a CUDA run-length kernel.
+"""Large-window binning ("partitioned") on hand-written CUDA kernels.
 
 Port of heatmap_tpu/ops/partitioned.py. The TPU path sorts cell ids
 into ``streams`` rows, bins each chunk that lands in one aligned
@@ -6,11 +6,19 @@ into ``streams`` rows, bins each chunk that lands in one aligned
 and ``_partition_kernel_weighted`` with the weight in the column
 one-hot), sends the other chunks through a bounded scatter tail of
 n/``bad_frac`` points and falls back to a full scatter on hostile data.
-On Hopper (``csrc/window_partitioned.cu``) one kernel localises the
-points to int32 cell ids (dropped points to the sentinel ``hw``), the
-wrapper sorts them once with ``torch.sort`` and gathers the weights by
-the sort's indices, and a run-length kernel adds each run of equal ids
-with a single atomic.
+On Hopper:
+
+- counts (``csrc/window_bucketed.cu``) group the points by aligned
+  sub-block of :data:`SUB_SIDE` x :data:`SUB_SIDE` cells, never by cell:
+  a count pass, a scan, a scatter of each point's local cell offset
+  into its sub-block's bucket, and one block per work item of at most
+  :data:`ITEM_POINTS` points that bins it in shared memory. No sort.
+  :func:`plan_counts` sizes the grids and the scratch on the host.
+- weights (``csrc/window_partitioned.cu``): one kernel localises the
+  points to int32 cell ids (dropped points to the sentinel ``hw``), the
+  wrapper sorts them with ``torch.sort`` and gathers the weights by the
+  sort's indices, and a run-length kernel adds each run of equal ids
+  with a single atomic.
 
 :func:`bin_rowcol_window_partitioned` keeps the JAX function's
 arguments, its stream clamp (:func:`clamp_streams`) and its refusals.
@@ -19,7 +27,7 @@ TPU formulation: they are validated with the JAX package's messages and
 do not change the result. Counts are int32 and byte-equal to the
 JAX package; weighted sums are float32, byte-equal for integer weights
 with per-cell sums below 2^24 and within f32 rounding otherwise (the
-JAX package's bound). A CUDA tensor launches the kernel; a CPU tensor
+JAX package's bound). A CUDA tensor launches the kernels; a CPU tensor
 takes the plain PyTorch version (:func:`_plain`). Nothing falls back
 from one to the other.
 """
@@ -27,6 +35,7 @@ from one to the other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -46,16 +55,108 @@ STREAM_SLAB_BUDGET = 4 << 30
 #: Cells per aligned output block of the JAX path (256 x 256).
 DEFAULT_BLOCK_CELLS = 1 << 16
 
+#: Side of the aligned sub-blocks of the counts kernel: a 128 x 128
+#: int32 sub-block (64 KiB) fits one block's shared memory.
+SUB_SIDE = 128
+#: Most buckets (sub-blocks) one block of the count and scatter passes
+#: holds in shared memory (48 KiB); wider windows take several groups.
+GROUP_BUCKETS = 12288
+#: Points per chunk of the count and scatter passes: larger chunks mean
+#: fewer per-chunk flushes (global atomics) of the bucket counts ...
+CHUNK_POINTS = 1 << 15
+#: ... but at least MIN_CHUNKS chunks (two blocks an SM) while chunks
+#: keep MIN_CHUNK_POINTS points, so small batches fill the card.
+MIN_CHUNKS = 264
+MIN_CHUNK_POINTS = 2048
+#: Cap on the per-chunk bucket offsets (chunks x buckets int32 words).
+MAX_CHUNK_BASE = 1 << 24
+#: Most points of one work item of the binning pass.
+ITEM_POINTS = 1 << 14
+_GRID_Y_MAX = 65535
+_INT32_MAX = (1 << 31) - 1
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: (function, argtypes) of csrc/window_partitioned.cu's C interface.
 _SIGNATURES = (
     # row, col, valid, n, row0, col0, height, width, ids, stream
     ("hm_window_cell_ids", (_P, _P, _P, _I64, _I, _I, _I, _I, _P, _P)),
-    # sorted_ids, n, hw, out, stream
-    ("hm_window_run_length_counts", (_P, _I64, _I, _P, _P)),
     # sorted_ids, sorted_weights, n, hw, out, stream
     ("hm_window_run_length_weighted", (_P, _P, _I64, _I, _P, _P)),
 )
+#: ... and of csrc/window_bucketed.cu's.
+_BUCKETED_SIGNATURES = (
+    # row, col, valid, n, row0, col0, height, width, side, sub_cols,
+    # buckets, group_buckets, groups, chunks, per_chunk, item_points,
+    # items_max, bucket_count, chunk_base, bucket_start, item_start,
+    # cells, out, stream
+    ("hm_window_bucketed_counts",
+     (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I,
+      _I64, _P, _P, _P, _P, _P, _P, _P)),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class CountsPlan:
+    """Grids and scratch of the bucketed counts kernel for one call.
+
+    The window is cut into ``sub_rows`` x ``sub_cols`` sub-blocks of
+    SUB_SIDE cells a side (the last row and column ragged where the
+    window's sides are not multiples of it); bucket ``b`` is sub-block
+    ``(b // sub_cols, b % sub_cols)``. The count and scatter passes run
+    on a (``groups``, ``chunks``) grid, each block on ``per_chunk``
+    points and the buckets of one group; the binning pass on
+    ``items_max`` blocks, an upper bound of the work items.
+    """
+
+    sub_rows: int
+    sub_cols: int
+    groups: int
+    chunks: int
+    per_chunk: int
+    items_max: int
+
+    @property
+    def buckets(self) -> int:
+        return self.sub_rows * self.sub_cols
+
+    @property
+    def group_buckets(self) -> int:
+        return -(-self.buckets // self.groups)
+
+    @property
+    def cells_offset(self) -> int:
+        """int32 words of scratch before the local cell offsets (past the
+        zeroed bucket totals): the per-chunk offsets, then the bucket and
+        item starts (buckets + 1 each), rounded up to 16 bytes."""
+        words = self.chunks * self.buckets + 2 * (self.buckets + 1)
+        return -(-words // 4) * 4
+
+    def scratch_words(self, n: int) -> int:
+        """All int32 words of scratch for ``n`` points: the local cell
+        offsets take 2 bytes a point, and 8 more cells of slack for the
+        binning pass's aligned 16-byte loads."""
+        return self.cells_offset + -(-(n + 8) // 2)
+
+
+def plan_counts(window: Window, n: int) -> CountsPlan:
+    """The bucketed counts kernel's plan for ``n > 0`` points."""
+    if not 0 < n <= _INT32_MAX:
+        raise ValueError(f"{n} points: the counts kernel takes 1 to 2^31 - 1")
+    sub_rows = -(-window.height // SUB_SIDE)
+    sub_cols = -(-window.width // SUB_SIDE)
+    buckets = sub_rows * sub_cols
+    groups = -(-buckets // GROUP_BUCKETS)
+    chunks = max(-(-n // CHUNK_POINTS),
+                 min(-(-n // MIN_CHUNK_POINTS), MIN_CHUNKS))
+    chunks = max(1, min(chunks, _GRID_Y_MAX, MAX_CHUNK_BASE // buckets))
+    # Chunks start on multiples of 4 points, for the kernel's 16-byte
+    # loads of 4 rows or columns.
+    per_chunk = -(-n // (4 * chunks)) * 4
+    # Each bucket of c points makes ceil(c / ITEM_POINTS) items, at most
+    # c / ITEM_POINTS + 1, and the buckets hold at most n points.
+    items_max = -(-n // ITEM_POINTS) + buckets
+    return CountsPlan(sub_rows, sub_cols, groups, chunks, per_chunk,
+                      items_max)
 
 
 def clamp_streams(streams: int, window: Window,
@@ -98,19 +199,19 @@ def bin_rowcol_window_partitioned(
     block_cells: int = DEFAULT_BLOCK_CELLS,
     streams: int = DEFAULT_STREAMS,
 ):
-    """Sort-partitioned binning of pre-projected points into a large window.
+    """Partitioned binning of pre-projected points into a large window.
 
     Contract of ops.histogram.bin_rowcol_window: out-of-window and
     invalid points drop. ``weights=None`` counts (int32); ``weights``
     sums them in float32. The raster comes back as ``dtype`` (int32 /
     float32 by default). The JAX path clamps ``streams`` with
-    :func:`clamp_streams` to bound its per-stream slabs; the one flat
-    sort here has no slabs, so ``streams`` is only validated.
+    :func:`clamp_streams` to bound its per-stream slabs; the kernels
+    here have no slabs, so ``streams`` is only validated.
 
     ``bin_rowcol_window_partitioned.launches`` counts the calls that
-    launched the counts kernels, ``.weighted_launches`` the weighted
-    ones: each counted call is two kernel launches, ``hm_window_cell_ids``
-    and then the run-length kernel.
+    launched the counts kernel (its four passes), ``.weighted_launches``
+    the weighted ones (``hm_window_cell_ids`` and then the run-length
+    kernel).
     """
     if dtype is None:
         dtype = torch.int32 if weights is None else torch.float32
@@ -142,32 +243,50 @@ def cell_ids(row, col, window: Window, valid=None):
 
 
 def _launch(row, col, window, weights, valid):
-    lib = _build.load("window_partitioned", _SIGNATURES)
     dev = row.device
-    hw = window.height * window.width
-    n = row.shape[0]
     out = torch.zeros(window.height, window.width, device=dev,
                       dtype=torch.int32 if weights is None else torch.float32)
+    n = row.shape[0]
     if n == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    check_launch(lib.hm_window_cell_ids(
-        row.data_ptr(), col.data_ptr(),
-        None if valid is None else valid.data_ptr(), n, window.row0,
-        window.col0, window.height, window.width, ids.data_ptr(), stream),
-        "hm_window_cell_ids")
+    valid_ptr = None if valid is None else valid.data_ptr()
     if weights is None:
-        sorted_ids = torch.sort(ids).values
-        check_launch(lib.hm_window_run_length_counts(
-            sorted_ids.data_ptr(), n, hw, out.data_ptr(), stream),
-            "hm_window_run_length_counts")
+        _launch_counts(row, col, valid_ptr, window, out, stream)
         bin_rowcol_window_partitioned.launches += 1
         return out
+    lib = _build.load("window_partitioned", _SIGNATURES)
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    check_launch(lib.hm_window_cell_ids(
+        row.data_ptr(), col.data_ptr(), valid_ptr, n, window.row0,
+        window.col0, window.height, window.width, ids.data_ptr(), stream),
+        "hm_window_cell_ids")
     sorted_ids, order = torch.sort(ids)
     sorted_w = weights[order]
     check_launch(lib.hm_window_run_length_weighted(
-        sorted_ids.data_ptr(), sorted_w.data_ptr(), n, hw, out.data_ptr(),
-        stream), "hm_window_run_length_weighted")
+        sorted_ids.data_ptr(), sorted_w.data_ptr(), n,
+        window.height * window.width, out.data_ptr(), stream),
+        "hm_window_run_length_weighted")
     bin_rowcol_window_partitioned.weighted_launches += 1
     return out
+
+
+def _launch_counts(row, col, valid_ptr, window, out, stream):
+    lib = _build.load("window_bucketed", _BUCKETED_SIGNATURES)
+    n = row.shape[0]
+    plan = plan_counts(window, n)
+    bucket_count = torch.zeros(plan.buckets, dtype=torch.int32,
+                               device=row.device)
+    scratch = torch.empty(plan.scratch_words(n), dtype=torch.int32,
+                          device=row.device)
+    chunk_base = scratch.data_ptr()
+    bucket_start = chunk_base + 4 * plan.chunks * plan.buckets
+    item_start = bucket_start + 4 * (plan.buckets + 1)
+    cells = chunk_base + 4 * plan.cells_offset
+    check_launch(lib.hm_window_bucketed_counts(
+        row.data_ptr(), col.data_ptr(), valid_ptr, n, window.row0,
+        window.col0, window.height, window.width, SUB_SIDE, plan.sub_cols,
+        plan.buckets, plan.group_buckets, plan.groups, plan.chunks,
+        plan.per_chunk, ITEM_POINTS, plan.items_max, bucket_count.data_ptr(),
+        chunk_base, bucket_start, item_start, cells, out.data_ptr(), stream),
+        "hm_window_bucketed_counts")

@@ -4,10 +4,12 @@ Port of heatmap_tpu/ops/sparse_partitioned.py. The TPU kernel
 (``_segment_kernel``) rebuilds each segment's count and key through
 one-hot MXU matmuls over 20-bit f32 channels, in slabs that keep f32
 sums exact, with an f64 scatter tail and a full-scatter fallback. On
-Hopper none of that is needed: ``csrc/segment_reduce.cu`` is a direct
-int64 segmented reduce, exact by construction (integer atomics are
-order-free, so results are byte-identical run to run and identical to
-the plain version).
+Hopper none of that is needed: ``csrc/segment_reduce.cu`` is one
+single-pass int64 scan-and-reduce (a decoupled look-back over tiles of
+:data:`TILE_KEYS` keys), exact by construction: counts are written once
+per segment without atomics, and bounded-integer weights go through
+order-free integer atomics, so results are byte-identical run to run
+and identical to the plain version.
 
 :func:`aggregate_sorted_keys_partitioned` keeps the JAX function's
 output contract and refusals. A CUDA tensor launches the kernel; a CPU
@@ -29,6 +31,11 @@ from heatmap_tpu_torch.ops.sparse import aggregate_sorted_keys
 #: so the port refuses exactly the bounds the JAX package refuses.
 DEFAULT_CHUNK = 1024
 
+#: Keys per tile of csrc/segment_reduce.cu (256 threads x 8 keys). The
+#: kernel's entry points refuse any other value, so the planning here
+#: cannot drift from the kernel.
+TILE_KEYS = 2048
+
 _INT32_MAX = (1 << 31) - 1
 _P, _I, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_double)
@@ -36,15 +43,21 @@ _P, _I, _I64, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: pointer and the stream are c_void_p: a plain int would be cut to 32
 #: bits.
 _SIGNATURES = (
-    # keys, n, shift, sentinel, flags, stream
-    ("hm_segment_heads", (_P, _I64, _I, _I64, _P, _P)),
-    # keys, seg_incl, n, shift, sentinel, capacity, unique, counts, stream
-    ("hm_segment_reduce_counts", (_P, _P, _I64, _I, _I64, _I64, _P, _P, _P)),
-    # keys, seg_incl, weights, n, shift, sentinel, capacity, weight_bound,
-    # unique, sums, bad, stream
+    # keys, n, shift, sentinel, capacity, tile_keys, status, unique,
+    # counts, n_unique, stream
+    ("hm_segment_reduce_counts",
+     (_P, _I64, _I, _I64, _I64, _I, _P, _P, _P, _P, _P)),
+    # keys, weights, n, shift, sentinel, capacity, weight_bound,
+    # tile_keys, status, unique, sums, bad, n_unique, stream
     ("hm_segment_reduce_weighted",
-     (_P, _P, _P, _I64, _I, _I64, _I64, _F64, _P, _P, _P, _P)),
+     (_P, _P, _I64, _I, _I64, _I64, _F64, _I, _P, _P, _P, _P, _P, _P)),
 )
+
+
+def status_words(n: int) -> int:
+    """int64 words of the kernel's zeroed scratch for ``n`` keys: the
+    tile counter, then one look-back status word per tile."""
+    return 1 + -(-n // TILE_KEYS)
 
 
 def _check_weight_bound(weight_bound):
@@ -163,42 +176,37 @@ def _plain(keys, capacity, sentinel, shift, weights, weight_bound):
 
 
 def _launch(keys, capacity, sentinel, shift, weights, weight_bound):
-    """The CUDA path: head flags, a torch cumsum into segment ids, then
-    the reduce kernel into prefilled outputs."""
+    """The CUDA path: one scan-and-reduce launch (and its padding
+    epilogue) into outputs that the kernel writes whole."""
     lib = _build.load("segment_reduce", _SIGNATURES)
     dev = keys.device
     n = keys.shape[0]
-    unique = torch.full((capacity,), sentinel, dtype=torch.int64, device=dev)
     if n == 0:
+        unique = torch.full((capacity,), sentinel, dtype=torch.int64,
+                            device=dev)
         n_unique = torch.zeros((), dtype=torch.int32, device=dev)
         sums = torch.zeros(capacity, device=dev,
                            dtype=torch.int32 if weights is None
                            else torch.float64)
         return unique, sums, n_unique
     stream = torch.cuda.current_stream(dev).cuda_stream
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    _check_launch(lib.hm_segment_heads(
-        keys.data_ptr(), n, shift, sentinel, flags.data_ptr(), stream),
-        "hm_segment_heads")
-    # Inclusive scan: seg_incl[i] - 1 is lane i's segment id. The JAX
-    # package leaves this cumsum to XLA too.
-    seg_incl = torch.cumsum(flags, 0, dtype=torch.int32)
-    del flags
-    n_unique = seg_incl[-1].clone()
+    status = torch.zeros(status_words(n), dtype=torch.int64, device=dev)
+    unique = torch.empty(capacity, dtype=torch.int64, device=dev)
+    n_unique = torch.empty((), dtype=torch.int32, device=dev)
     if weights is None:
-        sums = torch.zeros(capacity, dtype=torch.int32, device=dev)
+        counts = torch.empty(capacity, dtype=torch.int32, device=dev)
         _check_launch(lib.hm_segment_reduce_counts(
-            keys.data_ptr(), seg_incl.data_ptr(), n, shift, sentinel,
-            capacity, unique.data_ptr(), sums.data_ptr(), stream),
-            "hm_segment_reduce_counts")
+            keys.data_ptr(), n, shift, sentinel, capacity, TILE_KEYS,
+            status.data_ptr(), unique.data_ptr(), counts.data_ptr(),
+            n_unique.data_ptr(), stream), "hm_segment_reduce_counts")
         aggregate_sorted_keys_partitioned.launches += 1
-        return unique, sums, n_unique
+        return unique, counts, n_unique
     wsums = torch.zeros(capacity, dtype=torch.int64, device=dev)
     bad = torch.zeros(1, dtype=torch.int32, device=dev)
     _check_launch(lib.hm_segment_reduce_weighted(
-        keys.data_ptr(), seg_incl.data_ptr(), weights.data_ptr(), n, shift,
-        sentinel, capacity, float(weight_bound), unique.data_ptr(),
-        wsums.data_ptr(), bad.data_ptr(), stream),
+        keys.data_ptr(), weights.data_ptr(), n, shift, sentinel, capacity,
+        float(weight_bound), TILE_KEYS, status.data_ptr(), unique.data_ptr(),
+        wsums.data_ptr(), bad.data_ptr(), n_unique.data_ptr(), stream),
         "hm_segment_reduce_weighted")
     aggregate_sorted_keys_partitioned.launches += 1
     # Integer sums stay below 2^53, so the float64 cast is exact.

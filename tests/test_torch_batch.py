@@ -226,6 +226,7 @@ def test_import_hygiene():
         [sys.executable, "-c",
          "import heatmap_tpu_torch, heatmap_tpu_torch.cli, "
          "heatmap_tpu_torch.interop, heatmap_tpu_torch.bench, "
+         "heatmap_tpu_torch.kernel_cases, "
          "heatmap_tpu_torch.io.png, heatmap_tpu_torch.io.sinks, "
          "heatmap_tpu_torch.ops.histogram, "
          "heatmap_tpu_torch.ops.pallas_kernels, "
