@@ -7,17 +7,17 @@ this checkout and holds each kernel against its plain PyTorch version on
 the card, at the shapes its paths give it, at larger ones and on the
 edge cases of ``heatmap_tpu_torch.kernel_cases`` (bit-equal, or within
 the stated ``rtol`` for fractional float weights; the segment reduce 20
-times per case). Then it
+times per case, each weighted window case 5 times). Then it
 drives the port's paths, each with the kernels' launch counts set to 0
 just before it and read just after:
 
 - the single-shot batch job, ``run_job``, at the default z21 -> z6
   cascade, checked against the scatter backend, the CPU and the
   reference's scalar projection (segment-reduce kernel);
-- the ``tiles`` command at its defaults (the partitioned kernel), with
-  ``--weighted`` (its weighted twin) and on a one-tile window (the
-  window-histogram kernel), each raster bit-equal and each PNG tree
-  byte-identical to the same run on the CPU;
+- the ``tiles`` command at its defaults (the bucketed partitioned
+  kernels), with ``--weighted`` (their weighted twin) and on a one-tile
+  window (the window-histogram kernel), each raster bit-equal and each
+  PNG tree byte-identical to the same run on the CPU;
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -61,6 +61,9 @@ WEIGHT_BOUND = 100
 #: Runs of the segment reduce per case, each compared with the plain
 #: version: a missing fence in the look-back shows only now and then.
 REPEATS = 20
+#: Runs of each weighted window case: float atomics add in another order
+#: each run, and integer weights must stay bit-equal in every one.
+WEIGHTED_REPEATS = 5
 #: Points of the window-kernel phases and of the headline step.
 N_WINDOW = 1 << 25
 N_TILES = 4_000_000
@@ -536,24 +539,27 @@ def window_cases(window, row, col, valid, dev, hostile=False):
 def check_window_kernel(fn, plain, window, cases, **kw):
     """Each case through the wrapper on the card and through its plain
     version: bit-equal, or, where not exact, both within FRACTIONAL_RTOL
-    of the float64 sum of the same weights."""
+    of the float64 sum of the same weights. A weighted case runs
+    WEIGHTED_REPEATS times, each run checked."""
     from heatmap_tpu_torch.ops.histogram import _scatter_window
 
     checks = []
     for name, row, col, args, exact in cases:
-        got = fn(row, col, window, **args, **kw)
         want = plain(row, col, window, args.get("weights"), args.get("valid"))
-        torch.cuda.synchronize()
-        assert got.dtype == want.dtype and got.shape == want.shape, name
-        check = {"case": name, "n": int(row.shape[0]),
+        runs = WEIGHTED_REPEATS if "weights" in args else 1
+        for _ in range(runs):
+            got = fn(row, col, window, **args, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            if exact:
+                assert torch.equal(got, want), name
+        check = {"case": name, "n": int(row.shape[0]), "runs": runs,
                  "bit_equal": bool(torch.equal(got, want)),
                  "max_abs_err": float(
                      (got.double() - want.double()).abs().max())
                  if got.numel() else 0.0,
                  "total": float(got.double().sum())}
-        if exact:
-            assert check["bit_equal"], name
-        else:
+        if not exact:
             ref = _scatter_window(row, col, window,
                                   weights=args["weights"].double(),
                                   valid=args.get("valid"),
@@ -569,9 +575,10 @@ def check_window_kernel(fn, plain, window, cases, **kw):
 
 
 def time_window_kernel(fn, plain, window, row, col, valid, weights=None,
-                       **kw):
+                       profile=False, **kw):
     """ms, plain_ms, library_ms (torch.bincount on the same masked flat
-    index), bound_ms and max_abs_err at one shape."""
+    index), bound_ms and max_abs_err at one shape; with ``profile``, the
+    device time by kernel of ``fn`` and of the library call too."""
     from heatmap_tpu_torch.ops.partitioned import cell_ids
 
     hw = window.height * window.width
@@ -588,10 +595,33 @@ def time_window_kernel(fn, plain, window, row, col, valid, weights=None,
     # Least bytes: row and col (int32), valid (1 B) and the weight (f32)
     # read once each; the raster (4 B a cell) written once.
     bytes_moved = n * (4 + 4 + 1 + (4 if weights is not None else 0)) + 4 * hw
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bytes": bytes_moved, "max_abs_err": err,
-            "n": int(n), "window": [window.height, window.width]}
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+           "bytes": bytes_moved, "max_abs_err": err,
+           "n": int(n), "window": [window.height, window.width]}
+    if profile:
+        out["device_us"] = device_us(lambda: fn(
+            row, col, window, weights=weights, valid=valid, **kw))
+        out["library_device_us"] = device_us(
+            lambda: torch.bincount(idx, weights, minlength=hw))
+    return out
+
+
+def kernel_case_cases(fields, row, col, valid, dev):
+    """(name, row, col, kwargs, exact) cases of one ``kernel_cases``
+    window: counts with and without the mask, and each kind of
+    ``kernel_cases.window_weights``."""
+    from heatmap_tpu_torch import kernel_cases as kc
+
+    t = [torch.as_tensor(x, device=dev) for x in (row, col, valid)]
+    cases = [("counts", t[0], t[1], {"valid": t[2]}, True),
+             ("no_mask", t[0], t[1], {}, True)]
+    for kind in kc.WEIGHT_KINDS:
+        w = torch.as_tensor(kc.window_weights(kind, fields, row, col, valid),
+                            device=dev)
+        cases.append((f"{kind}_weights", t[0], t[1],
+                      {"valid": t[2], "weights": w}, kind != "fractional"))
+    return cases
 
 
 def int_weights(n, dev):
@@ -601,12 +631,17 @@ def int_weights(n, dev):
 
 
 def phase_kernel_window_histogram(dev):
-    """The window-histogram kernel against its plain version: at the
-    one-tile ``tiles`` run's shape (its 256x256 z16 window, one 2^20-point
-    batch), and over 2^25 points on a 256x256 z15 window around the
-    synthetic hot spot, a 32x32 blob window and a 4x32768 window too wide
-    for shared memory (the kernel's global-atomic build). Timed at the
-    ``tiles`` shape (the kernels line) and at the 256x256 z15 window."""
+    """The window-histogram kernel (banded) against its plain version: at
+    the one-tile ``tiles`` run's shape (its 256x256 z16 window, one
+    2^20-point batch), on the ``kernel_cases`` histogram windows (256x256,
+    255x257, one row, points where bands meet, a cell past 2^16), and
+    over 2^25 points on a 256x256 z15 window around the synthetic hot
+    spot, a 32x32 blob window, a 4x32768 window of four bands and a
+    16x32768 window too wide for the bands (the kernel's global-atomic
+    build). Timed at the ``tiles`` shape (the kernels line) and at the
+    256x256 z15 window, each with its ``device_us``."""
+    from heatmap_tpu_torch import interop
+    from heatmap_tpu_torch import kernel_cases as kc
     from heatmap_tpu_torch.ops import pallas_kernels as pk
     from heatmap_tpu_torch.ops.histogram import Window
     from heatmap_tpu_torch.tilemath.tile import (
@@ -616,15 +651,29 @@ def phase_kernel_window_histogram(dev):
 
     fn = pk.bin_rowcol_window_pallas
     checks = {}
+    plans = {}
+    for case in kc.HISTOGRAM_CASES:
+        fields, row, col, valid = kc.histogram_case(case)
+        window = interop.window_from_fields(**fields)
+        checks[case] = check_window_kernel(
+            fn, pk._plain, window,
+            kernel_case_cases(fields, row, col, valid, dev))
+        plans[case] = dataclasses.asdict(pk.plan_histogram(
+            window, row.shape[0], pk._sms(dev.index)))
+
     # The path's own shape: what the one-tile tiles run passes the kernel.
     window, row, col, valid = tiles_call(dev, *SMALL_TILES_BOUNDS)
     assert (window.zoom, window.height, window.width) == (16, 256, 256)
     checks["tiles_256x256_z16"] = check_window_kernel(
         fn, pk._plain, window, window_cases(window, row, col, valid, dev))
-    tiles_counts = time_window_kernel(fn, pk._plain, window, row, col, valid)
+    ints = int_weights(row.shape[0], dev)
+    plans["tiles"] = dataclasses.asdict(pk.plan_histogram(
+        window, row.shape[0], pk._sms(dev.index)))
+    tiles_counts = time_window_kernel(fn, pk._plain, window, row, col, valid,
+                                      profile=True)
     tiles_weighted = time_window_kernel(fn, pk._plain, window, row, col,
-                                        valid, int_weights(row.shape[0], dev))
-    del row, col, valid
+                                        valid, ints, profile=True)
+    del row, col, valid, ints
 
     row, col, valid = window_points(N_WINDOW, 15, dev, torch.float64)
     hot_r, hot_c = _row_from_latitude(47.6, 15), _column_from_longitude(
@@ -632,25 +681,34 @@ def phase_kernel_window_histogram(dev):
     windows = {
         "256x256": Window(15, hot_r - 128, hot_c - 128, 256, 256),
         "32x32": Window(15, hot_r - 16, hot_c - 16, 32, 32),
-        # 32768 int32 columns (128 KiB) exceed the 96 KiB band.
+        # 4 x 32768 cells take four 128 KiB bands; 16 x 32768 more than
+        # MAX_BANDS, so the global-atomic build.
         "4x32768": Window(15, hot_r - 2, 0, 4, 1 << 15),
+        "16x32768": Window(15, hot_r - 8, 0, 16, 1 << 15),
     }
     for wname, window in windows.items():
         checks[wname] = check_window_kernel(
             fn, pk._plain, window, window_cases(window, row, col, valid, dev))
+        plans[wname] = dataclasses.asdict(pk.plan_histogram(
+            window, N_WINDOW, pk._sms(dev.index)))
+    assert plans["16x32768"]["bands"] == 0, plans
     big = windows["256x256"]
-    counts = time_window_kernel(fn, pk._plain, big, row, col, valid)
-    weighted = time_window_kernel(fn, pk._plain, big, row, col, valid,
-                                  int_weights(row.shape[0], dev))
+    ints = int_weights(row.shape[0], dev)
+    counts = time_window_kernel(fn, pk._plain, big, row, col, valid,
+                                profile=True)
+    weighted = time_window_kernel(fn, pk._plain, big, row, col, valid, ints,
+                                  profile=True)
     small = time_window_kernel(fn, pk._plain, windows["32x32"], row, col,
                                valid)
     wide = time_window_kernel(fn, pk._plain, windows["4x32768"], row, col,
                               valid)
     emit({"phase": "kernel_window_histogram", "bit_equal": True,
-          "fractional_rtol": FRACTIONAL_RTOL, "checks": checks,
+          "fractional_rtol": FRACTIONAL_RTOL,
+          "weighted_repeats": WEIGHTED_REPEATS, "checks": checks,
+          "plans": plans,
           "tiles_counts": tiles_counts, "tiles_int_weights": tiles_weighted,
-          "counts": counts, "int_weights": weighted, "counts_32x32": small,
-          "counts_4x32768": wide})
+          "counts": counts, "int_weights": weighted,
+          "counts_32x32": small, "counts_4x32768": wide})
     return tiles_counts
 
 
@@ -667,8 +725,8 @@ def global_build_counts(row, col, window, weights=None, valid=None):
          (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
           ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)),))
-    out = torch.zeros(window.height, window.width, dtype=torch.int32,
-                      device=row.device)
+    out = torch.empty(window.height, window.width, dtype=torch.int32,
+                      device=row.device)  # zeroed by the entry point
     check_launch(lib.hm_window_histogram_counts_global(
         row.data_ptr(), col.data_ptr(),
         None if valid is None else valid.data_ptr(), row.shape[0],
@@ -679,18 +737,19 @@ def global_build_counts(row, col, window, weights=None, valid=None):
 
 
 def phase_kernel_window_partitioned(dev):
-    """The partitioned counts kernel (bucketed) and the weighted
-    run-length kernel against their plain version: at the default
-    ``tiles`` run's shape (its 1792x1280 z16 window, one 2^20-point
-    batch), and at the headline window (4096x4096, 2^25 points, f32
-    projection), each with uniform and all-outside points too, the
-    headline with streams 1 and 8; the counts kernel also on the
-    ``kernel_cases`` windows (ragged sub-blocks, sub-block edges, a hot
-    sub-block split into work items, all outside). Counts are timed at
-    the headline (the kernels line: a path of their own) and weights at
-    the ``tiles --weighted`` shape (their only path), each at the other
-    shape as well; the window-histogram kernel's global-atomic build is
-    checked and timed at both windows beside them."""
+    """The bucketed partitioned kernels, counts and weights, against
+    their plain version: on the ``kernel_cases`` windows (ragged
+    sub-blocks, sub-block edges, a hot sub-block split into work items,
+    all outside; counts and every weight kind), at the default ``tiles``
+    run's shape (its 1792x1280 z16 window, one 2^20-point batch), and at
+    the headline window (4096x4096, 2^25 points, f32 projection), each
+    with uniform and all-outside points too, the headline with streams 1
+    and 8. Each weighted case runs WEIGHTED_REPEATS times. Counts are
+    timed at the headline (the kernels line: a path of their own) and
+    weights at the ``tiles --weighted`` shape (their only path), each at
+    the other shape as well and each with its ``device_us``; the
+    window-histogram kernel's global-atomic build is checked and timed
+    at both windows beside them."""
     from heatmap_tpu_torch import interop
     from heatmap_tpu_torch import kernel_cases as kc
     from heatmap_tpu_torch.bench import headline_window
@@ -701,12 +760,9 @@ def phase_kernel_window_partitioned(dev):
     for case in kc.WINDOW_CASES:
         fields, row, col, valid = kc.window_case(case)
         window = interop.window_from_fields(**fields)
-        row, col, valid = (torch.as_tensor(x, device=dev)
-                           for x in (row, col, valid))
         checks[case] = check_window_kernel(
             fn, pt._plain, window,
-            [("counts", row, col, {"valid": valid}, True),
-             ("no_mask", row, col, {}, True)])
+            kernel_case_cases(fields, row, col, valid, dev))
     window, row, col, valid = tiles_call(dev)
     assert (window.zoom, window.height, window.width) == (16, 1792, 1280)
     checks["tiles_1792x1280_z16"] = check_window_kernel(
@@ -715,14 +771,14 @@ def phase_kernel_window_partitioned(dev):
     checks["tiles_global_build"] = check_window_kernel(
         global_build_counts, pt._plain, window,
         [("counts", row, col, {"valid": valid}, True)])
-    tiles_counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
-    tiles_counts["device_us"] = device_us(
-        lambda: fn(row, col, window, valid=valid))
+    ints = int_weights(row.shape[0], dev)
+    tiles_counts = time_window_kernel(fn, pt._plain, window, row, col, valid,
+                                      profile=True)
     tiles_global = time_window_kernel(global_build_counts, pt._plain, window,
                                       row, col, valid)
     tiles_weighted = time_window_kernel(fn, pt._plain, window, row, col,
-                                        valid, int_weights(row.shape[0], dev))
-    del row, col, valid
+                                        valid, ints, profile=True)
+    del row, col, valid, ints
 
     window = headline_window()
     row, col, valid = window_points(N_WINDOW, 15, dev, torch.float32)
@@ -734,14 +790,16 @@ def phase_kernel_window_partitioned(dev):
     checks["headline_global_build"] = check_window_kernel(
         global_build_counts, pt._plain, window,
         [("counts", row, col, {"valid": valid}, True)])
-    counts = time_window_kernel(fn, pt._plain, window, row, col, valid)
-    counts["device_us"] = device_us(lambda: fn(row, col, window, valid=valid))
+    counts = time_window_kernel(fn, pt._plain, window, row, col, valid,
+                                profile=True)
     global_build = time_window_kernel(global_build_counts, pt._plain, window,
                                       row, col, valid)
+    ints = int_weights(row.shape[0], dev)
     weighted = time_window_kernel(fn, pt._plain, window, row, col, valid,
-                                  int_weights(row.shape[0], dev))
+                                  ints, profile=True)
     emit({"phase": "kernel_window_partitioned", "bit_equal": True,
-          "fractional_rtol": FRACTIONAL_RTOL, "checks": checks,
+          "fractional_rtol": FRACTIONAL_RTOL,
+          "weighted_repeats": WEIGHTED_REPEATS, "checks": checks,
           "plan": {"headline": dataclasses.asdict(
                        pt.plan_counts(window, N_WINDOW)),
                    "sub_side": pt.SUB_SIDE,
@@ -917,7 +975,7 @@ def main() -> int:
         kernel_entry("window_partitioned", "window_bucketed.cu",
                      "heatmap_tpu/ops/partitioned.py:104",
                      tiles_launches["window_partitioned"], part_counts),
-        kernel_entry("window_partitioned_weighted", "window_partitioned.cu",
+        kernel_entry("window_partitioned_weighted", "window_bucketed.cu",
                      "heatmap_tpu/ops/partitioned.py:137",
                      tiles_launches["window_partitioned_weighted"],
                      part_weighted),

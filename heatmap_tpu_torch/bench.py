@@ -204,7 +204,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bin-backend", default="auto", choices=BACKENDS,
                     help="binning path: auto (by device and window size), "
                     "xla (the plain scatter), pallas (the histogram "
-                    "kernel) or partitioned (sort + run-length kernel)")
+                    "kernel) or partitioned (the bucketed kernels)")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.n, args.zoom, args.steps, args.baseline_n,
                          args.bin_backend, args.device)))

@@ -1,23 +1,28 @@
-"""Edge-case inputs of the segment-reduce and partitioned-counts kernels.
+"""Edge-case inputs of the segment-reduce and window-binning kernels.
 
 Made with numpy from a seed, so the same inputs reach the card
 (``chip_smoke.py`` holds each kernel bit-equal to its plain version on
 them) and the CPU tests (``tests/test_torch_*.py`` hold the plain
 versions equal to the JAX package on them). The shapes follow the
 kernels' own geometry: segment runs and sentinel tails placed against
-tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys, and points
-placed against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE``
-cells and split into work items of ``ops.partitioned.ITEM_POINTS``.
+tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys; points placed
+against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE`` cells and
+split into work items of ``ops.partitioned.ITEM_POINTS``; and windows of
+the histogram kernel at its bands' limits, with points where the bands
+of ``ops.pallas_kernels.SLICE_BYTES`` meet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from heatmap_tpu_torch.ops.pallas_kernels import SLICE_BYTES
 from heatmap_tpu_torch.ops.partitioned import ITEM_POINTS, SUB_SIDE
 from heatmap_tpu_torch.ops.sparse_partitioned import TILE_KEYS
 
 SENTINEL = np.iinfo(np.int64).max
+#: Integer weights lie in [0, WEIGHT_BOUND].
+WEIGHT_BOUND = 100
 
 SEGMENT_CASES = (
     "run_over_tile",
@@ -167,4 +172,85 @@ def window_case(name: str, seed: int = 0):
     else:
         raise ValueError(f"unknown window case {name!r}")
     valid = rng.random(n) < 0.9
+    return fields, row.astype(np.int32), col.astype(np.int32), valid
+
+
+WEIGHT_KINDS = ("integer", "fractional", "nan_on_dropped")
+
+
+def window_weights(kind: str, fields, row, col, valid, seed: int = 0):
+    """float32 weights of one kind for a window case: integers in [0,
+    WEIGHT_BOUND]; fractional values in [0, 10); or the integers with
+    NaN on every dropped lane (outside the window, or invalid), which
+    must never reach a raster."""
+    # The NaN kind is the integer weights with its NaNs laid over them.
+    rng = np.random.default_rng([seed, 7, int(kind == "fractional")])
+    n = np.asarray(row).shape[0]
+    if kind == "fractional":
+        return (rng.random(n) * 10.0).astype(np.float32)
+    w = rng.integers(0, WEIGHT_BOUND + 1, n).astype(np.float32)
+    if kind == "nan_on_dropped":
+        r = np.asarray(row, np.int64) - fields["row0"]
+        c = np.asarray(col, np.int64) - fields["col0"]
+        ok = ((r >= 0) & (r < fields["height"]) & (c >= 0)
+              & (c < fields["width"]) & np.asarray(valid, bool))
+        w[~ok] = np.nan
+    elif kind != "integer":
+        raise ValueError(f"unknown weight kind {kind!r}")
+    return w
+
+
+HISTOGRAM_CASES = (
+    "square_256",
+    "ragged_255x257",
+    "one_row",
+    "slice_edges",
+    "hot_cell",
+)
+#: Cells of one band of the histogram's window.
+SLICE_CELLS = SLICE_BYTES // 4
+HOT_CELL_COUNT = (1 << 16) + 1000
+
+
+def histogram_case(name: str, seed: int = 0):
+    """``(window fields, row int32, col int32, valid bool)`` of one named
+    case of the window-histogram kernel: exactly 256x256 cells (two full
+    bands), 255x257 (65,535 cells, ragged, bands meeting mid-row), one
+    row, points on the cells where bands of SLICE_CELLS (and of half
+    that) meet, and one cell hit past 2^16 times."""
+    rng = np.random.default_rng([seed, 100 + HISTOGRAM_CASES.index(name)])
+    if name in ("ragged_255x257", "slice_edges"):
+        fields = dict(zoom=14, row0=3000, col0=5000, height=255, width=257)
+    elif name == "one_row":
+        fields = dict(zoom=13, row0=77, col0=1000, height=1, width=300)
+    elif name == "hot_cell":
+        fields = dict(zoom=12, row0=900, col0=1800, height=64, width=64)
+    else:
+        fields = dict(zoom=14, row0=3000, col0=5000, height=256, width=256)
+    h, w = fields["height"], fields["width"]
+    r0, c0 = fields["row0"], fields["col0"]
+    if name == "slice_edges":
+        # Every cell of the rows where bands meet, and the cells just
+        # before and after each meeting point, three times each.
+        meet = [k * s for s in (SLICE_CELLS // 2, SLICE_CELLS)
+                for k in range(1, h * w // s + 1) if k * s < h * w]
+        rows = sorted({m // w for m in meet} | {(m - 1) // w for m in meet})
+        flat = np.concatenate([np.arange(r * w, (r + 1) * w) for r in rows]
+                              + [np.asarray(meet) + d for d in (-2, -1, 0, 1)])
+        flat = np.repeat(flat, 3)
+        row, col = r0 + flat // w, c0 + flat % w
+    elif name == "hot_cell":
+        n = HOT_CELL_COUNT + 3000
+        row = r0 + rng.integers(-4, h + 4, n)
+        col = c0 + rng.integers(-4, w + 4, n)
+        row[:HOT_CELL_COUNT] = r0 + 17
+        col[:HOT_CELL_COUNT] = c0 + 40
+    else:
+        n = 12_000
+        row = r0 + rng.integers(-10, h + 10, n)
+        col = c0 + rng.integers(-10, w + 10, n)
+    n = row.size
+    valid = rng.random(n) < 0.9
+    if name == "hot_cell":
+        valid[:HOT_CELL_COUNT] = True
     return fields, row.astype(np.int32), col.astype(np.int32), valid

@@ -2,5 +2,5 @@
 (``sparse``), the CUDA segment-reduce kernel (``sparse_partitioned``),
 the sparse and dense zoom pyramids (``pyramid``), window binning
 (``histogram``) on its two CUDA kernels (``pallas_kernels``, the window
-histogram, and ``partitioned``, sort + run-length), and the Gaussian
+histogram, and ``partitioned``, the bucketed passes), and the Gaussian
 splat (``splat``)."""

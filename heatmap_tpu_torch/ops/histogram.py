@@ -10,8 +10,8 @@ Backends keep the JAX package's names, so the flags stay the same:
 - ``"xla"``: the plain PyTorch scatter (:func:`_scatter_window`);
 - ``"pallas"``: the CUDA window-histogram kernel
   (ops/pallas_kernels.py, ``csrc/window_histogram.cu``);
-- ``"partitioned"``: sort + run-length CUDA kernel for large windows
-  (ops/partitioned.py, ``csrc/window_partitioned.cu``);
+- ``"partitioned"``: the bucketed CUDA kernels for large windows
+  (ops/partitioned.py, ``csrc/window_bucketed.cu``);
 - ``"auto"``: by device and window size (:func:`_pick_backend`).
 
 On a CPU tensor the two kernel backends run their plain PyTorch

@@ -3,10 +3,15 @@
 Port of heatmap_tpu/ops/pallas_kernels.py; the module keeps its name so
 that its counterpart is found by path, but its kernel is CUDA C++ for
 Hopper (``csrc/window_histogram.cu``), not Pallas. The TPU kernel
-(``_histogram_kernel``) bins a chunk of points as the one-hot matmul
-``R @ (w * C)`` on the MXU, accumulating in f32; the CUDA kernel adds
-each point with an atomic into a shared-memory copy of a band of the
-window and flushes the bands to the raster (see the source's notes).
+(``_histogram_kernel``) keeps one f32 copy of the window in VMEM and
+bins each chunk of points into it as the one-hot matmul ``R @ (w * C)``
+on the MXU. The CUDA kernel cuts the window into bands of
+:data:`SLICE_BYTES` (two at 256 x 256 cells), one in the shared memory
+of each block of a group of neighbouring blocks; the blocks of a group
+walk the same points and each adds its band's points with shared-memory
+atomics; each band is zeroed once and flushed to the raster once (see
+the source's notes). :func:`plan_histogram` sizes the bands and the grid
+on the host.
 
 :func:`bin_rowcol_window_pallas` keeps the JAX function's arguments and
 refusals. Counts come back as int32 (exact to 2^31 - 1 per cell; the
@@ -19,6 +24,8 @@ Nothing falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -27,8 +34,22 @@ from heatmap_tpu_torch.ops.histogram import Window, _plain
 from heatmap_tpu_torch.tilemath import mercator
 
 #: The JAX kernel's points per grid step. The CUDA kernel sizes its own
-#: chunks; ``chunk`` is validated and kept for the JAX signature.
+#: grid; ``chunk`` is validated and kept for the JAX signature.
 DEFAULT_CHUNK = 1024
+
+#: Bytes of the window that one block holds in shared memory: a
+#: 256 x 256 int32 or float32 window takes two bands.
+SLICE_BYTES = 128 << 10
+#: Most bands (each reads every point); a window of more (only an
+#: explicit backend="pallas" sends one) takes the kernel's global-atomic
+#: build.
+MAX_BANDS = 8
+#: Blocks the grid puts on each SM (one fits, with 128 KiB of shared
+#: memory and 1024 threads): one private copy per SM, zeroed and flushed
+#: once.
+BLOCKS_PER_SM = 1
+#: Points one block takes per step (1024 threads, 4 points each).
+STEP_POINTS = 4096
 
 _INT32_LIMIT = 1 << 31
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -36,12 +57,58 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: pointer and the stream are c_void_p: a plain int would be cut to 32
 #: bits.
 _SIGNATURES = (
-    # row, col, valid, n, row0, col0, height, width, out, stream
-    ("hm_window_histogram_counts", (_P, _P, _P, _I64, _I, _I, _I, _I, _P, _P)),
-    # row, col, valid, weights, n, row0, col0, height, width, out, stream
+    # row, col, valid, n, row0, col0, height, width, bands, slice_shift,
+    # blocks, out, stream
+    ("hm_window_histogram_counts",
+     (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I64, _P, _P)),
+    # row, col, valid, weights, n, row0, col0, height, width, bands,
+    # slice_shift, blocks, out, stream
     ("hm_window_histogram_weighted",
-     (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P, _P)),
+     (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I64, _P, _P)),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class HistogramPlan:
+    """Bands and grid of the histogram kernel for one call.
+
+    The window's ``height * width`` cells are cut into ``bands`` slices
+    of ``2 ** slice_shift`` cells (the last one ragged), one in the
+    shared memory of each block of a group; ``blocks`` blocks in all, a
+    multiple of ``bands``. ``bands == 0`` is the global-atomic build (no
+    slices).
+    """
+
+    bands: int
+    slice_shift: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_histogram(window: Window, n: int, sms: int) -> HistogramPlan:
+    """The histogram kernel's plan for ``n > 0`` points on a card of
+    ``sms`` SMs: the fewest SLICE_BYTES bands that hold the window, and
+    BLOCKS_PER_SM blocks an SM, or fewer groups where the points take
+    fewer steps. Fewer groups would flush fewer cells when the points
+    are few for the window's cells, but each group's walk is the larger
+    cost: on an H100 every halving of the groups measured slower, at
+    about 1e6 points on 65,536 cells too (tools/torch_histogram_plans.py,
+    PERF.md)."""
+    if n < 1 or sms < 1:
+        raise ValueError(f"no histogram plan for {n} points on {sms} SMs")
+    cells = window.height * window.width
+    bands = -(-cells // (SLICE_BYTES // 4))
+    steps = -(-n // STEP_POINTS)
+    if bands > MAX_BANDS:
+        return HistogramPlan(0, 0, max(1, min(sms * BLOCKS_PER_SM, steps)))
+    slice_shift = (-(-cells // bands) - 1).bit_length()
+    walkers = max(1, min(sms * BLOCKS_PER_SM // bands, steps))
+    return HistogramPlan(bands, slice_shift, walkers * bands)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_window(window: Window) -> None:
@@ -50,29 +117,44 @@ def check_window(window: Window) -> None:
         raise ValueError(f"window too large for int32 cell ids: {window}")
 
 
+def raw_stream(dev) -> int:
+    """The handle of ``dev``'s current CUDA stream, read without building
+    a ``torch.cuda.Stream`` object, which costs a window kernel's wrapper
+    a measurable share of its host time at small shapes."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError {rc}")
 
 
+def _flat(x, dtype, device=None):
+    """``x`` as a flat contiguous ``dtype`` tensor (on ``device``); a
+    tensor that is one already comes back as it is, with no dispatcher
+    call (the window kernels' wrappers are host-bound at small shapes)."""
+    if (isinstance(x, torch.Tensor) and x.dtype == dtype and x.dim() == 1
+            and x.is_contiguous() and (device is None or x.device == device)):
+        return x
+    return torch.as_tensor(x, device=device).reshape(-1).to(
+        dtype).contiguous()
+
+
 def _points(row, col, weights, valid):
     """Flat contiguous int32 row/col, bool valid and float32 weights on
     the rows' device (valid and weights None when not given)."""
-    row = torch.as_tensor(row).reshape(-1).to(torch.int32).contiguous()
+    row = _flat(row, torch.int32)
     dev = row.device
-    col = torch.as_tensor(col, device=dev).reshape(-1).to(
-        torch.int32).contiguous()
+    col = _flat(col, torch.int32, dev)
     if col.shape != row.shape:
         raise ValueError(f"row {tuple(row.shape)} and col {tuple(col.shape)} "
                          "differ in length")
     if valid is not None:
-        valid = torch.as_tensor(valid, device=dev).reshape(-1).to(
-            torch.bool).contiguous()
+        valid = _flat(valid, torch.bool, dev)
         if valid.shape != row.shape:
             raise ValueError("valid must have one entry per point")
     if weights is not None:
-        weights = torch.as_tensor(weights, device=dev).reshape(-1).to(
-            torch.float32).contiguous()
+        weights = _flat(weights, torch.float32, dev)
         if weights.shape != row.shape:
             raise ValueError("weights must have one entry per point")
     return row, col, weights, valid
@@ -114,25 +196,28 @@ bin_rowcol_window_pallas.launches = 0
 
 
 def _launch(row, col, window, weights, valid):
-    lib = _build.load("window_histogram", _SIGNATURES)
     dev = row.device
     n = row.shape[0]
-    out = torch.zeros(window.height, window.width, device=dev,
-                      dtype=torch.int32 if weights is None else torch.float32)
+    dtype = torch.int32 if weights is None else torch.float32
     if n == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        return torch.zeros(window.height, window.width, device=dev,
+                           dtype=dtype)
+    # The kernel's entry point zeroes the raster.
+    out = torch.empty(window.height, window.width, device=dev, dtype=dtype)
+    lib = _build.load("window_histogram", _SIGNATURES)
+    plan = plan_histogram(window, n, _sms(dev.index))
+    stream = raw_stream(dev)
     valid_ptr = None if valid is None else valid.data_ptr()
+    geometry = (window.row0, window.col0, window.height, window.width,
+                plan.bands, plan.slice_shift, plan.blocks)
     if weights is None:
         check_launch(lib.hm_window_histogram_counts(
-            row.data_ptr(), col.data_ptr(), valid_ptr, n, window.row0,
-            window.col0, window.height, window.width, out.data_ptr(), stream),
-            "hm_window_histogram_counts")
+            row.data_ptr(), col.data_ptr(), valid_ptr, n, *geometry,
+            out.data_ptr(), stream), "hm_window_histogram_counts")
     else:
         check_launch(lib.hm_window_histogram_weighted(
             row.data_ptr(), col.data_ptr(), valid_ptr, weights.data_ptr(), n,
-            window.row0, window.col0, window.height, window.width,
-            out.data_ptr(), stream), "hm_window_histogram_weighted")
+            *geometry, out.data_ptr(), stream), "hm_window_histogram_weighted")
     bin_rowcol_window_pallas.launches += 1
     return out
 

@@ -8,17 +8,13 @@ one-hot), sends the other chunks through a bounded scatter tail of
 n/``bad_frac`` points and falls back to a full scatter on hostile data.
 On Hopper:
 
-- counts (``csrc/window_bucketed.cu``) group the points by aligned
-  sub-block of :data:`SUB_SIDE` x :data:`SUB_SIDE` cells, never by cell:
-  a count pass, a scan, a scatter of each point's local cell offset
-  into its sub-block's bucket, and one block per work item of at most
-  :data:`ITEM_POINTS` points that bins it in shared memory. No sort.
-  :func:`plan_counts` sizes the grids and the scratch on the host.
-- weights (``csrc/window_partitioned.cu``): one kernel localises the
-  points to int32 cell ids (dropped points to the sentinel ``hw``), the
-  wrapper sorts them with ``torch.sort`` and gathers the weights by the
-  sort's indices, and a run-length kernel adds each run of equal ids
-  with a single atomic.
+- counts and weights (``csrc/window_bucketed.cu``) group the points by
+  aligned sub-block of :data:`SUB_SIDE` x :data:`SUB_SIDE` cells, never
+  by cell: a count pass, a scan, a scatter of each point's local cell
+  offset (and its weight) into its sub-block's bucket, and one block per
+  work item of at most :data:`ITEM_POINTS` points that bins it in
+  shared memory. No sort, no gather. :func:`plan_counts` sizes the
+  grids and the one scratch allocation on the host.
 
 :func:`bin_rowcol_window_partitioned` keeps the JAX function's
 arguments, its stream clamp (:func:`clamp_streams`) and its refusals.
@@ -27,15 +23,17 @@ TPU formulation: they are validated with the JAX package's messages and
 do not change the result. Counts are int32 and byte-equal to the
 JAX package; weighted sums are float32, byte-equal for integer weights
 with per-cell sums below 2^24 and within f32 rounding otherwise (the
-JAX package's bound). A CUDA tensor launches the kernels; a CPU tensor
-takes the plain PyTorch version (:func:`_plain`). Nothing falls back
-from one to the other.
+JAX package's bound; the kernel's float atomics add in an order that
+changes from run to run). A CUDA tensor launches the kernels; a CPU
+tensor takes the plain PyTorch version (:func:`_plain`). Nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -45,6 +43,7 @@ from heatmap_tpu_torch.ops.pallas_kernels import (
     _points,
     check_launch,
     check_window,
+    raw_stream,
 )
 
 DEFAULT_CHUNK = 1024
@@ -55,8 +54,8 @@ STREAM_SLAB_BUDGET = 4 << 30
 #: Cells per aligned output block of the JAX path (256 x 256).
 DEFAULT_BLOCK_CELLS = 1 << 16
 
-#: Side of the aligned sub-blocks of the counts kernel: a 128 x 128
-#: int32 sub-block (64 KiB) fits one block's shared memory.
+#: Side of the aligned sub-blocks of the bucketed kernels: a 128 x 128
+#: int32 or float32 sub-block (64 KiB) fits one block's shared memory.
 SUB_SIDE = 128
 #: Most buckets (sub-blocks) one block of the count and scatter passes
 #: holds in shared memory (48 KiB); wider windows take several groups.
@@ -76,28 +75,26 @@ _GRID_Y_MAX = 65535
 _INT32_MAX = (1 << 31) - 1
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: (function, argtypes) of csrc/window_partitioned.cu's C interface.
+_GEOMETRY = (_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I, _I64)
+#: (function, argtypes) of csrc/window_bucketed.cu's C interface.
 _SIGNATURES = (
-    # row, col, valid, n, row0, col0, height, width, ids, stream
-    ("hm_window_cell_ids", (_P, _P, _P, _I64, _I, _I, _I, _I, _P, _P)),
-    # sorted_ids, sorted_weights, n, hw, out, stream
-    ("hm_window_run_length_weighted", (_P, _P, _I64, _I, _P, _P)),
-)
-#: ... and of csrc/window_bucketed.cu's.
-_BUCKETED_SIGNATURES = (
     # row, col, valid, n, row0, col0, height, width, side, sub_cols,
     # buckets, group_buckets, groups, chunks, per_chunk, item_points,
     # items_max, bucket_count, chunk_base, bucket_start, item_start,
     # cells, out, stream
     ("hm_window_bucketed_counts",
-     (_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I64, _I,
-      _I64, _P, _P, _P, _P, _P, _P, _P)),
+     (_P, _P, _P, _I64, *_GEOMETRY, _P, _P, _P, _P, _P, _P, _P)),
+    # row, col, valid, weights, n, the same geometry and scratch, then
+    # wcells, out, stream
+    ("hm_window_bucketed_weighted",
+     (_P, _P, _P, _P, _I64, *_GEOMETRY, _P, _P, _P, _P, _P, _P, _P, _P)),
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class CountsPlan:
-    """Grids and scratch of the bucketed counts kernel for one call.
+    """Grids and scratch of the bucketed kernels (counts and weights) for
+    one call.
 
     The window is cut into ``sub_rows`` x ``sub_cols`` sub-blocks of
     SUB_SIDE cells a side (the last row and column ragged where the
@@ -106,6 +103,11 @@ class CountsPlan:
     on a (``groups``, ``chunks``) grid, each block on ``per_chunk``
     points and the buckets of one group; the binning pass on
     ``items_max`` blocks, an upper bound of the work items.
+
+    All scratch is one int32 allocation: the bucket totals, the
+    per-chunk offsets, the bucket and item starts, then the local cell
+    offsets at :attr:`cells_offset` and, for weights, the scattered
+    weights at :meth:`weights_offset`, each 16-byte aligned.
     """
 
     sub_rows: int
@@ -125,21 +127,29 @@ class CountsPlan:
 
     @property
     def cells_offset(self) -> int:
-        """int32 words of scratch before the local cell offsets (past the
-        zeroed bucket totals): the per-chunk offsets, then the bucket and
-        item starts (buckets + 1 each), rounded up to 16 bytes."""
-        words = self.chunks * self.buckets + 2 * (self.buckets + 1)
+        """int32 words of scratch before the local cell offsets: the
+        bucket totals, the per-chunk offsets, then the bucket and item
+        starts (buckets + 1 each), rounded up to 16 bytes."""
+        words = (self.buckets + self.chunks * self.buckets
+                 + 2 * (self.buckets + 1))
         return -(-words // 4) * 4
 
-    def scratch_words(self, n: int) -> int:
-        """All int32 words of scratch for ``n`` points: the local cell
+    def weights_offset(self, n: int) -> int:
+        """int32 words before the scattered weights: the local cell
         offsets take 2 bytes a point, and 8 more cells of slack for the
-        binning pass's aligned 16-byte loads."""
-        return self.cells_offset + -(-(n + 8) // 2)
+        binning pass's aligned 16-byte loads, rounded up to 16 bytes."""
+        return self.cells_offset + -(-(n + 8) // 8) * 4
+
+    def scratch_words(self, n: int, weighted: bool = False) -> int:
+        """All int32 words of scratch for ``n`` points; weights take 4
+        bytes a point with the cells' 8 elements of slack."""
+        return self.weights_offset(n) + (n + 8 if weighted else 0)
 
 
+@functools.lru_cache(maxsize=64)
 def plan_counts(window: Window, n: int) -> CountsPlan:
-    """The bucketed counts kernel's plan for ``n > 0`` points."""
+    """The bucketed kernels' plan for ``n > 0`` points (cached: the
+    wrapper is host-bound at small shapes)."""
     if not 0 < n <= _INT32_MAX:
         raise ValueError(f"{n} points: the counts kernel takes 1 to 2^31 - 1")
     sub_rows = -(-window.height // SUB_SIDE)
@@ -209,9 +219,8 @@ def bin_rowcol_window_partitioned(
     here have no slabs, so ``streams`` is only validated.
 
     ``bin_rowcol_window_partitioned.launches`` counts the calls that
-    launched the counts kernel (its four passes), ``.weighted_launches``
-    the weighted ones (``hm_window_cell_ids`` and then the run-length
-    kernel).
+    launched the bucketed counts kernels (their four passes),
+    ``.weighted_launches`` the calls that launched the weighted ones.
     """
     if dtype is None:
         dtype = torch.int32 if weights is None else torch.float32
@@ -234,8 +243,9 @@ bin_rowcol_window_partitioned.weighted_launches = 0
 
 def cell_ids(row, col, window: Window, valid=None):
     """int32 cell ids ``r * W + c`` of the points, with the sentinel
-    ``hw`` for dropped ones (out of the window, or invalid). The plain
-    PyTorch version of ``hm_window_cell_ids``."""
+    ``hw`` for dropped ones (out of the window, or invalid): the flat
+    index that ``chip_smoke.py`` hands ``torch.bincount``, its library
+    yardstick for the window kernels."""
     r, c, ok = localise(row, col, window, valid)
     # Zero the dropped lanes first, so r * W cannot overflow int32.
     local = torch.where(ok, r, 0) * window.width + torch.where(ok, c, 0)
@@ -244,49 +254,39 @@ def cell_ids(row, col, window: Window, valid=None):
 
 def _launch(row, col, window, weights, valid):
     dev = row.device
-    out = torch.zeros(window.height, window.width, device=dev,
-                      dtype=torch.int32 if weights is None else torch.float32)
     n = row.shape[0]
+    dtype = torch.int32 if weights is None else torch.float32
     if n == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    valid_ptr = None if valid is None else valid.data_ptr()
-    if weights is None:
-        _launch_counts(row, col, valid_ptr, window, out, stream)
-        bin_rowcol_window_partitioned.launches += 1
-        return out
-    lib = _build.load("window_partitioned", _SIGNATURES)
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    check_launch(lib.hm_window_cell_ids(
-        row.data_ptr(), col.data_ptr(), valid_ptr, n, window.row0,
-        window.col0, window.height, window.width, ids.data_ptr(), stream),
-        "hm_window_cell_ids")
-    sorted_ids, order = torch.sort(ids)
-    sorted_w = weights[order]
-    check_launch(lib.hm_window_run_length_weighted(
-        sorted_ids.data_ptr(), sorted_w.data_ptr(), n,
-        window.height * window.width, out.data_ptr(), stream),
-        "hm_window_run_length_weighted")
-    bin_rowcol_window_partitioned.weighted_launches += 1
-    return out
-
-
-def _launch_counts(row, col, valid_ptr, window, out, stream):
-    lib = _build.load("window_bucketed", _BUCKETED_SIGNATURES)
-    n = row.shape[0]
+        return torch.zeros(window.height, window.width, device=dev,
+                           dtype=dtype)
+    lib = _build.load("window_bucketed", _SIGNATURES)
     plan = plan_counts(window, n)
-    bucket_count = torch.zeros(plan.buckets, dtype=torch.int32,
-                               device=row.device)
-    scratch = torch.empty(plan.scratch_words(n), dtype=torch.int32,
-                          device=row.device)
-    chunk_base = scratch.data_ptr()
+    # The kernels zero the raster and the bucket totals themselves.
+    out = torch.empty(window.height, window.width, device=dev, dtype=dtype)
+    scratch = torch.empty(plan.scratch_words(n, weights is not None),
+                          dtype=torch.int32, device=dev)
+    bucket_count = scratch.data_ptr()
+    chunk_base = bucket_count + 4 * plan.buckets
     bucket_start = chunk_base + 4 * plan.chunks * plan.buckets
     item_start = bucket_start + 4 * (plan.buckets + 1)
-    cells = chunk_base + 4 * plan.cells_offset
-    check_launch(lib.hm_window_bucketed_counts(
-        row.data_ptr(), col.data_ptr(), valid_ptr, n, window.row0,
-        window.col0, window.height, window.width, SUB_SIDE, plan.sub_cols,
-        plan.buckets, plan.group_buckets, plan.groups, plan.chunks,
-        plan.per_chunk, ITEM_POINTS, plan.items_max, bucket_count.data_ptr(),
-        chunk_base, bucket_start, item_start, cells, out.data_ptr(), stream),
-        "hm_window_bucketed_counts")
+    cells = bucket_count + 4 * plan.cells_offset
+    stream = raw_stream(dev)
+    valid_ptr = None if valid is None else valid.data_ptr()
+    geometry = (window.row0, window.col0, window.height, window.width,
+                SUB_SIDE, plan.sub_cols, plan.buckets, plan.group_buckets,
+                plan.groups, plan.chunks, plan.per_chunk, ITEM_POINTS,
+                plan.items_max, bucket_count, chunk_base, bucket_start,
+                item_start, cells)
+    if weights is None:
+        check_launch(lib.hm_window_bucketed_counts(
+            row.data_ptr(), col.data_ptr(), valid_ptr, n, *geometry,
+            out.data_ptr(), stream), "hm_window_bucketed_counts")
+        bin_rowcol_window_partitioned.launches += 1
+    else:
+        wcells = bucket_count + 4 * plan.weights_offset(n)
+        check_launch(lib.hm_window_bucketed_weighted(
+            row.data_ptr(), col.data_ptr(), valid_ptr, weights.data_ptr(), n,
+            *geometry, wcells, out.data_ptr(), stream),
+            "hm_window_bucketed_weighted")
+        bin_rowcol_window_partitioned.weighted_launches += 1
+    return out
