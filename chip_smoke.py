@@ -12,8 +12,19 @@ drives the port's paths, each with the kernels' launch counts set to 0
 just before it and read just after:
 
 - the single-shot batch job, ``run_job``, at the default z21 -> z6
-  cascade, checked against the scatter backend, the CPU and the
-  reference's scalar projection (segment-reduce kernel);
+  cascade with native decode and JSON egress, checked against the
+  scatter backend, the CPU and the reference's scalar projection
+  (segment-reduce kernel);
+- the same 4M-point job chunked (``max_points_in_flight``, four 1M-point
+  chunks fed to the card by the CUDA-stream feeder), in RAM and with a
+  spill dir, each equal to the single-shot blobs, with 16 segment-reduce
+  launches a chunk;
+- the fast path: the same points written as a CSV, run through the
+  native decoder (``run_job_fast``) and the string path, then converted
+  to HMPB and run from the memory map, each equal to the single-shot
+  blobs;
+- ``run_job_resumable`` on 1M points, failed at one batch by a
+  ``FaultInjector`` and resumed to the uninterrupted blobs;
 - the ``tiles`` command at its defaults (the bucketed partitioned
   kernels), with ``--weighted`` (their weighted twin) and on a one-tile
   window (the window-histogram kernel), each raster bit-equal and each
@@ -34,9 +45,11 @@ any result. It imports nothing of JAX and nothing of ``heatmap_tpu``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -55,6 +68,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 HBM_BYTES_PER_S = 3.35e12
 SENTINEL = torch.iinfo(torch.int64).max
 N_MAIN = 4_000_000
+#: Chunk of the chunked phase: the 4M-point job in four chunks.
+N_BOUNDED_CHUNK = 1_000_000
 N_WEIGHTED = 1_000_000
 N_CROSSCHECK = 200_000
 WEIGHT_BOUND = 100
@@ -314,15 +329,19 @@ def phase_kernel(dev):
 
 
 def phase_run_job(dev):
-    """The main path: the default 4M-point job on the card."""
+    """The single-shot path: the default 4M-point job on the card, with
+    native decode and JSON egress. Returns its launches and blobs."""
+    from heatmap_tpu_torch import native
     from heatmap_tpu_torch.devices import StageTimer
     from heatmap_tpu_torch.io import MemorySink, SyntheticSource
     from heatmap_tpu_torch.ops import sparse_partitioned as sp
     from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job
     from heatmap_tpu_torch.tilemath.mercator import project_points
+    from heatmap_tpu_torch.utils.trace import get_tracer
 
     cfg = BatchJobConfig()
     assert cfg.resolved_cascade_backend(dev) == "partitioned"
+    assert native.available(), "native library did not build or load"
     timer = StageTimer(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     sink = MemorySink()
@@ -337,6 +356,8 @@ def phase_run_job(dev):
             gc_ms[info["generation"]] += (time.perf_counter() - gc_t[0]) * 1e3
 
     gc.callbacks.append(on_gc)
+    tracer = get_tracer()
+    tracer.reset()
     project_points.rechecked = 0
     sp.aggregate_sorted_keys_partitioned.launches = 0
     t0 = time.perf_counter()
@@ -347,6 +368,8 @@ def phase_run_job(dev):
     launches = sp.aggregate_sorted_keys_partitioned.launches
     rechecked = project_points.rechecked
     gc.callbacks.remove(on_gc)
+    # Egress by tracer span: finalize, JSON formatting, sink writes.
+    spans = _span_split(tracer)
     peak = torch.cuda.max_memory_allocated(dev)
     assert launches == cfg.cascade_config().n_levels + 1 == 16, launches
     assert blobs and sink.blobs == blobs
@@ -360,11 +383,171 @@ def phase_run_job(dev):
     emit({"phase": "run_job", "points": N_MAIN, "seconds": wall,
           "points_per_s": N_MAIN / wall, "stage_ms": stages,
           "segment_reduce_ms": timer.ms.get("segment_reduce"),
-          "gc_ms_by_generation": gc_ms,
+          "span_s": spans, "gc_ms_by_generation": gc_ms,
           "blobs": len(blobs), "launches": launches,
-          "projection_rechecked": rechecked,
+          "projection_rechecked": rechecked, "native_egress": True,
           "peak_bytes": peak, "equal_to_scatter": True})
-    return launches
+    return launches, blobs
+
+
+def _span_split(tracer):
+    """Host seconds by tracer span, and their counts."""
+    return {k: {"total_s": v["total_s"], "count": v["count"]}
+            for k, v in tracer.report().items()}
+
+
+def phase_bounded(dev, single):
+    """The chunked path: the default job on SyntheticSource(4M, seed 0)
+    in 1M-point chunks, fed by the CUDA-stream feeder, in RAM and with a
+    spill dir; each equal to the single-shot blobs ``single``, with 16
+    segment-reduce launches a chunk. Returns the in-RAM run's launches."""
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job
+    from heatmap_tpu_torch.pipeline.feeder import FeederStats
+    from heatmap_tpu_torch.utils.trace import get_tracer
+
+    cfg = BatchJobConfig()
+    tracer = get_tracer()
+    runs = {}
+    for name in ("in_ram", "spill"):
+        with tempfile.TemporaryDirectory() as tmp:
+            spill_dir = os.path.join(tmp, "spill") if name == "spill" else None
+            stats = FeederStats()
+            tracer.reset()
+            torch.cuda.reset_peak_memory_stats(dev)
+            sp.aggregate_sorted_keys_partitioned.launches = 0
+            t0 = time.perf_counter()
+            blobs = run_job(SyntheticSource(n=N_MAIN, seed=0), None, cfg,
+                            max_points_in_flight=N_BOUNDED_CHUNK,
+                            overlap_ingest=True, merge_spill_dir=spill_dir,
+                            device=dev, feeder_stats=stats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = sp.aggregate_sorted_keys_partitioned.launches
+            if spill_dir is not None:
+                assert os.listdir(spill_dir) == [], "spill files left"
+        assert stats.batches == N_MAIN // N_BOUNDED_CHUNK, stats
+        assert launches == 16 * stats.batches, (launches, stats)
+        assert blobs == single, f"{name}: chunked blobs differ"
+        runs[name] = {"seconds": wall, "points_per_s": N_MAIN / wall,
+                      "chunks": stats.batches, "launches": launches,
+                      "feed_s": stats.feed_s, "wait_s": stats.wait_s,
+                      "overlap_pct": stats.overlap_pct,
+                      "depth_hwm": stats.depth_hwm,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "span_s": _span_split(tracer),
+                      "equal_to_single_shot": True}
+    emit({"phase": "bounded", "points": N_MAIN,
+          "max_points_in_flight": N_BOUNDED_CHUNK, "runs": runs})
+    return runs["in_ram"]["launches"]
+
+
+def write_csv(path, n, seed):
+    """The synthetic stream as a CSV file (round-trip float reprs)."""
+    from heatmap_tpu_torch.io import SyntheticSource
+
+    with open(path, "w") as f:
+        f.write("latitude,longitude,user_id,source,timestamp\n")
+        for b in SyntheticSource(n=n, seed=seed).batches(1 << 20):
+            f.write("".join(
+                f"{a!r},{o!r},{u},{s},{t}\n" for a, o, u, s, t in zip(
+                    b["latitude"].tolist(), b["longitude"].tolist(),
+                    b["user_id"], b["source"], b["timestamp"])))
+
+
+def phase_fast(dev, single):
+    """The fast path on the single-shot job's points: written as a CSV
+    (timed apart), run through the native decoder (``run_job_fast``) and
+    the string path (``run_job(CSVSource)``), converted to HMPB by the
+    ``convert`` command and run from the memory map; each equal to the
+    single-shot blobs, each with 16 segment-reduce launches."""
+    from heatmap_tpu_torch import cli
+    from heatmap_tpu_torch.io import CSVSource
+    from heatmap_tpu_torch.io.hmpb import HMPBSource
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline.batch import run_job, run_job_fast
+    from heatmap_tpu_torch.utils.trace import get_tracer
+
+    tracer = get_tracer()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "points.csv")
+        hmpb_path = os.path.join(tmp, "points.hmpb")
+        t0 = time.perf_counter()
+        write_csv(csv_path, N_MAIN, 0)
+        out["write_csv_s"] = time.perf_counter() - t0
+        out["csv_bytes"] = os.path.getsize(csv_path)
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            assert cli.main(["convert", "--input", f"csv:{csv_path}",
+                             "--output", hmpb_path]) == 0
+        out["convert_s"] = time.perf_counter() - t0
+        out["convert"] = json.loads(printed.getvalue())
+        assert out["convert"]["n"] == N_MAIN, out["convert"]
+        out["hmpb_bytes"] = os.path.getsize(hmpb_path)
+        jobs = {
+            "fast_csv": lambda: run_job_fast(csv_path, device=dev),
+            "string_csv": lambda: run_job(CSVSource(csv_path), device=dev),
+            "fast_hmpb": lambda: run_job_fast(HMPBSource(hmpb_path),
+                                              device=dev),
+        }
+        for name, job in jobs.items():
+            tracer.reset()
+            sp.aggregate_sorted_keys_partitioned.launches = 0
+            t0 = time.perf_counter()
+            blobs = job()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = sp.aggregate_sorted_keys_partitioned.launches
+            assert launches == 16, (name, launches)
+            assert blobs == single, f"{name}: blobs differ"
+            out[name] = {"seconds": wall, "points_per_s": N_MAIN / wall,
+                         "launches": launches, "span_s": _span_split(tracer),
+                         "equal_to_single_shot": True}
+            del blobs
+    emit({"phase": "fast", "points": N_MAIN, **out})
+
+
+def phase_resumable(dev):
+    """``run_job_resumable`` on 1M points, failed at batch 2 by a
+    FaultInjector, then resumed from its checkpoint: equal to the
+    uninterrupted single-shot job."""
+    from heatmap_tpu_torch.faults import InjectedFault
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline.batch import run_job, run_job_resumable
+    from heatmap_tpu_torch.utils import CheckpointManager, FaultInjector
+
+    n = N_WEIGHTED
+    batch = n // 4
+    want = run_job(SyntheticSource(n=n, seed=1), device=dev)
+    with tempfile.TemporaryDirectory() as ckpt:
+        injector = FaultInjector({2: 1})
+        try:
+            run_job_resumable(SyntheticSource(n=n, seed=1), ckpt,
+                              batch_size=batch, checkpoint_every=1,
+                              fault_injector=injector, device=dev)
+        except InjectedFault:
+            pass
+        assert injector.injected == 1
+        resumed_from = CheckpointManager(ckpt).latest_step()
+        assert resumed_from == 2, resumed_from
+        sp.aggregate_sorted_keys_partitioned.launches = 0
+        t0 = time.perf_counter()
+        got = run_job_resumable(SyntheticSource(n=n, seed=1), ckpt,
+                                batch_size=batch, checkpoint_every=1,
+                                device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sp.aggregate_sorted_keys_partitioned.launches
+    assert launches == 16, launches
+    assert got and got == want, "resumed blobs differ"
+    emit({"phase": "resumable", "points": n, "batch_size": batch,
+          "failed_at_batch": 2, "resumed_from_step": resumed_from,
+          "resume_seconds": wall, "launches": launches, "blobs": len(got),
+          "equal_to_uninterrupted": True})
 
 
 def reference_projection(lat, lon, zoom):
@@ -957,9 +1140,13 @@ def main() -> int:
     histogram = phase_kernel_window_histogram(dev)
     part_counts, part_weighted = phase_kernel_window_partitioned(dev)
     torch.cuda.empty_cache()
-    launches = phase_run_job(dev)
+    _, single = phase_run_job(dev)
     phase_projection(data, dev)
     del data
+    bounded_launches = phase_bounded(dev, single)
+    phase_fast(dev, single)
+    del single
+    phase_resumable(dev)
     phase_weighted(dev)
     phase_cpu_crosscheck(dev)
     tiles_launches = phase_tiles(dev)
@@ -967,8 +1154,8 @@ def main() -> int:
     phase_headline(dev)
     emit({"kernels": [
         kernel_entry("segment_reduce", "segment_reduce.cu",
-                     "heatmap_tpu/ops/sparse_partitioned.py:75", launches,
-                     kernel),
+                     "heatmap_tpu/ops/sparse_partitioned.py:75",
+                     bounded_launches, kernel),
         kernel_entry("window_histogram", "window_histogram.cu",
                      "heatmap_tpu/ops/pallas_kernels.py:49",
                      tiles_launches["window_histogram"], histogram),

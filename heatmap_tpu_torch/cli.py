@@ -1,10 +1,16 @@
-"""Command line of the port: ``python -m heatmap_tpu_torch run|tiles ...``.
+"""Command line of the port: ``python -m heatmap_tpu_torch
+run|tiles|convert ...``.
 
-``run`` is the single-shot batch job (reference batchMain): points from
-``--input`` to heatmap blobs in ``--output``. ``tiles`` bins points into
-a dense window raster and writes a z/x/y PNG tile tree. Both run on the
+``run`` is the batch job (reference batchMain): points from ``--input``
+to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
+inputs take the integer fast path on their own (``--no-fast`` opts
+out, ``--fast`` makes ineligibility an error); sources too large for
+host RAM, or ``--max-points-in-flight N``, run chunked;
+``--checkpoint-dir`` resumes an interrupted job. ``tiles`` bins points
+into a dense window raster and writes a z/x/y PNG tile tree.
+``convert`` writes any source as HMPB. ``run`` and ``tiles`` run on the
 CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
-the kernels, and keep the flag names of ``heatmap_tpu``'s commands.
+the kernels; every command keeps the flag names of ``heatmap_tpu``'s.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="batch job: points -> heatmap blobs")
     p.add_argument("--input", required=True,
-                   help="synthetic:N[:seed] | csv:PATH | jsonl:PATH")
+                   help="synthetic:N[:seed] | csv:PATH | jsonl:PATH | "
+                   "hmpb:PATH")
     p.add_argument("--output", default="jsonl:heatmaps.jsonl",
-                   help="memory: | jsonl:PATH")
+                   help="memory: | jsonl:PATH | arrays:DIR (columnar "
+                   "per-level npz)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the job runs (default: the CUDA card; "
                    "cpu runs the plain PyTorch versions of the kernels)")
@@ -41,6 +49,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timespans", default="alltime",
                    help="comma list of alltime,year,month,day")
     p.add_argument("--batch-size", type=int, default=1 << 20)
+    p.add_argument("--max-points-in-flight", type=int, default=None,
+                   metavar="N",
+                   help="bound peak memory: run the cascade per chunk of "
+                   "at most N points and merge per-level aggregates "
+                   "(exact). Default: auto (sources estimated larger "
+                   "than host RAM run chunked); 0 forces single-shot")
+    p.add_argument("--merge-spill-dir", default=None, metavar="DIR",
+                   help="chunked path only: spill per-chunk aggregates "
+                   "to DIR and merge one level at a time at egress")
+    p.add_argument("--fast", action="store_true",
+                   help="require the integer fast path (csv or hmpb "
+                   "input); eligible inputs take it on their own, so "
+                   "this only turns a silent fallback into an error")
+    p.add_argument("--no-fast", action="store_true",
+                   help="disable the automatic fast path and run the "
+                   "generic per-row ingest")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint ingest progress here and resume from "
+                   "the latest checkpoint on rerun")
+    p.add_argument("--checkpoint-every", type=int, default=8,
+                   help="checkpoint every N source batches")
     p.add_argument("--capacity", type=int, default=None,
                    help="max distinct keys per cascade level "
                    "(default: #emissions)")
@@ -99,12 +128,29 @@ def build_parser() -> argparse.ArgumentParser:
                    "CPU), xla (the plain scatter), pallas (the histogram "
                    "kernel) or partitioned")
     p.set_defaults(fn=cmd_tiles)
+
+    p = sub.add_parser("convert", help="convert a source to the HMPB "
+                       "binary columnar point format (mmap ingest)")
+    p.add_argument("--input", required=True, help="any source spec")
+    p.add_argument("--output", required=True,
+                   help="output .hmpb path (a directory of part files "
+                   "with --shard-rows)")
+    p.add_argument("--batch-size", type=int, default=1 << 20)
+    p.add_argument("--shard-rows", type=int, default=None,
+                   help="split the output into part-NNNNN.hmpb files of "
+                   "at most this many rows")
+    p.set_defaults(fn=cmd_convert)
     return ap
 
 
 def cmd_run(args) -> int:
     from heatmap_tpu_torch.io import open_sink, open_source
-    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job
+    from heatmap_tpu_torch.pipeline.batch import (
+        BatchJobConfig,
+        run_job,
+        run_job_fast,
+        run_job_resumable,
+    )
 
     requested = tuple(t.strip() for t in args.timespans.split(",")
                       if t.strip())
@@ -128,17 +174,98 @@ def cmd_run(args) -> int:
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
-    source = open_source(args.input)
+    if args.merge_spill_dir and args.checkpoint_dir:
+        raise SystemExit("--merge-spill-dir applies to the bounded "
+                         "(chunked) path only; it cannot combine with "
+                         "--checkpoint-dir")
+    # 0 means "explicitly single-shot", which composes with checkpoints.
+    if args.max_points_in_flight and args.checkpoint_dir:
+        raise SystemExit("--max-points-in-flight and --checkpoint-dir are "
+                         "mutually exclusive (chunk boundaries are not "
+                         "batch boundaries)")
+    if args.fast and args.no_fast:
+        raise SystemExit("--fast and --no-fast are mutually exclusive")
+    fast_source = _fast_source(args)
     t0 = time.perf_counter()
     with open_sink(args.output) as sink:
-        blobs = run_job(source, sink, config, batch_size=args.batch_size,
-                        device=args.device)
-    print(json.dumps({
-        "blobs": len(blobs),
+        if fast_source is not None:
+            blobs = run_job_fast(
+                fast_source, sink, config, batch_size=args.batch_size,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_every=args.checkpoint_every,
+                max_points_in_flight=args.max_points_in_flight,
+                merge_spill_dir=args.merge_spill_dir, device=args.device)
+        elif args.checkpoint_dir:
+            blobs = run_job_resumable(
+                open_source(args.input, read_value=args.weighted),
+                args.checkpoint_dir, sink, config,
+                batch_size=args.batch_size,
+                checkpoint_every=args.checkpoint_every, device=args.device)
+        else:
+            blobs = run_job(
+                open_source(args.input, read_value=args.weighted), sink,
+                config, batch_size=args.batch_size,
+                max_points_in_flight=args.max_points_in_flight,
+                merge_spill_dir=args.merge_spill_dir, device=args.device)
+    summary = {
         "seconds": time.perf_counter() - t0,
+        "ingest": "fast" if fast_source is not None else "standard",
         "device": args.device,
         "cascade_backend": config.resolved_cascade_backend(args.device),
-    }), file=sys.stderr)
+    }
+    if blobs.get("egress") == "levels":
+        summary["levels"] = blobs["levels"]
+        summary["rows"] = blobs["rows"]
+    else:
+        summary["blobs"] = len(blobs)
+    print(json.dumps(summary), file=sys.stderr)
+    return 0
+
+
+def _fast_source(args):
+    """The fast-path source of a ``run``, or None for the generic path.
+
+    ``--fast`` demands a CSV or HMPB input. Otherwise CSV inputs of count
+    jobs (the native decoder reads no weights) and HMPB inputs (weighted
+    ones only with a value section) route to the fast path on their own,
+    unless ``--no-fast`` or ``--checkpoint-dir`` is given (a checkpoint
+    keeps the path that wrote it). Its blobs equal the generic path's.
+    """
+    from heatmap_tpu_torch import native
+    from heatmap_tpu_torch.io import CSVSource, open_source
+    from heatmap_tpu_torch.io.hmpb import HMPBDirSource, HMPBSource
+
+    if args.fast:
+        src = open_source(args.input, read_value=False)
+        if isinstance(src, CSVSource):
+            return src.path
+        if isinstance(src, (HMPBSource, HMPBDirSource)):
+            return src
+        raise SystemExit(f"--fast needs a csv or hmpb source, got "
+                         f"{args.input!r}")
+    if args.no_fast or args.checkpoint_dir:
+        return None
+    # Sniff the spec before opening anything: opening an .hmpb maps it.
+    kind = args.input.partition(":")[0]
+    if (kind == "csv" or args.input.endswith(".csv")) and not args.weighted:
+        if native.available():
+            src = open_source(args.input, read_value=False)
+            if isinstance(src, CSVSource):
+                return src.path
+    elif kind == "hmpb" or args.input.endswith(".hmpb"):
+        src = open_source(args.input, read_value=False)
+        if not args.weighted or getattr(src, "has_value", False):
+            return src
+        src.close()
+    return None
+
+
+def cmd_convert(args) -> int:
+    from heatmap_tpu_torch.io.hmpb import convert_to_hmpb
+
+    print(json.dumps(convert_to_hmpb(args.input, args.output,
+                                     batch_size=args.batch_size,
+                                     shard_rows=args.shard_rows)))
     return 0
 
 

@@ -1,9 +1,10 @@
-"""Host-side ingest sources, egress sinks and the PNG tile writer of the
-port."""
+"""Host-side ingest sources (synthetic, CSV, JSONL, HMPB), egress sinks
+(memory, JSONL, per-level arrays) and the PNG tile writer of the port."""
 
 from heatmap_tpu_torch.io.sinks import (
     BlobSink,
     JSONLBlobSink,
+    LevelArraysSink,
     MemorySink,
     PNGTileSink,
     open_sink,
@@ -17,6 +18,7 @@ from heatmap_tpu_torch.io.sources import (
 )
 
 __all__ = [
-    "BlobSink", "CSVSource", "JSONLBlobSink", "JSONLSource", "MemorySink",
+    "BlobSink", "CSVSource", "JSONLBlobSink", "JSONLSource",
+    "LevelArraysSink", "MemorySink",
     "PNGTileSink", "Source", "SyntheticSource", "open_sink", "open_source",
 ]

@@ -1,6 +1,7 @@
-"""Egress sinks: heatmap blob writers and the PNG tile tree.
+"""Egress sinks: heatmap blob writers, per-level arrays, the PNG tile tree.
 
-Port of the memory, JSONL and PNG-tile sinks of heatmap_tpu/io/sinks.py.
+Port of the memory, JSONL, ``arrays:`` and PNG-tile sinks of
+heatmap_tpu/io/sinks.py.
 Blob records are ``(id, heatmap)`` pairs where ``id`` is the composite
 ``user|timespan|coarseTileId`` key and ``heatmap`` the JSON dict of
 detail-tile counts (reference heatmap.py:156-157). Every blob sink
@@ -16,6 +17,7 @@ from typing import Iterable
 
 import numpy as np
 
+from heatmap_tpu_torch import faults
 from heatmap_tpu_torch.io.png import raster_to_png
 
 
@@ -110,6 +112,97 @@ class JSONLBlobSink(BlobSink):
 
 
 @dataclasses.dataclass
+class LevelArraysSink:
+    """Columnar egress (``arrays:DIR``): one ``.npz`` per pyramid level.
+
+    Consumes finalized level arrays (pipeline.cascade.
+    finalize_level_arrays) directly: the information of the reference
+    blob format (blob id = user|timespan|coarse tile + detail-tile
+    counts, reference heatmap.py:54-55,79-90) as columns, with no
+    per-blob Python dicts. Jobs route here when the sink has
+    ``write_levels`` (pipeline.batch._finish_blobs).
+
+    Files are ``level_z{zoom}.npz`` holding row/col/value,
+    dictionary-encoded user/timespan (``user_idx``/``timespan_idx`` int32
+    and the ``user_names``/``timespan_names`` tables), coarse_row/
+    coarse_col and zoom/coarse_zoom, the arrays the JAX package's
+    ``LevelArraysSink`` writes. ``format`` is ``"npz"`` (plain savez) or
+    ``"npz-compressed"``; the JAX package's parquet format and its
+    synopsis, integral and tilefs side artifacts are not ported. Each
+    level is written to a temporary file and renamed into place, under
+    the ``sink.write`` fault site, so a rerun upserts whole levels.
+    """
+
+    path: str
+    format: str = "npz"
+
+    #: Per-row columns (user/timespan dictionary-encoded).
+    COLUMNS = ("row", "col", "value", "user_idx", "timespan_idx",
+               "coarse_row", "coarse_col")
+
+    def __post_init__(self):
+        if self.format not in ("npz", "npz-compressed"):
+            raise ValueError(
+                f"format must be 'npz' or 'npz-compressed', got "
+                f"{self.format!r}")
+        os.makedirs(self.path, exist_ok=True)
+
+    def write_levels(self, levels) -> int:
+        rows = 0
+        save = (np.savez_compressed if self.format == "npz-compressed"
+                else np.savez)
+        for lvl in levels:
+            out = {k: np.asarray(lvl[k]) for k in self.COLUMNS}
+            out["zoom"] = np.asarray(lvl["zoom"])
+            out["coarse_zoom"] = np.asarray(lvl["coarse_zoom"])
+            out["user_names"] = np.asarray(lvl["user_names"])
+            out["timespan_names"] = np.asarray(lvl["timespan_names"])
+            final = os.path.join(self.path, f"level_z{lvl['zoom']:02d}.npz")
+            tmp = final + ".tmp"
+
+            def _publish_level():
+                with open(tmp, "wb") as f:
+                    save(f, **out)
+                os.replace(tmp, final)
+
+            faults.retry_call(_publish_level, site="sink.write", key="arrays")
+            rows += len(out["value"])
+        return rows
+
+    def write(self, records):
+        raise TypeError(
+            "LevelArraysSink is columnar-only (write_levels); use a blob "
+            "sink (jsonl:/memory:) for per-blob records")
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @staticmethod
+    def load(path: str) -> dict:
+        """{zoom: dict-of-columns} for every level file in ``path``, with
+        ``user``/``timespan`` materialized as string columns."""
+        out = {}
+        for name in sorted(os.listdir(path)):
+            if not (name.startswith("level_z") and name.endswith(".npz")):
+                continue
+            with np.load(os.path.join(path, name)) as z:
+                cols = {k: z[k] for k in z.files}
+            for col, names in (("user", "user_names"),
+                               ("timespan", "timespan_names")):
+                if names in cols:
+                    cols[col] = cols[names][cols.pop(f"{col}_idx")]
+                    del cols[names]
+            out[int(cols["zoom"])] = cols
+        return out
+
+
+@dataclasses.dataclass
 class PNGTileSink:
     """Slippy-map PNG tile tree: ``root/z/x/y.png``.
 
@@ -155,16 +248,19 @@ class PNGTileSink:
         return count
 
 
-def open_sink(spec: str) -> BlobSink:
-    """Sink spec: ``memory:``, ``jsonl:PATH`` or a bare ``.jsonl`` path."""
+def open_sink(spec: str):
+    """Sink spec: ``memory:``, ``jsonl:PATH``, ``arrays:DIR`` (columnar
+    per-level npz) or a bare ``.jsonl`` path."""
     kind, sep, rest = spec.partition(":")
     if sep and kind == "memory":
         return MemorySink()
     if sep and kind == "jsonl":
         return JSONLBlobSink(rest)
+    if sep and kind == "arrays":
+        return LevelArraysSink(rest)
     if spec.endswith((".jsonl", ".ndjson")):
         return JSONLBlobSink(spec)
     raise ValueError(
-        f"unrecognized sink spec {spec!r}: use memory:, jsonl:PATH or a "
-        "bare .jsonl/.ndjson path"
+        f"unrecognized sink spec {spec!r}: use memory:, jsonl:PATH, "
+        "arrays:DIR or a bare .jsonl/.ndjson path"
     )

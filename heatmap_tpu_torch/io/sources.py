@@ -1,6 +1,7 @@
 """Ingest sources: columnar point-batch readers.
 
-Port of the synthetic, CSV and JSONL readers of heatmap_tpu/io/sources.py.
+Port of the synthetic, CSV and JSONL readers of heatmap_tpu/io/sources.py
+(HMPB files: io/hmpb.py).
 Every source yields columnar batches (dicts of host numpy arrays and
 string lists) with the reference's row contract (reference
 heatmap.py:25-36): ``latitude``, ``longitude``, ``user_id``, ``source``,
@@ -14,9 +15,12 @@ from __future__ import annotations
 import csv
 import dataclasses
 import json
+import os
 from typing import Iterator
 
 import numpy as np
+
+from heatmap_tpu_torch import native
 
 COLUMNS = ("latitude", "longitude", "user_id", "source", "timestamp")
 
@@ -148,15 +152,27 @@ class SyntheticSource(Source):
 class CSVSource(Source):
     """CSV reader with a header row naming (a superset of) COLUMNS.
 
+    Parses with the native C++ decoder (heatmap_tpu_torch.native) where
+    the library loads and ``use_native`` is set, with Python's csv
+    module otherwise; both yield the same batches.
+
     ``read_value=None`` (auto) reads a ``value`` weight column when the
-    header names one; ``False`` ignores it."""
+    header names one, which routes off the native decoder (it knows the
+    reference's columns only) onto the Python reader; ``False`` ignores
+    the column and keeps the native route."""
 
     path: str
+    use_native: bool = True
     read_value: bool | None = None
 
     def batches(self, batch_size: int = DEFAULT_BATCH) -> Iterator[dict]:
         has_value = (self.read_value is not False
                      and self.has_value_column())
+        if self.use_native and not has_value and native.available():
+            # Mid-stream errors propagate: falling back after yielding
+            # would re-read rows and double-count.
+            yield from native.parse_csv_batches(self.path, batch_size)
+            return
         with open(self.path, newline="") as f:
             reader = csv.DictReader(f)
             cols = {k: [] for k in COLUMNS}
@@ -235,13 +251,19 @@ class JSONLSource(Source):
             yield _finalize_with_value(cols, vals if weighted else None)
 
 
-def open_source(spec: str, read_value: bool | None = None) -> Source:
+def open_source(spec: str, read_value: bool | None = None):
     """Parse a source spec: ``synthetic:N[:seed]``, ``csv:PATH``,
-    ``jsonl:PATH``, or a bare ``.csv``/``.jsonl``/``.ndjson`` path.
+    ``jsonl:PATH``, ``hmpb:PATH`` (a file, or a directory of ``*.hmpb``
+    parts), or a bare ``.csv``/``.jsonl``/``.ndjson``/``.hmpb`` path.
 
-    ``read_value`` controls the optional weight column of the file
-    sources: None = read it when present, False = ignore it."""
+    ``read_value`` controls the optional weight column of the CSV and
+    JSONL sources: None = read it when present, False = ignore it."""
     kind, _, rest = spec.partition(":")
+    if kind == "hmpb" or (not rest and spec.endswith(".hmpb")):
+        from heatmap_tpu_torch.io.hmpb import HMPBDirSource, HMPBSource
+
+        path = rest or spec
+        return HMPBDirSource(path) if os.path.isdir(path) else HMPBSource(path)
     if kind == "synthetic":
         parts = rest.split(":") if rest else ["1000000"]
         n = int(parts[0])
@@ -257,5 +279,5 @@ def open_source(spec: str, read_value: bool | None = None) -> Source:
         return JSONLSource(spec, read_value=read_value)
     raise ValueError(
         f"unrecognized source spec {spec!r} (synthetic:N[:seed], "
-        "csv:PATH or jsonl:PATH)"
+        "csv:PATH, jsonl:PATH or hmpb:PATH)"
     )

@@ -1,29 +1,49 @@
-"""Batch job orchestration: the single-shot ``batchMain`` on one device.
+"""Batch job orchestration: the reference ``batchMain`` on one device.
 
-Port of the single-device, single-shot path of
-heatmap_tpu/pipeline/batch.py (reference heatmap.py:152-158):
+Port of the single-device paths of heatmap_tpu/pipeline/batch.py
+(reference heatmap.py:152-158):
 
     rows -> dataframe_loader -> build_heatmaps -> heatmap_to_json -> sink
 
 Host-side ingest filtering and vocab building (strings never reach the
 device), one f64 projection to detail-zoom Morton codes on the device,
 the single-sort composite-key cascade on the device (cascade.py), and
-host-side blob egress. Every entry point takes ``device`` ("cuda" by
-default; "cpu" runs the plain PyTorch versions of the kernels).
+host-side blob egress. The entry points:
+
+- ``run_job``: any columnar source, single-shot; or, for sources that
+  would not fit host RAM (or with ``max_points_in_flight``), chunked,
+  with a host-side merge of each level across chunks, optionally spilled
+  to disk, and the next chunk fed to the device while the current one
+  runs (pipeline/feeder.py);
+- ``run_job_fast``: the integer fast path for CSV files (native
+  decoder) and HMPB files (memory map), single-shot, chunked, or with
+  checkpoint/resume;
+- ``run_job_resumable``: ``run_job`` with checkpoint/resume over source
+  batches;
+- ``run_batch``: rows in, blobs out.
+
+Every entry point takes ``device`` ("cuda" by default; "cpu" runs the
+plain PyTorch versions of the kernels).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 
 import numpy as np
 import torch
 
+from heatmap_tpu_torch import native
 from heatmap_tpu_torch.devices import resolve_device, stage
 from heatmap_tpu_torch.pipeline import cascade as cascade_mod
+from heatmap_tpu_torch.pipeline import feeder as feeder_mod
 from heatmap_tpu_torch.pipeline.groups import ALL_GROUP, EXCLUDED, UserVocab
-from heatmap_tpu_torch.pipeline.timespan import TimespanVocab
+from heatmap_tpu_torch.pipeline.timespan import TS_MISSING, TimespanVocab
 from heatmap_tpu_torch.tilemath import mercator, morton
+from heatmap_tpu_torch.utils.checkpoint import CheckpointManager
+from heatmap_tpu_torch.utils.trace import get_tracer
 
 BACKGROUND_SOURCE = "background"  # dropped at ingest, reference heatmap.py:28-29
 
@@ -196,23 +216,43 @@ def load_columns(batch):
     return out
 
 
+def _require_value_column(cols):
+    """Weighted string-path ingest: the batch must carry a 'value'
+    column."""
+    if "value" not in cols:
+        raise ValueError(
+            "weighted job needs a 'value' column in the source "
+            "(CSV/JSONL column named 'value')"
+        )
+
+
+def _require_fast_weights(values):
+    """Weighted fast ingest: fast batches must carry a 'value' column
+    (HMPB with a value section)."""
+    if values is None:
+        raise ValueError(
+            "weighted fast job needs a 'value' column in the fast "
+            "batches (convert the source to HMPB from an input with a "
+            "'value' column)"
+        )
+
+
 def ingest_columns(batches, config: BatchJobConfig):
     """Accumulate source batches into the ``_run_loaded`` data dict, or
     None when the batches carried no rows."""
+    tracer = get_tracer()
     lats, lons, users, stamps, vals = [], [], [], [], []
     for batch in batches:
-        cols = load_columns(batch)
-        lats.append(cols["latitude"])
-        lons.append(cols["longitude"])
-        users.extend(cols["user_id"])
-        stamps.extend(cols["timestamp"])
-        if config.weighted:
-            if "value" not in cols:
-                raise ValueError(
-                    "weighted job needs a 'value' column in the source "
-                    "(CSV/JSONL column named 'value')"
-                )
-            vals.append(cols["value"])
+        with tracer.span("ingest.batch"):
+            cols = load_columns(batch)
+            lats.append(cols["latitude"])
+            lons.append(cols["longitude"])
+            users.extend(cols["user_id"])
+            stamps.extend(cols["timestamp"])
+            if config.weighted:
+                _require_value_column(cols)
+                vals.append(cols["value"])
+        tracer.add_items("ingest.batch", len(cols["latitude"]))
     if not lats or sum(len(a) for a in lats) == 0:
         return None
     data = {
@@ -228,9 +268,10 @@ def ingest_columns(batches, config: BatchJobConfig):
 
 def project_codes(lat, lon, detail_zoom: int, device):
     """f64 projection to detail-zoom Morton codes + validity on
-    ``device`` (the numpy arrays are uploaded once)."""
-    lat_t = torch.as_tensor(np.asarray(lat, np.float64), device=device)
-    lon_t = torch.as_tensor(np.asarray(lon, np.float64), device=device)
+    ``device`` (numpy arrays are uploaded once; float64 tensors already
+    there are used as they are)."""
+    lat_t = torch.as_tensor(lat, dtype=torch.float64, device=device)
+    lon_t = torch.as_tensor(lon, dtype=torch.float64, device=device)
     row, col, valid = mercator.project_points(lat_t, lon_t, detail_zoom)
     return morton.morton_encode(row, col, zoom=detail_zoom), valid
 
@@ -296,23 +337,1176 @@ def _slot_names(vocab, ts_vocab, n_groups):
 
 
 def run_job(source, sink=None, config: BatchJobConfig | None = None,
-            batch_size: int = 1 << 20, device="cuda", timer=None):
+            batch_size: int = 1 << 20,
+            max_points_in_flight: int | None = None,
+            overlap_ingest: bool = True,
+            merge_spill_dir: str | None = None,
+            device="cuda", timer=None,
+            feeder_stats: feeder_mod.FeederStats | None = None):
     """Source-to-sink job over columnar batches (reference batchMain with
     the row reader and the writer replaced by io sources and sinks).
 
-    Accumulates host columns across source batches, runs the cascade
-    once on ``device``, and returns the ``{blob_id: json}`` dict; with a
-    ``sink`` it also writes the blobs there (upsert by id). ``timer``
-    (a devices.StageTimer) records per-stage milliseconds.
+    Single-shot: accumulates host columns across source batches, runs
+    the cascade once on ``device``, and returns the ``{blob_id: json}``
+    dict; with a ``sink`` it also writes there (upsert by id; a columnar
+    sink such as ``LevelArraysSink`` gets the level arrays and the call
+    returns ``{"egress": "levels", "levels": n, "rows": n}``).
+
+    ``max_points_in_flight`` bounds peak memory: the cascade runs per
+    chunk of at most that many points and each level's aggregates merge
+    on the host, which is exact because every level is a linear
+    (key, sum) reduction (counts and integer-valued weights are
+    bit-identical to single-shot; fractional weighted sums agree up to
+    f64 summation order). ``None`` (default) auto-routes: a source whose
+    estimated host columns would not fit half of MemAvailable takes the
+    chunked path with a RAM-derived chunk (``_auto_points_in_flight``);
+    ``0`` forces single-shot. ``overlap_ingest`` builds and feeds chunk
+    N+1 on a worker thread while chunk N runs (pipeline/feeder.py; at
+    most 3 chunks resident; pass ``feeder_stats`` to read its numbers).
+    ``merge_spill_dir`` spills the per-chunk aggregates to disk and
+    merges one level at a time at egress (``_SpillMerge``).
+
+    ``timer`` (a devices.StageTimer) records per-stage milliseconds,
+    fenced by device synchronisation.
     """
     config = config or BatchJobConfig()
     device = resolve_device(device)
+    if max_points_in_flight is None:
+        max_points_in_flight = _auto_points_in_flight(source)
+    if merge_spill_dir is not None and not max_points_in_flight:
+        raise ValueError(
+            "merge_spill_dir lives on the bounded path, but this job "
+            "routed single-shot (source fits host RAM, is unsizeable, "
+            "or bounding was disabled with 0); pass "
+            "max_points_in_flight > 0 to chunk — silently ignoring the "
+            "spill request would run the in-RAM merge it exists to avoid"
+        )
+    if max_points_in_flight:  # 0/None -> single-shot
+        return _run_job_bounded(
+            source, sink, config, batch_size, max_points_in_flight,
+            overlap_ingest=overlap_ingest, spill_dir=merge_spill_dir,
+            device=device, timer=timer, feeder_stats=feeder_stats,
+        )
     with stage(timer, "ingest"):
         data = ingest_columns(source.batches(batch_size), config)
     if data is None:
         return {}
     return _run_loaded(data, config, as_json=True, sink=sink, device=device,
                        timer=timer)
+
+
+#: Rough host bytes per point on the string ingest path: two f64 coords
+#: (16) + a user-id share (~60) + a timestamp list slot (~40) +
+#: concatenate/emission slack. Deliberately conservative: the cost of
+#: underestimating is an OOM, of overestimating a smaller chunk.
+_HOST_BYTES_PER_POINT = 160
+
+#: Text-source row-size floor (bytes) for estimating points from file
+#: size: a minimal "lat,lon,user" CSV row. Underestimating bytes/row
+#: overestimates points, which errs toward bounding, the safe side.
+_MIN_TEXT_ROW_BYTES = 32
+
+#: Bounded path: convert the in-RAM cross-chunk merge table to the
+#: disk-spill merge once it exceeds this many aggregate rows (~200 MB
+#: of columns; the spilled runs are 24 B/row in the system temp dir).
+#: Past this size the iterative fold's per-chunk re-scan of the whole
+#: table loses to one egress-time sort per level. Small-output jobs
+#: never cross it and never touch disk.
+AUTO_SPILL_ROWS = 8_000_000
+
+#: Directory for automatic spill (None -> tempfile.gettempdir(), which
+#: follows TMPDIR).
+AUTO_SPILL_DIR: str | None = None
+
+
+def _mount_fstype(path: str, mounts_file: str = "/proc/mounts") -> str | None:
+    """Filesystem type of the longest mount-point prefix of ``path``
+    (Linux), or None when undeterminable."""
+    try:
+        real = os.path.realpath(path)
+        best, fstype = "", None
+        with open(mounts_file) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) < 3:
+                    continue
+                mnt, typ = parts[1], parts[2]
+                if real == mnt or real.startswith(mnt.rstrip("/") + "/") \
+                        or mnt == "/":
+                    if len(mnt) > len(best):
+                        best, fstype = mnt, typ
+        return fstype
+    except OSError:
+        return None
+
+
+def _free_disk_bytes(path: str) -> int | None:
+    """Free bytes available to this process on ``path``'s filesystem,
+    or None when unknowable."""
+    try:
+        st = os.statvfs(path)
+        return st.f_bavail * st.f_frsize
+    except (OSError, AttributeError):
+        return None
+
+
+def _auto_spill_projection_fits(spill_dir: str, table_rows: int,
+                                chunks_done: int,
+                                total_chunks_est: int | None,
+                                max_chunk_rows: int) -> bool:
+    """Will the projected spill volume fit the target filesystem?
+
+    Auto-spill must never turn a job that was finishing fine in RAM into
+    an ENOSPC failure. Projection: the accumulated table spills at once
+    (24 B/row) and each remaining chunk adds at most the largest chunk's
+    output so far; when the source size is unknowable, assume as many
+    chunks remain as have run. 25% headroom.
+    """
+    free = _free_disk_bytes(spill_dir)
+    if free is None:
+        return True
+    remaining = (chunks_done if total_chunks_est is None
+                 else max(total_chunks_est - chunks_done, 0))
+    projected = 24 * (table_rows + remaining * max_chunk_rows)
+    return projected + projected // 4 <= free
+
+
+def _auto_spill_target() -> str | None:
+    """Directory for automatic spill, or None to stay in RAM.
+
+    RAM-backed candidates (tmpfs/ramfs) are refused: spilling there
+    moves pages from process RSS into tmpfs, which the OOM killer
+    counts all the same. An explicit ``merge_spill_dir`` is never
+    second-guessed.
+    """
+    import tempfile
+
+    cand = AUTO_SPILL_DIR or tempfile.gettempdir()
+    if _mount_fstype(cand) in ("tmpfs", "ramfs"):
+        return None
+    return cand
+
+
+def _available_ram_bytes() -> int | None:
+    """MemAvailable from /proc/meminfo (Linux), else total RAM via
+    sysconf, else None (no auto-routing without a signal)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    try:
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    except (ValueError, OSError, AttributeError):
+        return None
+
+
+def _estimate_source_points(source) -> int | None:
+    """Best-effort source row count: a declared ``n`` (synthetic, HMPB)
+    beats a file-size estimate (text sources); None when unknowable."""
+    n = getattr(source, "n", None)
+    if n is not None:
+        return int(n)
+    path = source if isinstance(source, str) else getattr(source, "path", None)
+    if isinstance(path, str):
+        try:
+            if os.path.isdir(path):
+                size = sum(
+                    e.stat().st_size for e in os.scandir(path) if e.is_file()
+                )
+            else:
+                size = os.path.getsize(path)
+        except OSError:
+            return None
+        return size // _MIN_TEXT_ROW_BYTES
+    return None
+
+
+def _auto_points_in_flight(source, ram_budget: int | None = None,
+                           shard_count: int = 1,
+                           fast: bool = False,
+                           n_timespans: int = 1,
+                           weighted: bool = False) -> int | None:
+    """Bounded-path chunk size when the source won't fit RAM, else None.
+
+    Half of MemAvailable is the working budget; a source whose
+    estimated host columns exceed it routes to the bounded path with a
+    chunk of a quarter of what fits (cascade state + double-buffered
+    ingest + merge state share the budget). Sources that fit keep the
+    faster single-shot path.
+
+    ``shard_count`` divides the estimate among processes sharing the
+    source. ``fast`` (run_job_fast's auto call) consults the source's
+    ``fast_host_bytes_per_point`` (HMPB mmap ingest is near-zero-copy),
+    plus the emission arrays per timespan (and, ``weighted``, the value
+    column and its emission copies), which share the same budget.
+    """
+    est = _estimate_source_points(source)
+    if est is None:
+        return None
+    est = -(-est // max(shard_count, 1))
+    if ram_budget is None:
+        avail = _available_ram_bytes()
+        if avail is None:
+            return None
+        ram_budget = avail // 2
+    bytes_per_point = _HOST_BYTES_PER_POINT
+    if fast:
+        declared = getattr(source, "fast_host_bytes_per_point", None)
+        if declared is not None:
+            # i64 code + i64 slot + valid, ~2x transiently under the
+            # cascade sort, 2 emissions per timespan per point.
+            bytes_per_point = declared + 64 * max(n_timespans, 1)
+            if weighted:
+                bytes_per_point += 8 + 32 * max(n_timespans, 1)
+    fits = ram_budget // bytes_per_point
+    if est <= fits:
+        return None
+    # A quarter of what fits, floored at 64k points; the floor must stay
+    # well under the budget or auto-bounding would itself overrun it.
+    return max(1 << 16, fits // 4)
+
+
+class _FastRouter:
+    """Maps fast-batch reader group ids into a shared UserVocab.
+
+    Fast batches carry ``routed`` ids into a reader-side ``names`` table
+    that grows via ``new_group_names``; vocab ids are assigned in
+    first-use order of kept rows, so they match the string path's
+    assignment order exactly (run_job_fast and the fast bounded path
+    share this logic).
+    """
+
+    def __init__(self, vocab: UserVocab):
+        self.vocab = vocab
+        self.names: list = []
+        self._map = np.full(1024, -2, np.int32)  # -2 = not yet mapped
+
+    def observe(self, batch):
+        """Grow the reader name table (required for every batch, even
+        ones whose rows are skipped: later batches reference ids first
+        named earlier)."""
+        self.names.extend(batch["new_group_names"])
+
+    def route(self, batch):
+        """-> (lat, lon, gids, ts_i64, values_or_None), background rows
+        dropped; ``values`` when the fast batch carries a 'value'
+        column, filtered by the same mask."""
+        if len(self.names) > len(self._map):
+            grown = np.full(max(len(self.names), 2 * len(self._map)),
+                            -2, np.int32)
+            grown[: len(self._map)] = self._map
+            self._map = grown
+        keep = ~batch["background"]
+        routed = batch["routed"][keep]
+        ref_ids = routed[routed >= 0]
+        unmapped = self._map[ref_ids] == -2
+        if unmapped.any():
+            first_use = ref_ids[unmapped]
+            _, order = np.unique(first_use, return_index=True)
+            for rid in first_use[np.sort(order)]:
+                if self._map[rid] == -2:
+                    self._map[rid] = self.vocab.id_for(self.names[rid])
+        gids = np.where(
+            routed >= 0, self._map[np.maximum(routed, 0)], EXCLUDED
+        ).astype(np.int32)
+        ts = batch.get("timestamp")
+        ts64 = (
+            np.full(int(keep.sum()), TS_MISSING, np.int64)
+            if ts is None else np.asarray(ts, np.int64)[keep]
+        )
+        vals = batch.get("value")
+        if vals is not None:
+            vals = np.asarray(vals, np.float64)[keep]
+        return (batch["latitude"][keep], batch["longitude"][keep], gids,
+                ts64, vals)
+
+
+def _check_checkpoint_weighted(meta, config: BatchJobConfig,
+                               checkpoint_dir: str):
+    """Refuse to resume a checkpoint under the other ingest mode: mixing
+    counted and weighted rows in one accumulation would corrupt every
+    blob. Checkpoints without the key are counted ones."""
+    ck = bool(meta.get("weighted", False))
+    if ck != bool(config.weighted):
+        raise RuntimeError(
+            f"checkpoint at {checkpoint_dir!r} was written by a "
+            f"{'weighted' if ck else 'counted'} job; resume with the "
+            f"matching weighted setting or a fresh checkpoint dir"
+        )
+
+
+def _fast_batches_for(source, batch_size, checkpointing=False):
+    """The run_job_fast input contract: a CSV path goes to the native
+    decoder, anything else needs ``fast_batches``."""
+    if isinstance(source, str):
+        if not native.available():
+            raise RuntimeError(
+                "run_job_fast on a CSV path needs the native decoder "
+                "(make -C native failed or no toolchain); use "
+                "run_job(CSVSource(path)) instead"
+            )
+        return native.parse_csv_batches(
+            source, batch_size, fast=True,
+            n_workers=1 if checkpointing else None,
+        )
+    if hasattr(source, "fast_batches"):
+        return source.fast_batches(batch_size)
+    raise TypeError(
+        f"run_job_fast needs a CSV path or a fast-batch source "
+        f"(got {type(source).__name__}); use run_job for generic sources"
+    )
+
+
+def _run_job_bounded(source, sink, config: BatchJobConfig,
+                     batch_size: int, max_points: int,
+                     overlap_ingest: bool = True, fast: bool = False,
+                     spill_dir: str | None = None, device="cuda",
+                     timer=None,
+                     feeder_stats: feeder_mod.FeederStats | None = None):
+    """Chunked cascade with a host-side merge of each level's aggregates.
+
+    Chunks of at most ``max_points`` points run the whole cascade on
+    ``device``, and each level's decoded (timespan, group, code) -> sum
+    aggregates fold into one running table per level. UserVocab and
+    TimespanVocab are shared across chunks, so ids stay consistent; each
+    chunk packs its slots with its own group count, and egress re-packs
+    them with the final vocab sizes.
+
+    ``overlap_ingest``: a worker thread (pipeline/feeder.py) builds
+    chunk N+1 (source IO, parsing, group routing) and copies its numeric
+    columns to the device while this thread runs chunk N's cascade and
+    merge, through a depth-1 queue: at most 3 chunks resident (building,
+    queued, in the cascade). Chunk order, and so every vocab id and
+    merge result, equals the sequential path's. False keeps one chunk.
+
+    ``spill_dir``: write per-chunk level aggregates to disk instead of
+    folding them in RAM, and merge one level at a time at egress
+    (``_SpillMerge``); byte-identical results. Without it the job still
+    spills on its own (to ``_auto_spill_target()``) once the in-RAM
+    table passes AUTO_SPILL_ROWS and the projected volume fits the disk;
+    a failed automatic spill folds back into RAM with a warning.
+    """
+    if max_points < 1:
+        raise ValueError(f"max_points_in_flight must be >= 1, got {max_points}")
+    device = resolve_device(device)
+    tracer = get_tracer()
+    vocab = UserVocab()
+    ts_vocab = TimespanVocab()
+    ccfg = config.cascade_config()
+    n_levels = ccfg.n_levels + 1
+    backend = config.resolved_cascade_backend(device)
+    empty = {
+        "ts": np.empty(0, np.int64), "g": np.empty(0, np.int64),
+        "code": np.empty(0, np.int64), "value": np.empty(0, np.float64),
+    }
+    merged = [dict(empty) for _ in range(n_levels)]
+    spill = _SpillMerge(spill_dir, n_levels) if spill_dir is not None else None
+    spill_runs = 0
+    spill_is_auto = False
+    # Candidate dir for automatic spill; None keeps the in-RAM fold.
+    auto_spill_dir = _auto_spill_target() if spill is None else None
+    est_points = _estimate_source_points(source)
+    total_chunks_est = (
+        None if est_points is None else -(-est_points // max_points)
+    )
+    chunks_done = 0
+    max_chunk_rows = 0
+
+    def chunks():
+        """Sequential chunk builder: ingest batches, cut at max_points.
+
+        A chunk is (lat, lon, gids, stamps, weights): stamps an i64
+        array (fast) or a list (string path), weights an f64 array for
+        weighted jobs and None otherwise.
+        """
+        lats, lons, gids, stamps, vals = [], [], [], [], []
+        pending = 0
+
+        def cut():
+            nonlocal pending
+            chunk = (
+                np.concatenate(lats),
+                np.concatenate(lons),
+                np.concatenate(gids).astype(np.int32),
+                np.concatenate(stamps) if fast
+                else [s for b in stamps for s in b],
+                np.concatenate(vals) if config.weighted else None,
+            )
+            lats.clear(); lons.clear(); gids.clear(); stamps.clear()
+            vals.clear()
+            pending = 0
+            return chunk
+
+        if fast:
+            router = _FastRouter(vocab)
+            batches = _fast_batches_for(source, min(batch_size, max_points))
+        else:
+            batches = source.batches(min(batch_size, max_points))
+        for batch in batches:
+            with tracer.span("ingest.batch"):
+                if fast:
+                    router.observe(batch)
+                    lat, lon, g, ts, v = router.route(batch)
+                    if config.weighted:
+                        _require_fast_weights(v)
+                else:
+                    cols = load_columns(batch)
+                    lat = cols["latitude"]
+                    lon = cols["longitude"]
+                    g = vocab.group_ids(cols["user_id"])
+                    ts = cols["timestamp"]
+                    v = cols.get("value")
+                    if config.weighted:
+                        _require_value_column(cols)
+                m = len(lat)
+                # Cut before appending when the batch would overshoot,
+                # so a chunk never exceeds max_points.
+                if pending and pending + m > max_points:
+                    yield cut()
+                lats.append(lat)
+                lons.append(lon)
+                gids.append(g)
+                stamps.append(ts)
+                if config.weighted:
+                    vals.append(v)
+                pending += m
+            tracer.add_items("ingest.batch", m)
+            if pending >= max_points:
+                yield cut()
+        if pending:
+            yield cut()
+
+    def process(chunk):
+        nonlocal spill, spill_runs, spill_is_auto, auto_spill_dir
+        nonlocal chunks_done, max_chunk_rows
+        lat, lon, group_ids, flat_stamps, weights = chunk
+        with tracer.span("cascade.chunk", items=len(lat), backend=backend):
+            with stage(timer, "project"):
+                codes, valid = project_codes(lat, lon, config.detail_zoom,
+                                             device)
+            with stage(timer, "emissions"):
+                w = (None if weights is None else torch.as_tensor(
+                    weights, dtype=torch.float64, device=device))
+                e_codes, e_slots, e_valid, _, n_groups, e_weights = (
+                    build_emissions(codes, valid, group_ids, flat_stamps,
+                                    config, ts_vocab=ts_vocab, weights=w))
+            n_emit = int(e_codes.shape[0])
+            level_data = cascade_mod.run_cascade(
+                e_codes, e_slots, ccfg,
+                n_slots=len(ts_vocab) * n_groups,
+                valid=e_valid,
+                capacity=min(config.capacity or n_emit, n_emit),
+                weights=e_weights,
+                acc_dtype=torch.float64 if e_weights is not None else None,
+                backend=backend,
+                weight_bound=config.weight_bound, timer=timer,
+            )
+            with stage(timer, "decode"):
+                levels = cascade_mod.decode_levels(level_data, ccfg)
+        with tracer.span("merge.chunk"), stage(timer, "merge"):
+            chunks_done += 1
+            max_chunk_rows = max(
+                max_chunk_rows, sum(len(lvl["code"]) for lvl in levels)
+            )
+            if spill is not None:
+                failed_level = None
+                try:
+                    for i, lvl in enumerate(levels):
+                        failed_level = i
+                        spill.add_level(
+                            spill_runs, i, lvl["slot"] // n_groups,
+                            lvl["slot"] % n_groups, lvl["code"],
+                            lvl["value"],
+                        )
+                except OSError as e:
+                    if not spill_is_auto:
+                        raise  # explicit merge_spill_dir: the operator's call
+                    # An automatic spill hit a disk error: fold every
+                    # spilled run, plus this chunk's unwritten levels,
+                    # back into RAM and carry on without disk. Run order
+                    # is kept, so results stay byte-identical. The level
+                    # that raised may have its last file truncated, so
+                    # its files are dropped by name.
+                    spill.discard_level(spill_runs, failed_level)
+                    written = spill.complete_levels(spill_runs)
+                    written.discard(failed_level)
+                    for i in range(n_levels):
+                        base = spill.merge_level(i, spill_runs + 1)
+                        if i not in written:
+                            lvl = levels[i]
+                            base = _merge_sorted_level(
+                                base, lvl["slot"] // n_groups,
+                                lvl["slot"] % n_groups, lvl["code"],
+                                lvl["value"],
+                            )
+                        merged[i] = base
+                    spill.cleanup()
+                    spill = None
+                    spill_is_auto = False
+                    auto_spill_dir = None
+                    warnings.warn(
+                        f"auto-spill write failed ({e}); folded spilled "
+                        "runs back into RAM and continuing without disk "
+                        "(set TMPDIR or AUTO_SPILL_DIR to a larger "
+                        "filesystem to re-enable)",
+                        RuntimeWarning, stacklevel=2,
+                    )
+                else:
+                    spill_runs += 1
+                return
+            for i, lvl in enumerate(levels):
+                merged[i] = _merge_sorted_level(
+                    merged[i], lvl["slot"] // n_groups,
+                    lvl["slot"] % n_groups, lvl["code"], lvl["value"],
+                )
+            table_rows = sum(len(m["code"]) for m in merged)
+            if auto_spill_dir is not None and table_rows > AUTO_SPILL_ROWS:
+                # Past this size the in-RAM fold's per-chunk re-scan of
+                # the whole table loses to the spill merge: convert the
+                # table to spill run 0, and spill later chunks directly
+                # (run order keeps chunk-order sums: byte-identical),
+                # but only onto a filesystem the projected volume fits.
+                if not _auto_spill_projection_fits(
+                        auto_spill_dir, table_rows, chunks_done,
+                        total_chunks_est, max_chunk_rows):
+                    warnings.warn(
+                        f"auto-spill skipped: projected spill volume "
+                        f"does not fit {auto_spill_dir!r}; keeping the "
+                        "in-RAM merge (set TMPDIR or AUTO_SPILL_DIR to a "
+                        "larger filesystem, or pass merge_spill_dir)",
+                        RuntimeWarning, stacklevel=2,
+                    )
+                    auto_spill_dir = None
+                    return
+                converting = None
+                try:
+                    converting = _SpillMerge(auto_spill_dir, n_levels)
+                    for i, m in enumerate(merged):
+                        converting.add_level(
+                            0, i, m["ts"], m["g"], m["code"], m["value"]
+                        )
+                except OSError as e:
+                    if converting is not None:
+                        converting.cleanup()
+                    auto_spill_dir = None
+                    warnings.warn(
+                        f"auto-spill conversion failed ({e}); keeping "
+                        "the in-RAM merge",
+                        RuntimeWarning, stacklevel=2,
+                    )
+                else:
+                    spill = converting
+                    spill_is_auto = True
+                    for i in range(n_levels):
+                        merged[i] = dict(empty)
+                    spill_runs = 1
+
+    # A failure between the first spilled run and egress must still
+    # remove the spill tempdir, so ingest runs under the same cleanup.
+    try:
+        if not overlap_ingest:
+            for chunk in chunks():
+                process(chunk)
+        else:
+            transfer = (feeder_mod.CudaTransfer(device, columns=(0, 1, 4))
+                        if device.type == "cuda" else (lambda chunk: chunk))
+            for item in feeder_mod.feed(chunks(), transfer, depth=1,
+                                        stats=feeder_stats,
+                                        thread_name="ingest-prefetch"):
+                process(feeder_mod.ready(item))
+    except BaseException:
+        if spill is not None:
+            spill.cleanup()
+        raise
+
+    # Egress: re-pack slots with the complete vocabs, then the shared
+    # finalize + blob path.
+    n_groups = len(vocab)
+    slot_names = _slot_names(vocab, ts_vocab, n_groups)
+
+    def assemble(m, i):
+        rows, cols_ = morton.morton_decode_np(m["code"])
+        return {
+            "zoom": ccfg.detail_zoom - i,
+            "slot": m["ts"] * n_groups + m["g"],
+            "code": m["code"],
+            "row": rows,
+            "col": cols_,
+            "value": m["value"],
+        }
+
+    try:
+        if spill is not None:
+            if spill.rows_spilled == 0:
+                return {}
+            if not config.amplify_all:
+                # One level at a time: merge, finalize and write each
+                # level before the next, so the peak is one chunk plus
+                # the largest level. Blob ids never collide across
+                # levels (the coarse zoom is part of the id) and sinks
+                # upsert per blob or per level, so per-level calls
+                # compose exactly.
+                out = None
+                for i in range(n_levels):
+                    part = _finish_blobs(
+                        [assemble(spill.merge_level(i, spill_runs), i)],
+                        ccfg, slot_names, as_json=True, sink=sink,
+                        timer=timer,
+                    )
+                    if part.get("egress") == "levels":
+                        if out is None:
+                            out = {"egress": "levels", "levels": 0,
+                                   "rows": 0}
+                        out["levels"] += part["levels"]
+                        out["rows"] += part["rows"]
+                    else:
+                        if out is None:
+                            out = {}
+                        out.update(part)
+                return {} if out is None else out
+            # amplify_all's cross-level recurrence needs every level in
+            # hand (cascade._patch_amplified).
+            merged = [spill.merge_level(i, spill_runs)
+                      for i in range(n_levels)]
+        elif all(len(m["code"]) == 0 for m in merged):
+            return {}
+        return _finish_blobs(
+            [assemble(m, i) for i, m in enumerate(merged)],
+            ccfg, slot_names, as_json=True, sink=sink, timer=timer,
+        )
+    finally:
+        if spill is not None:
+            spill.cleanup()
+
+
+class _SpillMerge:
+    """Disk-backed cross-chunk merge for the bounded path.
+
+    The in-RAM merge table is O(unique output keys), the one bound
+    ``max_points_in_flight`` cannot give. Spilling writes each chunk's
+    decoded level aggregates as flat column files (24 B/row: int32 ts/g
+    + int64 code + f64 value) and aggregates one level at a time at
+    egress (mmap, concatenate, one stable sort, reduceat), so the host
+    peak is one chunk plus the largest level (except under
+    ``amplify_all``, whose cross-level recurrence needs every merged
+    level at egress). Values sum in chunk order per key: byte-identical
+    to the iterative in-RAM merge. The reference's analog is Spark's
+    shuffle spill to local disk (reference submit-heatmap:14).
+    """
+
+    def __init__(self, root: str, n_levels: int):
+        import tempfile
+
+        os.makedirs(root, exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="merge-spill-", dir=root)
+        self.n_levels = n_levels
+        self.rows_spilled = 0
+
+    def _base(self, run: int, level: int) -> str:
+        return os.path.join(self.dir, f"run{run:05d}_l{level:02d}")
+
+    def add_level(self, run: int, level: int, ts, g, code, value) -> None:
+        if len(code) == 0:
+            return  # empty runs simply have no files
+        base = self._base(run, level)
+        np.save(base + "_ts.npy", np.asarray(ts, np.int32))
+        np.save(base + "_g.npy", np.asarray(g, np.int32))
+        np.save(base + "_code.npy", np.asarray(code, np.int64))
+        np.save(base + "_value.npy", np.asarray(value, np.float64))
+        self.rows_spilled += len(code)
+
+    def discard_level(self, run: int, level: int | None) -> None:
+        """Remove whatever ``(run, level)`` files exist: a save that
+        raised may have left the last file truncated but present."""
+        if level is None:
+            return
+        base = self._base(run, level)
+        for name in ("ts", "g", "code", "value"):
+            try:
+                os.remove(f"{base}_{name}.npy")
+            except OSError:
+                pass
+
+    def complete_levels(self, run: int) -> set:
+        """Levels of ``run`` whose four column files all exist; the files
+        of partial levels are deleted, so a later merge_level never
+        reads a half-written run."""
+        done = set()
+        for level in range(self.n_levels):
+            base = self._base(run, level)
+            paths = [f"{base}_{name}.npy"
+                     for name in ("ts", "g", "code", "value")]
+            present = [p for p in paths if os.path.exists(p)]
+            if len(present) == len(paths):
+                done.add(level)
+            else:
+                for p in present:
+                    try:
+                        os.remove(p)
+                    except OSError:
+                        pass
+        return done
+
+    def merge_level(self, level: int, n_runs: int) -> dict:
+        cols = {"ts": [], "g": [], "code": [], "value": []}
+        for run in range(n_runs):
+            base = self._base(run, level)
+            if not os.path.exists(base + "_code.npy"):
+                continue
+            for name in cols:
+                cols[name].append(
+                    np.load(f"{base}_{name}.npy", mmap_mode="r")
+                )
+        if not cols["code"]:
+            return {
+                "ts": np.empty(0, np.int64), "g": np.empty(0, np.int64),
+                "code": np.empty(0, np.int64),
+                "value": np.empty(0, np.float64),
+            }
+        ts = np.concatenate(cols["ts"]).astype(np.int64)
+        g = np.concatenate(cols["g"]).astype(np.int64)
+        code = np.concatenate(cols["code"])
+        value = np.concatenate(cols["value"])
+        return _aggregate_runs(ts, g, code, value)
+
+    def cleanup(self) -> None:
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _aggregate_runs(ts, g, code, value) -> dict:
+    """Sum values over equal (ts, g, code) keys across concatenated runs;
+    output sorted by (ts, g, code). The stable sort keeps run order
+    within a key, so f64 sums accumulate in chunk order, the order of
+    the iterative _merge_sorted_level fold."""
+    pack = _level_key_packer(ts, g, code)
+    if pack is not None:
+        order = np.argsort(pack(ts, g, code), kind="stable")
+    else:  # pathological widths: correct but slower full sort
+        order = np.lexsort((code, g, ts))
+    ts, g, code, value = ts[order], g[order], code[order], value[order]
+    first = np.empty(len(code), bool)
+    first[:1] = True
+    first[1:] = (ts[1:] != ts[:-1]) | (g[1:] != g[:-1]) \
+        | (code[1:] != code[:-1])
+    starts = np.flatnonzero(first)
+    return {
+        "ts": ts[starts],
+        "g": g[starts],
+        "code": code[starts],
+        "value": np.add.reduceat(value, starts) if len(starts)
+        else value[:0],
+    }
+
+
+def _level_key_packer(ts, g, code):
+    """Closure packing (ts, g, code) rows into one comparable int64,
+    field widths taken from these arrays (pass the union of everything
+    to be packed), or None when the widths do not fit 62 bits. Both merge
+    paths order keys by it, which is what makes the spill merge
+    byte-identical to the in-RAM one."""
+    code_bits = int(code.max(initial=0)).bit_length()
+    gmax = int(g.max(initial=0)) + 1
+    tmax = int(ts.max(initial=0)) + 1
+    if code_bits + (gmax * tmax).bit_length() >= 62:
+        return None
+
+    def pack(t_, g_, c_):
+        # int64 first: ts/g arrive int32 off the native key decoder, and
+        # << code_bits (up to 42 at z21) would wrap in int32, and
+        # unsorted pack keys would then corrupt the merges.
+        return ((t_.astype(np.int64) * gmax + g_) << code_bits) | c_
+
+    return pack
+
+
+def _merge_sorted_level(m, ts2, g2, code2, value2):
+    """Fold one chunk's level aggregates into the running table.
+
+    Both sides arrive sorted by (ts, g, code): the table is the previous
+    merge's output, and decode_levels emits ascending composite-key
+    order, which for slot = ts*G + g (g < G) is the (ts, g, code)
+    order. So this is a two-sorted-run merge by binary searches, not a
+    re-sort of the table per chunk. Equal keys sum.
+    """
+    ts = np.concatenate([m["ts"], ts2])
+    g = np.concatenate([m["g"], g2])
+    code = np.concatenate([m["code"], code2])
+    value = np.concatenate([m["value"], value2])
+    if len(code) == 0:
+        return m
+    pack = _level_key_packer(ts, g, code)
+    if pack is not None:
+        pa = pack(m["ts"], m["g"], m["code"])
+        pb = pack(ts2, g2, code2)
+        if len(pa) and len(pb):
+            pos_a = np.arange(len(pa)) + np.searchsorted(pb, pa, side="left")
+            pos_b = np.arange(len(pb)) + np.searchsorted(pa, pb, side="right")
+            order = np.empty(len(pa) + len(pb), np.int64)
+            order[pos_a] = np.arange(len(pa))
+            order[pos_b] = len(pa) + np.arange(len(pb))
+        else:
+            order = np.arange(len(code))
+    else:  # pathological widths: correct but slower full sort
+        order = np.lexsort((code, g, ts))
+    ts, g, code, value = ts[order], g[order], code[order], value[order]
+    new = np.concatenate([[True],
+                          (ts[1:] != ts[:-1]) | (g[1:] != g[:-1])
+                          | (code[1:] != code[:-1])])
+    seg = np.cumsum(new) - 1
+    keep = np.flatnonzero(new)
+    return {
+        "ts": ts[keep], "g": g[keep], "code": code[keep],
+        "value": np.bincount(seg, weights=value),
+    }
+
+
+def _finish_blobs(decoded_levels, ccfg, slot_names, as_json, sink=None,
+                  timer=None):
+    """Shared egress tail: finalize decoded levels, then either hand the
+    columns to a columnar sink (anything with ``write_levels``, such as
+    io.sinks.LevelArraysSink) and return ``{"egress": "levels",
+    "levels": n, "rows": n}``, or build reference-format blobs, upsert
+    them into ``sink`` and return them."""
+    tracer = get_tracer()
+    with stage(timer, "egress"):
+        with tracer.span("egress.finalize"):
+            finalized = cascade_mod.finalize_level_arrays(
+                decoded_levels, ccfg, slot_names)
+        if sink is not None and hasattr(sink, "write_levels"):
+            with tracer.span("egress"):
+                rows = sink.write_levels(finalized)
+            return {"egress": "levels", "levels": len(finalized),
+                    "rows": rows}
+        with tracer.span("egress.blobs"):
+            if as_json:
+                blobs = cascade_mod.json_blobs_from_level_arrays(finalized)
+            else:
+                blobs = cascade_mod.blobs_from_level_arrays(finalized)
+        if sink is not None:
+            with tracer.span("egress"):
+                sink.write(blobs.items())
+    return blobs
+
+
+def run_job_fast(source, sink=None, config: BatchJobConfig | None = None,
+                 batch_size: int = 1 << 20,
+                 checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 8,
+                 fault_injector=None,
+                 max_points_in_flight: int | None = None,
+                 overlap_ingest: bool = True,
+                 merge_spill_dir: str | None = None,
+                 device="cuda", timer=None,
+                 feeder_stats: feeder_mod.FeederStats | None = None):
+    """Integer fast-path job: no per-row Python objects.
+
+    ``source`` is a CSV path (the native decoder parses, routes user ids
+    per reference heatmap.py:64-70 and flags background rows per
+    heatmap.py:28-29 in its reader threads) or any object with
+    ``fast_batches(batch_size)`` (io.hmpb.HMPBSource and HMPBDirSource
+    memory-map pre-routed columns). This side maps the small routed-name
+    table into the UserVocab and filters with numpy masks. Same blobs as
+    the string path; dated timespans read the i64 epoch-ms ``timestamp``
+    column (a TS_MISSING row under a dated timespan raises).
+
+    ``checkpoint_dir`` enables checkpoint/resume with run_job_resumable's
+    semantics, every ``checkpoint_every`` batches; a rerun skips the row
+    work of checkpointed batches (the reader still streams them for its
+    name table). Resume by batch index needs a deterministic batch
+    order, so checkpointing runs the native CSV reader on one worker.
+    ``fault_injector`` (utils.recovery.FaultInjector) fails chosen batch
+    indices.
+
+    ``max_points_in_flight`` chunks the job like run_job's knob, with
+    fast ingest; it excludes ``checkpoint_dir`` and ``fault_injector``
+    (chunk boundaries are not batch boundaries). ``None`` auto-routes
+    like run_job unless checkpointing or fault injection is set.
+    """
+    config = config or BatchJobConfig()
+    device = resolve_device(device)
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    if (max_points_in_flight is None and checkpoint_dir is None
+            and fault_injector is None):
+        max_points_in_flight = _auto_points_in_flight(
+            source, fast=True,
+            n_timespans=(1 if config.first_timespan_only
+                         else len(config.timespans)),
+            weighted=config.weighted,
+        )
+    if merge_spill_dir is not None and not max_points_in_flight:
+        raise ValueError(
+            "merge_spill_dir lives on the bounded path, but this job "
+            "routed single-shot; pass max_points_in_flight > 0 to "
+            "chunk (see run_job)"
+        )
+    if max_points_in_flight:  # 0/None -> single-shot
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "max_points_in_flight and checkpoint_dir are mutually "
+                "exclusive on the fast path"
+            )
+        if fault_injector is not None:
+            raise ValueError(
+                "fault_injector is not supported with "
+                "max_points_in_flight (no batch-index resume on the "
+                "chunked path)"
+            )
+        return _run_job_bounded(
+            source, sink, config, batch_size, max_points_in_flight,
+            overlap_ingest=overlap_ingest, fast=True,
+            spill_dir=merge_spill_dir, device=device, timer=timer,
+            feeder_stats=feeder_stats,
+        )
+    vocab = UserVocab()
+    router = _FastRouter(vocab)
+    tracer = get_tracer()
+    lats, lons, gids, tss, vals = [], [], [], [], []
+    mgr = None
+    done = 0
+    if checkpoint_dir is not None:
+        mgr = CheckpointManager(checkpoint_dir)
+        if mgr.latest_step() is not None:
+            arrays, meta = mgr.load()
+            # Batch indices mean the same rows only under the reader
+            # that wrote them: refuse checkpoints of the string path.
+            kind = meta.get("job_path", "string")
+            if kind != "fast":
+                raise RuntimeError(
+                    f"checkpoint at {checkpoint_dir!r} was written by the "
+                    f"{kind!r} job path; resume it with the same path "
+                    "(run_job_resumable / drop --fast) or point --fast at "
+                    "a fresh checkpoint dir"
+                )
+            _check_checkpoint_weighted(meta, config, checkpoint_dir)
+            lats = [arrays["latitude"]]
+            lons = [arrays["longitude"]]
+            gids = [arrays["group_ids"]]
+            tss = [arrays["timestamps_ms"]]
+            if config.weighted:
+                vals = [arrays["values"]]
+            for name in meta["group_names"][1:]:  # [0] is always 'all'
+                vocab.id_for(name)
+            done = meta["batches_done"]
+
+    def checkpoint(step):
+        arrays = {
+            "latitude": np.concatenate(lats) if lats else np.empty(0),
+            "longitude": np.concatenate(lons) if lons else np.empty(0),
+            "group_ids": (
+                np.concatenate(gids) if gids else np.empty(0, np.int32)
+            ),
+            "timestamps_ms": (
+                np.concatenate(tss) if tss else np.empty(0, np.int64)
+            ),
+        }
+        if config.weighted:
+            arrays["values"] = np.concatenate(vals) if vals else np.empty(0)
+        mgr.save(step, arrays, {
+            "group_names": list(vocab.names),
+            "batches_done": step,
+            "job_path": "fast",
+            "weighted": config.weighted,
+        })
+        # Collapse the accumulated pieces so later checkpoints do not
+        # recopy a growing list.
+        lats[:] = [arrays["latitude"]]
+        lons[:] = [arrays["longitude"]]
+        gids[:] = [arrays["group_ids"]]
+        tss[:] = [arrays["timestamps_ms"]]
+        if config.weighted:
+            vals[:] = [arrays["values"]]
+
+    with tracer.span("ingest.fast"), stage(timer, "ingest"):
+        batches = _fast_batches_for(source, batch_size,
+                                    checkpointing=checkpoint_dir is not None)
+        for i, b in enumerate(batches):
+            # The name table grows even for skipped batches: a batch
+            # after the resume point may reference reader ids first
+            # named before it.
+            router.observe(b)
+            if i < done:
+                continue  # rows already checkpointed by an earlier run
+            if fault_injector is not None:
+                fault_injector.check(i)
+            tracer.add_items("ingest.fast", len(b["latitude"]))
+            lat, lon, g, ts64, v = router.route(b)
+            if config.weighted:
+                _require_fast_weights(v)
+                vals.append(v)
+            lats.append(lat)
+            lons.append(lon)
+            gids.append(g)
+            tss.append(ts64)
+            done = i + 1
+            if mgr is not None and done % checkpoint_every == 0:
+                with tracer.span("checkpoint"):
+                    checkpoint(done)
+    if not lats or sum(len(a) for a in lats) == 0:
+        return {}
+    return _run_grouped(
+        np.concatenate(lats), np.concatenate(lons), np.concatenate(gids),
+        np.concatenate(tss), vocab, config, as_json=True, sink=sink,
+        weights=np.concatenate(vals) if config.weighted else None,
+        device=device, timer=timer,
+    )
+
+
+def _stamps_to_checkpoint(flat_stamps) -> dict:
+    """The timestamp arrays of a string-path checkpoint: none when every
+    stamp is None; an i64 epoch-ms column (TS_MISSING for None) when the
+    stamps are numbers or datetimes/dates; their strings plus a validity
+    mask otherwise. Resumed runs then bucket dated timespans exactly as
+    an uninterrupted run."""
+    if not flat_stamps or all(s is None for s in flat_stamps):
+        return {}
+    import datetime as _dt
+
+    valid = np.asarray([s is not None for s in flat_stamps], bool)
+    present = [s for s in flat_stamps if s is not None]
+    try:
+        ms_present = np.asarray(present, np.int64)
+    except (ValueError, TypeError):
+        def to_ms(s):
+            if isinstance(s, _dt.datetime):
+                if s.tzinfo is None:
+                    s = s.replace(tzinfo=_dt.timezone.utc)
+                return int(s.timestamp() * 1000)
+            if isinstance(s, _dt.date):
+                return int(_dt.datetime(
+                    s.year, s.month, s.day, tzinfo=_dt.timezone.utc,
+                ).timestamp() * 1000)
+            return None
+
+        ms = [to_ms(s) for s in present]
+        ms_present = (np.asarray(ms, np.int64)
+                      if all(m is not None for m in ms) else None)
+    if ms_present is not None:
+        full = np.full(len(flat_stamps), TS_MISSING, np.int64)
+        full[valid] = ms_present
+        return {"timestamps_ms": full}
+    return {
+        "timestamps_str": np.asarray(
+            ["" if s is None else str(s) for s in flat_stamps]),
+        "timestamps_valid": valid,
+    }
+
+
+def _stamps_from_checkpoint(arrays, n) -> list:
+    """Inverse of :func:`_stamps_to_checkpoint` for ``n`` rows."""
+    if "timestamps_ms" in arrays:
+        return [None if t == TS_MISSING else int(t)
+                for t in arrays["timestamps_ms"]]
+    if "timestamps_str" in arrays:
+        if "timestamps_valid" in arrays:
+            return [s if v else None
+                    for s, v in zip(arrays["timestamps_str"],
+                                    arrays["timestamps_valid"])]
+        return list(arrays["timestamps_str"])
+    return [None] * n
+
+
+def run_job_resumable(source, checkpoint_dir: str, sink=None,
+                      config: BatchJobConfig | None = None,
+                      batch_size: int = 1 << 20,
+                      checkpoint_every: int = 8,
+                      fault_injector=None, device="cuda", timer=None):
+    """``run_job`` with checkpoint/resume over source batches.
+
+    Ingest progress is checkpointed every ``checkpoint_every`` batches
+    (atomic npz via utils.checkpoint, the JAX package's format); a rerun
+    with the same source and batch size resumes after the last
+    checkpointed batch. The source is streamed from the start on resume
+    (earlier batches are read and skipped), so sources must iterate
+    deterministically, as every built-in one does. ``fault_injector``
+    (utils.recovery.FaultInjector) fails chosen batch indices.
+    """
+    config = config or BatchJobConfig()
+    device = resolve_device(device)
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    tracer = get_tracer()
+    mgr = CheckpointManager(checkpoint_dir)
+    vocab = UserVocab()
+    lats, lons, gids, stamps, vals = [], [], [], [], []
+    done = 0
+    if mgr.latest_step() is not None:
+        arrays, meta = mgr.load()
+        kind = meta.get("job_path", "string")
+        if kind != "string":
+            raise RuntimeError(
+                f"checkpoint at {checkpoint_dir!r} was written by the "
+                f"{kind!r} job path; resume it with run_job_fast "
+                "(--fast) or point this run at a fresh checkpoint dir"
+            )
+        _check_checkpoint_weighted(meta, config, checkpoint_dir)
+        lats, lons = [arrays["latitude"]], [arrays["longitude"]]
+        gids = [arrays["group_ids"]]
+        if config.weighted:
+            vals = [arrays["values"]]
+        stamps = [_stamps_from_checkpoint(arrays, len(arrays["latitude"]))]
+        for name in meta["group_names"][1:]:  # [0] is always 'all'
+            vocab.id_for(name)
+        done = meta["batches_done"]
+
+    def checkpoint(step):
+        flat_stamps = [s for chunk in stamps for s in chunk]
+        arrays = {
+            "latitude": np.concatenate(lats) if lats else np.empty(0),
+            "longitude": np.concatenate(lons) if lons else np.empty(0),
+            "group_ids": (np.concatenate(gids) if gids
+                          else np.empty(0, np.int32)),
+        }
+        if config.weighted:
+            arrays["values"] = np.concatenate(vals) if vals else np.empty(0)
+        arrays.update(_stamps_to_checkpoint(flat_stamps))
+        mgr.save(step, arrays, {
+            "group_names": list(vocab.names),
+            "batches_done": step,
+            "job_path": "string",
+            "weighted": config.weighted,
+        })
+        lats[:] = [arrays["latitude"]]
+        lons[:] = [arrays["longitude"]]
+        gids[:] = [arrays["group_ids"]]
+        stamps[:] = [flat_stamps]
+        if config.weighted:
+            vals[:] = [arrays["values"]]
+
+    with stage(timer, "ingest"):
+        for i, batch in enumerate(source.batches(batch_size)):
+            if i < done:
+                continue  # already checkpointed by an earlier run
+            if fault_injector is not None:
+                fault_injector.check(i)
+            with tracer.span("ingest.batch"):
+                cols = load_columns(batch)
+                lats.append(cols["latitude"])
+                lons.append(cols["longitude"])
+                gids.append(vocab.group_ids(cols["user_id"]))
+                stamps.append(cols["timestamp"])
+                if config.weighted:
+                    _require_value_column(cols)
+                    vals.append(cols["value"])
+            tracer.add_items("ingest.batch", len(cols["latitude"]))
+            done = i + 1
+            if done % checkpoint_every == 0:
+                with tracer.span("checkpoint"):
+                    checkpoint(done)
+    if not lats or sum(len(a) for a in lats) == 0:
+        return {}
+    return _run_grouped(
+        np.concatenate(lats), np.concatenate(lons),
+        np.concatenate(gids).astype(np.int32),
+        [s for chunk in stamps for s in chunk], vocab, config, as_json=True,
+        sink=sink, weights=np.concatenate(vals) if config.weighted else None,
+        device=device, timer=timer,
+    )
 
 
 def run_batch(rows, config: BatchJobConfig | None = None,
@@ -371,13 +1565,5 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
     )
     with stage(timer, "decode"):
         decoded = cascade_mod.decode_levels(levels, ccfg)
-    with stage(timer, "egress"):
-        finalized = cascade_mod.finalize_level_arrays(
-            decoded, ccfg, _slot_names(vocab, ts_vocab, n_groups))
-        if as_json:
-            blobs = cascade_mod.json_blobs_from_level_arrays(finalized)
-        else:
-            blobs = cascade_mod.blobs_from_level_arrays(finalized)
-        if sink is not None:
-            sink.write(blobs.items())
-    return blobs
+    return _finish_blobs(decoded, ccfg, _slot_names(vocab, ts_vocab, n_groups),
+                         as_json, sink=sink, timer=timer)

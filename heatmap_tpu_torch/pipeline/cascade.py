@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from heatmap_tpu_torch import native
 from heatmap_tpu_torch.ops import pyramid as pyramid_ops
 from heatmap_tpu_torch.tilemath.morton import morton_decode_np
 
@@ -148,7 +149,9 @@ def decode_levels(level_data, config: CascadeConfig):
     ``{slot, code, row, col, zoom, value}`` with float64 values (the
     reference emits float counts). Raises on capacity overflow. The
     per-level counts cross to the host in one transfer, and each level
-    is cut to its real rows on its device before it crosses.
+    is cut to its real rows on its device before it crosses. The keys
+    are split and Morton-decoded by the native library where it loads
+    (int32 slots), by numpy otherwise.
     """
     n_lvls = config.n_levels + 1
     counts = torch.stack(
@@ -166,12 +169,23 @@ def decode_levels(level_data, config: CascadeConfig):
     sums_host = torch.cat(
         [level_data[lvl][1][:n] for lvl, n in enumerate(counts)]).cpu().numpy()
     bounds = np.cumsum([0] + counts)
+    use_native = native.available()
     out = []
     for level in range(n_lvls):
         keys_arr = keys_host[bounds[level]:bounds[level + 1]]
         sums = sums_host[bounds[level]:bounds[level + 1]]
-        slot_ids, codes = decode_level_keys(keys_arr, config.detail_zoom, level)
-        rows, cols = morton_decode_np(codes)
+        code_bits = 2 * (config.detail_zoom - level)
+        # The native decoder returns int32 slots. Slot ids are
+        # key >> code_bits: with code_bits >= 33 they fit int32 by
+        # construction; below that the level's largest key decides.
+        if use_native and (code_bits >= 33 or keys_arr.size == 0
+                           or int(keys_arr.max()) >> code_bits < 2**31):
+            slot_ids, codes, rows, cols = native.decode_keys(keys_arr,
+                                                             code_bits)
+        else:
+            slot_ids, codes = decode_level_keys(keys_arr, config.detail_zoom,
+                                                level)
+            rows, cols = morton_decode_np(codes)
         out.append(
             {
                 "zoom": config.detail_zoom - level,
@@ -268,7 +282,8 @@ def json_blobs_from_level_arrays(levels):
     round-trip float repr matches ``json.dumps`` for doubles, and entry
     order within a blob is kept. Level arrays arrive sorted by
     (slot, code), so blob runs are contiguous and blob-id strings are
-    built only at run starts.
+    built only at run starts, by the native formatter where the library
+    loads and by numpy otherwise.
     """
     sep = "|"
     out: dict[str, str] = {}
@@ -282,18 +297,35 @@ def json_blobs_from_level_arrays(levels):
             | (lvl["coarse_col"][1:] != lvl["coarse_col"][:-1])
         )])
         sidx = np.flatnonzero(is_start)
-        users, tss = level_strings(lvl, sidx)
-        ids = np.char.add(
-            np.char.add(users, sep + tss + sep),
-            _tile_id_strings(lvl["coarse_zoom"], lvl["coarse_row"][sidx],
-                             lvl["coarse_col"][sidx]),
-        ).tolist()
+        if native.available():
+            ids = native.format_blob_ids(
+                lvl["user_idx"][sidx], lvl["timespan_idx"][sidx],
+                lvl["coarse_row"][sidx], lvl["coarse_col"][sidx],
+                int(lvl["coarse_zoom"]), lvl["user_names"],
+                lvl["timespan_names"])
+        else:
+            users, tss = level_strings(lvl, sidx)
+            ids = np.char.add(
+                np.char.add(users, sep + tss + sep),
+                _tile_id_strings(lvl["coarse_zoom"], lvl["coarse_row"][sidx],
+                                 lvl["coarse_col"][sidx]),
+            ).tolist()
         out.update(zip(ids, _blob_bodies(lvl, is_start)))
     return out
 
 
 def _blob_bodies(lvl, is_start):
-    """Per-blob '{...}' JSON documents for one level, in order."""
+    """Per-blob '{...}' JSON documents for one level, in order.
+
+    The native formatter takes integral values below 1e15 (every count
+    job, and weighted jobs whose sums are whole); the numpy join/split
+    below formats fractional sums and is the formatting oracle.
+    """
+    values = lvl["value"]
+    if native.available() and bool(
+            np.all((values == np.floor(values)) & (np.abs(values) < 1e15))):
+        return native.format_blob_bodies(lvl["row"], lvl["col"], values,
+                                         is_start, int(lvl["zoom"]))
     frag = np.char.add(
         np.char.add(
             np.char.add(
@@ -301,7 +333,7 @@ def _blob_bodies(lvl, is_start):
             ),
             '": ',
         ),
-        lvl["value"].astype(str),
+        values.astype(str),
     )
     # Run starts open a new document ('}\x00{' closes the previous one);
     # the rest continue with ', '. One join, one split.

@@ -77,5 +77,16 @@ def _morton_decode_np_pure(code) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
-#: The port has no native decoder, so the numpy path is the decoder.
-morton_decode_np = _morton_decode_np_pure
+def morton_decode_np(code) -> tuple[np.ndarray, np.ndarray]:
+    """Numpy 64-bit Morton decode -> (row, col) int32; bulk arrays go
+    through the native library's threaded decode where it loads."""
+    code = np.asarray(code, np.uint64)
+    if code.ndim == 1 and code.size > 100_000:
+        # Lazy import: native imports the pipeline package.
+        from heatmap_tpu_torch import native
+
+        if native.available():
+            _, _, row, col = native.decode_keys(
+                code.astype(np.int64, copy=False), 0, morton_only=True)
+            return row, col
+    return _morton_decode_np_pure(code)

@@ -226,7 +226,9 @@ def test_import_hygiene():
         [sys.executable, "-c",
          "import heatmap_tpu_torch, heatmap_tpu_torch.cli, "
          "heatmap_tpu_torch.interop, heatmap_tpu_torch.bench, "
-         "heatmap_tpu_torch.kernel_cases, "
+         "heatmap_tpu_torch.kernel_cases, heatmap_tpu_torch.native, "
+         "heatmap_tpu_torch.faults, heatmap_tpu_torch.utils, "
+         "heatmap_tpu_torch.pipeline.feeder, heatmap_tpu_torch.io.hmpb, "
          "heatmap_tpu_torch.io.png, heatmap_tpu_torch.io.sinks, "
          "heatmap_tpu_torch.ops.histogram, "
          "heatmap_tpu_torch.ops.pallas_kernels, "
