@@ -25,10 +25,20 @@ just before it and read just after:
   blobs;
 - ``run_job_resumable`` on 1M points, failed at one batch by a
   ``FaultInjector`` and resumed to the uninterrupted blobs;
+- the same 4M-point job with ``adaptive_capacity=True`` (equal blobs,
+  16 launches at shrunken output shapes), and 200k points read from a
+  Parquet file by the ``run`` command (equal to the CSV run's bytes);
 - the ``tiles`` command at its defaults (the bucketed partitioned
   kernels), with ``--weighted`` (their weighted twin) and on a one-tile
   window (the window-histogram kernel), each raster bit-equal and each
   PNG tree byte-identical to the same run on the CPU;
+- the ``stream`` command (a decayed live raster, one binning launch a
+  tick): at its defaults on 4M synthetic points (the window-histogram
+  kernel), at z16 in 1M-point ticks (the bucketed kernels, counts and
+  integer weights), and resumed from a checkpoint written halfway
+  through a CSV (bit-equal to the uninterrupted run); each against the
+  same run on the CPU (bit-equal without decay, within STREAM_RTOL with
+  it), and a twin of ``tools/bench_stream.py`` per binning backend;
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -72,6 +82,16 @@ N_MAIN = 4_000_000
 N_BOUNDED_CHUNK = 1_000_000
 N_WEIGHTED = 1_000_000
 N_CROSSCHECK = 200_000
+#: The stream command's default micro-batch, and the batch of its z16
+#: cases (the 4M points in 4 ticks; a whole number of default batches).
+STREAM_BATCH = 1 << 16
+STREAM_BIG_BATCH = 1 << 20
+#: tools/bench_stream.py's defaults: steps and points per step.
+STREAM_BENCH_STEPS = 50
+STREAM_BENCH_BATCH = 1 << 18
+#: A decayed raster of the card and one of the CPU differ where float32
+#: ``exp`` rounds the decay factor differently (an ulp a tick).
+STREAM_RTOL = 1e-5
 WEIGHT_BOUND = 100
 #: Runs of the segment reduce per case, each compared with the plain
 #: version: a missing fence in the look-back shows only now and then.
@@ -379,14 +399,39 @@ def phase_run_job(dev):
     scatter = run_job(SyntheticSource(n=N_MAIN, seed=0), None,
                       BatchJobConfig(cascade_backend="scatter"), device=dev)
     assert scatter == blobs, "partitioned and scatter blobs differ"
+    del scatter
     stages = {k: sum(v) for k, v in timer.ms.items()}
+    # The same job with adaptive capacities: the segment reduce's output
+    # arrays shrink to the real unique counts level by level.
+    adaptive_timer = StageTimer(dev)
+    sp.aggregate_sorted_keys_partitioned.launches = 0
+    t0 = time.perf_counter()
+    adaptive = run_job(SyntheticSource(n=N_MAIN, seed=0), None,
+                       BatchJobConfig(adaptive_capacity=True), device=dev,
+                       timer=adaptive_timer)
+    torch.cuda.synchronize()
+    adaptive_wall = time.perf_counter() - t0
+    adaptive_launches = sp.aggregate_sorted_keys_partitioned.launches
+    assert adaptive_launches == 16, adaptive_launches
+    assert adaptive == blobs, "adaptive-capacity blobs differ"
+    del adaptive
     emit({"phase": "run_job", "points": N_MAIN, "seconds": wall,
           "points_per_s": N_MAIN / wall, "stage_ms": stages,
           "segment_reduce_ms": timer.ms.get("segment_reduce"),
           "span_s": spans, "gc_ms_by_generation": gc_ms,
           "blobs": len(blobs), "launches": launches,
           "projection_rechecked": rechecked, "native_egress": True,
-          "peak_bytes": peak, "equal_to_scatter": True})
+          "peak_bytes": peak, "equal_to_scatter": True,
+          "adaptive": {"seconds": adaptive_wall,
+                       "launches": adaptive_launches,
+                       "segment_reduce_ms": adaptive_timer.ms.get(
+                           "segment_reduce"),
+                       "cascade_ms": sum(adaptive_timer.ms.get(
+                           "segment_reduce", [])) + sum(
+                           adaptive_timer.ms.get("sort", [])),
+                       "equal_to_single_shot": True},
+          "cascade_ms": sum(timer.ms.get("segment_reduce", []))
+          + sum(timer.ms.get("sort", []))})
     return launches, blobs
 
 
@@ -456,12 +501,13 @@ def write_csv(path, n, seed):
                     b["user_id"], b["source"], b["timestamp"])))
 
 
-def phase_fast(dev, single):
+def phase_fast(dev, single, csv_path):
     """The fast path on the single-shot job's points: written as a CSV
-    (timed apart), run through the native decoder (``run_job_fast``) and
-    the string path (``run_job(CSVSource)``), converted to HMPB by the
-    ``convert`` command and run from the memory map; each equal to the
-    single-shot blobs, each with 16 segment-reduce launches."""
+    at ``csv_path`` (timed apart), run through the native decoder
+    (``run_job_fast``) and the string path (``run_job(CSVSource)``),
+    converted to HMPB by the ``convert`` command and run from the memory
+    map; each equal to the single-shot blobs, each with 16
+    segment-reduce launches."""
     from heatmap_tpu_torch import cli
     from heatmap_tpu_torch.io import CSVSource
     from heatmap_tpu_torch.io.hmpb import HMPBSource
@@ -472,7 +518,6 @@ def phase_fast(dev, single):
     tracer = get_tracer()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        csv_path = os.path.join(tmp, "points.csv")
         hmpb_path = os.path.join(tmp, "points.hmpb")
         t0 = time.perf_counter()
         write_csv(csv_path, N_MAIN, 0)
@@ -1011,20 +1056,6 @@ def phase_tiles(dev):
     on integer values (its weighted twin), and a one-tile window (the
     histogram kernel)."""
     from heatmap_tpu_torch.cli import run_tiles
-    from heatmap_tpu_torch.ops import pallas_kernels as pk
-    from heatmap_tpu_torch.ops import partitioned as pt
-
-    def counters():
-        return {"window_histogram": pk.bin_rowcol_window_pallas.launches,
-                "window_partitioned":
-                    pt.bin_rowcol_window_partitioned.launches,
-                "window_partitioned_weighted":
-                    pt.bin_rowcol_window_partitioned.weighted_launches}
-
-    def zero():
-        pk.bin_rowcol_window_pallas.launches = 0
-        pt.bin_rowcol_window_partitioned.launches = 0
-        pt.bin_rowcol_window_partitioned.weighted_launches = 0
 
     runs = {
         "default": ((), None, "partitioned", "window_partitioned"),
@@ -1045,11 +1076,11 @@ def phase_tiles(dev):
                 args = tiles_args(out, device, *extra)
                 source = make_source() if make_source else None
                 if side == "card":
-                    zero()
+                    zero_window_counters()
                 summaries[side], raster = run_tiles(args, source=source)
                 if side == "card":
                     torch.cuda.synchronize()
-                    used = counters()
+                    used = window_counters()
                 rasters[side] = raster.cpu()
                 trees[side] = read_tree(out)
             card = summaries["card"]
@@ -1117,6 +1148,382 @@ def phase_headline(dev):
     return rec
 
 
+def phase_parquet(dev):
+    """The ``run`` command on the card over the 200k cross-check points
+    read from a Parquet file (``parquet:``), and over the same points as
+    a CSV: the same blobs. (The CSV takes the fast path, whose user
+    slots are numbered in another order, so on the partitioned backend
+    the JSONL lines come in another order; the blobs are the same.)"""
+    from heatmap_tpu_torch.io import JSONLBlobSink
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from heatmap_tpu_torch import cli
+    from heatmap_tpu_torch.io import SyntheticSource
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cols = {"latitude": [], "longitude": [], "user_id": [], "source": [],
+                "timestamp": []}
+        for b in SyntheticSource(n=N_CROSSCHECK, seed=5).batches(1 << 20):
+            for k in cols:
+                cols[k].append(b[k])
+        pq_path = os.path.join(tmp, "points.parquet")
+        pq.write_table(pa.table({
+            "latitude": np.concatenate(cols["latitude"]),
+            "longitude": np.concatenate(cols["longitude"]),
+            "user_id": sum(cols["user_id"], []),
+            "source": sum(cols["source"], []),
+            "timestamp": np.asarray(sum(cols["timestamp"], []), np.int64),
+        }), pq_path)
+        csv_path = os.path.join(tmp, "points.csv")
+        write_csv(csv_path, N_CROSSCHECK, 5)
+        jsonl = {}
+        for name, spec in (("parquet", f"parquet:{pq_path}"),
+                           ("csv", f"csv:{csv_path}")):
+            target = os.path.join(tmp, f"{name}.jsonl")
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                assert cli.main(["run", "--input", spec, "--output",
+                                 f"jsonl:{target}", "--device",
+                                 dev.type]) == 0
+            torch.cuda.synchronize()
+            summary = json.loads(printed.getvalue().splitlines()[-1])
+            assert summary["device"] == dev.type, summary
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "summary": summary}
+            jsonl[name] = JSONLBlobSink.load(target)
+            out[name]["jsonl_bytes"] = os.path.getsize(target)
+    assert jsonl["parquet"] and jsonl["parquet"] == jsonl["csv"], \
+        "parquet and CSV runs differ"
+    emit({"phase": "parquet", "points": N_CROSSCHECK,
+          "blobs": len(jsonl["csv"]), "equal_to_csv": True, **out})
+
+
+class ReplaySource:
+    """Columnar batches made once and replayed on every ``batches`` call
+    (at the batch size they were cut to), so the stream's cases and
+    their CPU twins read the same points without regenerating them."""
+
+    def __init__(self, batches, batch_size):
+        self._batches = batches
+        self.batch_size = batch_size
+        self.points = sum(int((np.asarray(b["source"], object)
+                               != "background").sum()) for b in batches)
+
+    def batches(self, batch_size):
+        assert batch_size == self.batch_size, (batch_size, self.batch_size)
+        yield from self._batches
+
+
+def stream_sources():
+    """``synthetic:N_TILES`` (seed 0) cut to the stream's default batch;
+    the same points in 1M-point batches (16 default batches each); and
+    those with an integer ``value`` column in [0, WEIGHT_BOUND]."""
+    from heatmap_tpu_torch.io import SyntheticSource
+
+    small = list(SyntheticSource(n=N_TILES, seed=0).batches(STREAM_BATCH))
+    per = STREAM_BIG_BATCH // STREAM_BATCH
+    big = []
+    for i in range(0, len(small), per):
+        part = small[i:i + per]
+        big.append({k: (np.concatenate([b[k] for b in part])
+                        if isinstance(part[0][k], np.ndarray)
+                        else sum((b[k] for b in part), []))
+                    for k in part[0]})
+    valued = []
+    for i, b in enumerate(big):
+        rng = np.random.default_rng([3, 7, i])
+        valued.append({**b, "value": rng.integers(
+            0, WEIGHT_BOUND + 1, len(b["latitude"])).astype(np.float64)})
+    return (ReplaySource(small, STREAM_BATCH),
+            ReplaySource(big, STREAM_BIG_BATCH),
+            ReplaySource(valued, STREAM_BIG_BATCH))
+
+
+def stream_args(spec, out, device, *extra):
+    from heatmap_tpu_torch.cli import build_parser
+
+    return build_parser().parse_args(
+        ["stream", "--input", spec, "--output", out, "--device", device,
+         *extra])
+
+
+def window_counters():
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    return {"window_histogram": pk.bin_rowcol_window_pallas.launches,
+            "window_partitioned": pt.bin_rowcol_window_partitioned.launches,
+            "window_partitioned_weighted":
+                pt.bin_rowcol_window_partitioned.weighted_launches}
+
+
+def zero_window_counters():
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    pk.bin_rowcol_window_pallas.launches = 0
+    pt.bin_rowcol_window_partitioned.launches = 0
+    pt.bin_rowcol_window_partitioned.weighted_launches = 0
+
+
+def stream_update_split(dev, args, source):
+    """Where one stream update's time goes at a case's tick shape (the
+    first batch padded to ``--batch-points``, the padding masked): the
+    median ms (host clock, device fenced) of the host padding, the
+    host-to-device copies, the f64 projection, the binning and a whole
+    ``HeatmapStream.update``, and the device time by kernel of one update
+    (``device_us``). Returns that record and ``(window, row, col,
+    valid)`` as the tick gives them to its binning kernel."""
+    from heatmap_tpu_torch.cli import tiles_window
+    from heatmap_tpu_torch.ops.histogram import bin_rowcol_window
+    from heatmap_tpu_torch.pipeline.batch import load_columns
+    from heatmap_tpu_torch.streaming import HeatmapStream, StreamConfig
+    from heatmap_tpu_torch.tilemath.mercator import project_points
+
+    window = tiles_window(args)
+    cols = load_columns(next(iter(source.batches(args.batch_points))))
+    n = len(cols["latitude"])
+    pad = args.batch_points - n
+
+    def timed(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), out
+
+    pad_ms, (lat, lon, valid) = timed(lambda: (
+        np.concatenate([cols["latitude"], np.zeros(pad)]),
+        np.concatenate([cols["longitude"], np.zeros(pad)]),
+        np.arange(args.batch_points) < n))
+    h2d_ms, (tlat, tlon, tvalid) = timed(lambda: tuple(
+        torch.as_tensor(x, device=dev) for x in (lat, lon, valid)))
+    project_ms, (row, col, ok) = timed(lambda: project_points(
+        tlat, tlon, window.zoom, dtype=torch.float64))
+    bin_ms, _ = timed(lambda: bin_rowcol_window(
+        row, col, window, valid=ok & tvalid, dtype=torch.float32,
+        backend=args.bin_backend))
+    stream = HeatmapStream(StreamConfig(
+        window=window, proj_dtype=torch.float64, pad_to=args.batch_points,
+        backend=args.bin_backend), device=dev)
+    clock = iter(range(10 ** 6))
+
+    def update():
+        return stream.update(cols["latitude"], cols["longitude"],
+                             60.0 * next(clock))
+
+    update_ms, _ = timed(update)
+    return ({"points": n, "batch": args.batch_points, "pad_ms": pad_ms,
+             "h2d_ms": h2d_ms, "project_ms": project_ms, "bin_ms": bin_ms,
+             "update_ms": update_ms,
+             "device_us": device_us(update, iters=5)},
+            (window, row, col, ok & tvalid))
+
+
+def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
+    """One stream case on the card (launches counted) and on the CPU:
+    the card's summary, launches, raster and PNG tree against the CPU's.
+    Returns the record and both PNG trees."""
+    from heatmap_tpu_torch.cli import run_stream_command
+
+    snaps, trees, summaries = {}, {}, {}
+    for side, device in (("card", dev.type), ("cpu", "cpu")):
+        out = os.path.join(tmp, name, side)
+        args = stream_args(spec, out, device, *extra)
+        if side == "card":
+            zero_window_counters()
+        summaries[side], snaps[side], _ = run_stream_command(args,
+                                                             source=source)
+        if side == "card":
+            torch.cuda.synchronize()
+            used = window_counters()
+        trees[side] = read_tree(out)
+    card, host = snaps["card"], snaps["cpu"]
+    summary = summaries["card"]
+    ticks = summary["batches"]
+    assert card.dtype == host.dtype == np.float32, (card.dtype, host.dtype)
+    assert np.isfinite(card).all() and card.sum() > 0, name
+    assert used[kernel] == ticks > 0, (name, used, ticks)
+    assert sum(used.values()) == ticks, (name, used)
+    nz = (card != 0) | (host != 0)
+    rel = float((np.abs(card.astype(np.float64) - host)[nz]
+                 / np.abs(host.astype(np.float64))[nz].clip(
+                     min=1e-30)).max()) if nz.any() else 0.0
+    np.testing.assert_allclose(card, host, rtol=STREAM_RTOL, atol=0)
+    assert summaries["cpu"]["batches"] == ticks, name
+    update_ms = summary["stage_ms"]["update"]
+    rec = {"ticks": ticks, "window": summary["window"],
+           "bin_backend": summary["bin_backend"], "launches": used,
+           "launches_per_tick": used[kernel] / ticks,
+           "ms_per_tick": update_ms / ticks,
+           "wall_ms_per_tick": summary["seconds"] * 1e3 / ticks,
+           "seconds": summary["seconds"], "stage_ms": summary["stage_ms"],
+           "points": source.points if source is not None else None,
+           "points_per_s": (source.points / summary["seconds"]
+                            if source is not None else None),
+           "live_mass": summary["live_mass"], "tiles": summary["tiles"],
+           "raster_bit_equal_to_cpu": bool(np.array_equal(card, host)),
+           "max_rel_err_vs_cpu": rel,
+           "png_equal_to_cpu": trees["card"] == trees["cpu"],
+           "cpu_seconds": summaries["cpu"]["seconds"]}
+    return rec, trees
+
+
+def phase_stream(dev, csv_path):
+    """The ``stream`` command on the card, each case with the kernels'
+    counts set to 0 just before it and read just after: (a) defaults on
+    4M synthetic points (62 ticks of 65,536, a 256x256 z12 window: one
+    window-histogram launch a tick), (b) ``--zoom 16 --batch-points
+    1048576`` (4 ticks, 1792x1280: one bucketed launch a tick), (c) (b)
+    with ``--weighted`` on integer values in [0, 100] (one weighted
+    bucketed launch a tick), each against the same run on the CPU;
+    (a) and (c) again with no decay (``--half-life 1e18``), bit-equal
+    to the CPU; (d) (a)'s flags on the 4M-point CSV ``csv_path``:
+    checkpointed over its first 31 batches (half the ticks, a whole
+    number of batches, so the replay lines up at the checkpoint),
+    resumed over the whole file, bit-equal to an uninterrupted run. The
+    window kernels are held against their plain versions at (a)'s and
+    (b)'s tick shapes first, beside the split of one update's time."""
+    from heatmap_tpu_torch.cli import run_stream_command
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    small, big, valued = stream_sources()
+    spec = f"synthetic:{N_TILES}"
+    z16 = ("--zoom", "16", "--batch-points", str(STREAM_BIG_BATCH))
+    cases = {
+        "defaults": ((), small, "window_histogram"),
+        "z16": (z16, big, "window_partitioned"),
+        "z16_weighted": (z16 + ("--weighted",), valued,
+                         "window_partitioned_weighted"),
+    }
+    kernel_checks = {}
+    update_split = {}
+    for name, fn, plain in (
+            ("defaults", pk.bin_rowcol_window_pallas, pk._plain),
+            ("z16", pt.bin_rowcol_window_partitioned, pt._plain)):
+        extra, source, _ = cases[name]
+        update_split[name], (window, row, col, valid) = stream_update_split(
+            dev, stream_args(spec, "", dev.type, *extra), source)
+        kernel_checks[name] = {
+            "checks": check_window_kernel(
+                fn, plain, window, window_cases(window, row, col, valid, dev)),
+            "counts": time_window_kernel(fn, plain, window, row, col, valid),
+            "int_weights": time_window_kernel(
+                fn, plain, window, row, col, valid,
+                int_weights(row.shape[0], dev))}
+    del window, row, col, valid
+    ticks = -(-N_TILES // STREAM_BATCH)
+    half = ticks // 2
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (extra, source, kernel) in cases.items():
+            runs[name], _ = run_stream_pair(dev, tmp, name, spec, source,
+                                            extra, kernel)
+        assert runs["defaults"]["ticks"] == ticks, runs["defaults"]
+        # No decay: the decay factor is exactly 1, so counts and integer
+        # weights are exact on both sides.
+        for name in ("defaults", "z16_weighted"):
+            extra, source, kernel = cases[name]
+            rec, trees = run_stream_pair(
+                dev, tmp, f"{name}_no_decay", spec, source,
+                extra + ("--half-life", "1e18"), kernel)
+            assert rec["raster_bit_equal_to_cpu"], name
+            assert rec["png_equal_to_cpu"] and trees["card"], name
+            runs[f"{name}_no_decay"] = rec
+        # Resume: a checkpoint written over the first half of the CSV's
+        # batches, then the whole CSV with the same checkpoint dir.
+        prefix = os.path.join(tmp, "prefix.csv")
+        with open(csv_path) as src, open(prefix, "w") as dst:
+            for _ in range(1 + half * STREAM_BATCH):
+                dst.write(src.readline())
+        ckpt = os.path.join(tmp, "ckpt")
+        resume = {}
+        for name, path, ck in (("first_half", prefix, ckpt),
+                               ("resumed", csv_path, ckpt),
+                               ("uninterrupted", csv_path, None)):
+            extra = ("--checkpoint-dir", ck) if ck else ()
+            zero_window_counters()
+            summary, snap, _ = run_stream_command(stream_args(
+                f"csv:{path}", os.path.join(tmp, "resume", name), dev.type,
+                *extra))
+            torch.cuda.synchronize()
+            resume[name] = {"summary": summary, "snap": snap,
+                            "launches": window_counters()["window_histogram"]}
+        assert resume["first_half"]["summary"]["batches"] == half
+        assert resume["resumed"]["summary"]["batches"] == ticks
+        assert resume["uninterrupted"]["summary"]["batches"] == ticks
+        assert resume["resumed"]["launches"] == ticks - half
+        assert np.array_equal(resume["resumed"]["snap"],
+                              resume["uninterrupted"]["snap"]), \
+            "resumed stream differs from the uninterrupted one"
+        runs["resume"] = {
+            name: {"batches": r["summary"]["batches"],
+                   "seconds": r["summary"]["seconds"],
+                   "launches": r["launches"],
+                   "stage_ms": r["summary"]["stage_ms"]}
+            for name, r in resume.items()}
+        runs["resume"]["bit_equal_to_uninterrupted"] = True
+    emit({"phase": "stream", "points": N_TILES, "rtol": STREAM_RTOL,
+          "kernel_checks": kernel_checks, "update_split": update_split,
+          "runs": runs})
+
+
+def phase_stream_bench(dev):
+    """The twin of ``tools/bench_stream.py`` at its defaults: a z11 window
+    over 35-55N, 5W-20E (aligned to 2^4), 262,144-point batches, 50 steps
+    (the first untimed), half-life 600 s, points from
+    ``default_rng(7)``; one run per binning backend, each step's
+    launches counted, each final raster against an "xla" stream on the
+    same points."""
+    from heatmap_tpu_torch.ops.histogram import _pick_backend, window_from_bounds
+    from heatmap_tpu_torch.streaming import HeatmapStream, StreamConfig
+
+    steps, batch = STREAM_BENCH_STEPS, STREAM_BENCH_BATCH
+    window = window_from_bounds((35.0, 55.0), (-5.0, 20.0), zoom=11,
+                                align_levels=4)
+    rng = np.random.default_rng(7)
+    out = {}
+    for backend in ("auto", "xla", "pallas", "partitioned"):
+        lat = rng.uniform(35.0, 55.0, (steps, batch))
+        lon = rng.uniform(-5.0, 20.0, (steps, batch))
+        rasters = {}
+        for be in dict.fromkeys((backend, "xla")):
+            stream = HeatmapStream(StreamConfig(
+                window=window, half_life_s=600.0, pad_to=batch, backend=be),
+                device=dev)
+            stream.update(lat[0], lon[0], t=0.0)
+            stream.snapshot()
+            zero_window_counters()
+            t0 = time.perf_counter()
+            for i in range(1, steps):
+                stream.update(lat[i], lon[i], t=float(i))
+            rasters[be] = stream.snapshot()
+            dt = time.perf_counter() - t0
+            if be == backend:
+                launches = window_counters()
+                rec = {"steps_per_s": (steps - 1) / dt,
+                       "pts_per_s": (steps - 1) * batch / dt,
+                       "seconds": dt,
+                       "resolved": _pick_backend(be, window, dev),
+                       "launches": launches}
+        card, plain = rasters[backend], rasters["xla"]
+        np.testing.assert_allclose(card, plain, rtol=STREAM_RTOL, atol=0)
+        rec["bit_equal_to_xla"] = bool(np.array_equal(card, plain))
+        assert np.isfinite(card).all() and card.sum() > 0, backend
+        out[backend] = rec
+    assert out["auto"]["resolved"] == "pallas", out["auto"]
+    emit({"phase": "stream_bench", "window": [window.height, window.width],
+          "zoom": 11, "batch": batch, "steps": steps, "half_life_s": 600.0,
+          "backends": out})
+
+
 def kernel_entry(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda",
             "source": f"heatmap_tpu_torch/csrc/{source}",
@@ -1144,12 +1551,19 @@ def main() -> int:
     phase_projection(data, dev)
     del data
     bounded_launches = phase_bounded(dev, single)
-    phase_fast(dev, single)
-    del single
-    phase_resumable(dev)
-    phase_weighted(dev)
-    phase_cpu_crosscheck(dev)
-    tiles_launches = phase_tiles(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # The 4M points as a CSV: the fast phase's input, and the
+        # stream's resume case.
+        csv_path = os.path.join(tmp, "points.csv")
+        phase_fast(dev, single, csv_path)
+        del single
+        phase_resumable(dev)
+        phase_weighted(dev)
+        phase_cpu_crosscheck(dev)
+        phase_parquet(dev)
+        tiles_launches = phase_tiles(dev)
+        phase_stream(dev, csv_path)
+    phase_stream_bench(dev)
     phase_splat(dev)
     phase_headline(dev)
     emit({"kernels": [

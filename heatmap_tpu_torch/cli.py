@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m heatmap_tpu_torch
-run|tiles|convert ...``.
+run|tiles|stream|convert|merge|info ...``.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
 to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
@@ -7,20 +7,123 @@ inputs take the integer fast path on their own (``--no-fast`` opts
 out, ``--fast`` makes ineligibility an error); sources too large for
 host RAM, or ``--max-points-in-flight N``, run chunked;
 ``--checkpoint-dir`` resumes an interrupted job. ``tiles`` bins points
-into a dense window raster and writes a z/x/y PNG tile tree.
-``convert`` writes any source as HMPB. ``run`` and ``tiles`` run on the
-CUDA card unless ``--device cpu`` asks for the plain PyTorch versions of
-the kernels; every command keeps the flag names of ``heatmap_tpu``'s.
+into a dense window raster and writes a z/x/y PNG tile tree. ``stream``
+consumes a source as timed micro-batches into a decayed live raster and
+writes its final snapshot as tiles. ``convert`` writes any source as
+HMPB, ``merge`` merges egress shards, ``info`` prints the resolved
+backend and devices.
+
+Every command keeps the flag names of ``heatmap_tpu``'s. The device
+commands (``run``, ``tiles``, ``stream``) run on the CUDA card unless
+``--backend cpu`` (or its alias ``--device cpu``) asks for the plain
+PyTorch versions of the kernels; ``--chaos``/``$HEATMAP_TPU_CHAOS`` arm
+the fault plane (heatmap_tpu_torch.faults).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import sys
+import os
 import time
 
 from heatmap_tpu_torch.pipeline.timespan import VALID_TYPES
+
+
+def _add_backend_flags(p):
+    p.add_argument(
+        "--backend", choices=("tpu", "cpu"), default=None,
+        help="device platform, as heatmap_tpu names it: tpu = the CUDA "
+        "card (default), cpu = the plain PyTorch versions on the host")
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default=None,
+        help="alias of --backend (cuda = tpu); giving both with "
+        "different values is an error")
+    p.add_argument(
+        "--device-timeout", type=float, default=180.0,
+        help="seconds to wait for the CUDA card to initialise before "
+        "failing the command (0 disables the probe)")
+    p.add_argument(
+        "--no-x64", action="store_true",
+        help="project in float32 instead of float64 (tiles, stream); "
+        "the batch job's composite keys need 64 bits and refuse it")
+    p.add_argument(
+        "--chaos", default=None, metavar="SPEC",
+        help="arm deterministic fault injection (heatmap_tpu_torch."
+        "faults), e.g. 'seed=7,scale=0,sink.write=1'; also read from "
+        "$HEATMAP_TPU_CHAOS (flag wins)")
+
+
+def _device(args) -> str:
+    """"cuda" or "cpu" from ``--backend`` and its alias ``--device``;
+    both given and disagreeing is an error. Sets both on ``args``."""
+    from_backend = {"tpu": "cuda", "cpu": "cpu", None: None}[args.backend]
+    if (args.device is not None and from_backend is not None
+            and args.device != from_backend):
+        raise SystemExit(
+            f"--device {args.device} disagrees with --backend "
+            f"{args.backend} (--backend tpu is --device cuda)")
+    args.device = args.device or from_backend or "cuda"
+    args.backend = "cpu" if args.device == "cpu" else "tpu"
+    return args.device
+
+
+def _init_backend(args) -> str:
+    """Arm the fault plane, resolve the device, and on the card probe
+    CUDA initialisation on a daemon thread bounded by
+    ``--device-timeout``, so an unanswering device fails the command
+    instead of hanging it. Returns the device. No fallback: a command
+    pinned to the card never quietly runs on the CPU."""
+    from heatmap_tpu_torch import faults
+
+    faults.install_from_env(getattr(args, "chaos", None))
+    device = _device(args)
+    if device == "cpu" or not args.device_timeout > 0:
+        return device
+    import threading
+
+    import torch
+
+    from heatmap_tpu_torch.devices import resolve_device
+
+    done = threading.Event()
+    error: list = []
+
+    def _probe():
+        try:
+            resolve_device(device)
+            torch.cuda.init()
+        except Exception as e:  # noqa: BLE001 — re-raised by the caller
+            error.append(e)
+        done.set()
+
+    threading.Thread(target=_probe, daemon=True).start()
+    if not done.wait(timeout=args.device_timeout):
+        raise SystemExit(
+            f"the CUDA device did not initialise within "
+            f"{args.device_timeout:.0f}s — retry later, raise "
+            "--device-timeout, or run with --backend cpu")
+    if error:
+        raise error[0]
+    return device
+
+
+def _sink_spec(spec: str) -> str:
+    """argparse type= wrapper: reject a typo'd or unported --output kind
+    at parse time with a one-line error."""
+    from heatmap_tpu_torch.io.sinks import validate_sink_spec
+
+    try:
+        return validate_sink_spec(spec)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from e
+
+
+BIN_BACKEND_HELP = (
+    "binning path: auto (on the card, the histogram kernel for windows up "
+    "to 256x256 cells and the partitioned kernel above; the plain scatter "
+    "on the CPU), xla (the plain scatter), pallas (the histogram kernel) "
+    "or partitioned")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,15 +134,14 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="batch job: points -> heatmap blobs")
+    _add_backend_flags(p)
     p.add_argument("--input", required=True,
                    help="synthetic:N[:seed] | csv:PATH | jsonl:PATH | "
-                   "hmpb:PATH")
+                   "parquet:PATH | hmpb:PATH")
     p.add_argument("--output", default="jsonl:heatmaps.jsonl",
-                   help="memory: | jsonl:PATH | arrays:DIR (columnar "
-                   "per-level npz)")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where the job runs (default: the CUDA card; "
-                   "cpu runs the plain PyTorch versions of the kernels)")
+                   type=_sink_spec,
+                   help="memory: | jsonl:PATH | dir:PATH | arrays:DIR "
+                   "(columnar per-level npz) | arrays-parquet:DIR")
     p.add_argument("--detail-zoom", type=int, default=21,
                    help="finest zoom of the cascade")
     p.add_argument("--min-detail-zoom", type=int, default=5,
@@ -91,14 +193,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("tiles", help="points -> z/x/y PNG tile tree")
+    _add_backend_flags(p)
     p.add_argument("--input", required=True)
     p.add_argument("--output", default="tiles")
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where binning runs (default: the CUDA card; cpu "
-                   "runs the plain PyTorch versions of the kernels)")
-    p.add_argument("--no-x64", action="store_true",
-                   help="project in float32 (the fast path) instead of "
-                   "float64")
     p.add_argument("--zoom", type=int, default=16,
                    help="detail (pixel) zoom")
     p.add_argument("--pixel-delta", type=int, default=8,
@@ -122,12 +219,45 @@ def build_parser() -> argparse.ArgumentParser:
                    "of counting points")
     p.add_argument("--bin-backend", default="auto",
                    choices=("auto", "xla", "pallas", "partitioned"),
-                   help="binning path: auto (on the card, the histogram "
-                   "kernel for windows up to 256x256 cells and the "
-                   "partitioned kernel above; the plain scatter on the "
-                   "CPU), xla (the plain scatter), pallas (the histogram "
-                   "kernel) or partitioned")
+                   help=BIN_BACKEND_HELP)
     p.set_defaults(fn=cmd_tiles)
+
+    p = sub.add_parser("stream", help="micro-batch streaming: decayed live "
+                       "raster -> PNG tiles (BASELINE.md config 4)")
+    _add_backend_flags(p)
+    p.add_argument("--input", required=True,
+                   help="source spec, consumed as micro-batches")
+    p.add_argument("--output", default=None,
+                   help="PNG tile tree dir for the final snapshot ('' = "
+                   "none; default: live_tiles/ under --live-dir)")
+    p.add_argument("--live-dir", default=None,
+                   help="root for runtime tile artifacts (default: "
+                   "--checkpoint-dir when given, else the system tmp dir)")
+    p.add_argument("--batch-points", type=int, default=1 << 16,
+                   help="points per micro-batch (one update step)")
+    p.add_argument("--bin-backend", default="auto",
+                   choices=("auto", "xla", "pallas", "partitioned"),
+                   help=BIN_BACKEND_HELP)
+    p.add_argument("--interval", type=float, default=60.0,
+                   help="stream seconds advanced per micro-batch")
+    p.add_argument("--half-life", type=float, default=3600.0,
+                   help="decay half-life in stream seconds")
+    p.add_argument("--zoom", type=int, default=12)
+    p.add_argument("--pixel-delta", type=int, default=8)
+    p.add_argument("--lat-min", type=float, default=45.0)
+    p.add_argument("--lat-max", type=float, default=50.0)
+    p.add_argument("--lon-min", type=float, default=-125.0)
+    p.add_argument("--lon-max", type=float, default=-119.0)
+    p.add_argument("--auto-bounds", action="store_true",
+                   help="derive the window from the data's bounding box "
+                   "(file sources only: one extra pass; resume keeps the "
+                   "same window for the same file)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=16)
+    p.add_argument("--weighted", action="store_true",
+                   help="sum the input's per-point 'value' column into "
+                   "the decayed raster instead of counting")
+    p.set_defaults(fn=cmd_stream)
 
     p = sub.add_parser("convert", help="convert a source to the HMPB "
                        "binary columnar point format (mmap ingest)")
@@ -140,6 +270,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split the output into part-NNNNN.hmpb files of "
                    "at most this many rows")
     p.set_defaults(fn=cmd_convert)
+
+    p = sub.add_parser(
+        "merge",
+        help="merge egress shards (per-host jsonl blob files or "
+        "level-array dirs) into one artifact; colliding blob ids sum")
+    p.add_argument("--inputs", nargs="+", required=True,
+                   help="JSONL blob files, or level-array dirs (all one "
+                   "kind)")
+    p.add_argument("--output", required=True, type=_sink_spec,
+                   help="blob sink spec (jsonl:/dir:/memory:) for blob "
+                   "inputs; arrays:DIR for level-array inputs")
+    p.set_defaults(fn=cmd_merge)
+
+    p = sub.add_parser("info", help="resolved config + devices")
+    _add_backend_flags(p)
+    p.add_argument("--probe-timeout", type=float, default=20.0,
+                   help="seconds to wait for device discovery before "
+                   "reporting the backend unreachable")
+    # info never runs the fail-fast probe; an explicit --device-timeout
+    # is honored as the probe timeout (None = flag not given).
+    p.set_defaults(fn=cmd_info, device_timeout=None)
     return ap
 
 
@@ -152,6 +303,12 @@ def cmd_run(args) -> int:
         run_job_resumable,
     )
 
+    if args.no_x64:
+        # The JAX package's run ends the same way, with exit code 1
+        # (heatmap_tpu/pipeline/cascade.py composite_keys).
+        raise SystemExit(
+            "--no-x64: the composite-key cascade needs int64 keys; drop "
+            "--no-x64 (it applies to tiles and stream only)")
     requested = tuple(t.strip() for t in args.timespans.split(",")
                       if t.strip())
     bad = [t for t in requested if t not in VALID_TYPES]
@@ -185,6 +342,7 @@ def cmd_run(args) -> int:
                          "batch boundaries)")
     if args.fast and args.no_fast:
         raise SystemExit("--fast and --no-fast are mutually exclusive")
+    _init_backend(args)
     fast_source = _fast_source(args)
     t0 = time.perf_counter()
     with open_sink(args.output) as sink:
@@ -207,18 +365,17 @@ def cmd_run(args) -> int:
                 config, batch_size=args.batch_size,
                 max_points_in_flight=args.max_points_in_flight,
                 merge_spill_dir=args.merge_spill_dir, device=args.device)
-    summary = {
-        "seconds": time.perf_counter() - t0,
-        "ingest": "fast" if fast_source is not None else "standard",
-        "device": args.device,
-        "cascade_backend": config.resolved_cascade_backend(args.device),
-    }
+    summary = {"seconds": round(time.perf_counter() - t0, 3),
+               "output": args.output,
+               "ingest": "fast" if fast_source is not None else "standard"}
     if blobs.get("egress") == "levels":
         summary["levels"] = blobs["levels"]
         summary["rows"] = blobs["rows"]
     else:
         summary["blobs"] = len(blobs)
-    print(json.dumps(summary), file=sys.stderr)
+    summary["device"] = args.device
+    summary["cascade_backend"] = config.resolved_cascade_backend(args.device)
+    print(json.dumps(summary))
     return 0
 
 
@@ -341,7 +498,7 @@ def run_tiles(args, source=None):
     from heatmap_tpu_torch.pipeline.batch import load_columns
     from heatmap_tpu_torch.tilemath.mercator import project_points
 
-    device = resolve_device(args.device)
+    device = resolve_device(_device(args))
     proj_dtype = torch.float32 if args.no_x64 else torch.float64
     if source is None:
         # Count-only runs skip the value column; --weighted reads it.
@@ -406,7 +563,238 @@ def run_tiles(args, source=None):
 
 
 def cmd_tiles(args) -> int:
+    _init_backend(args)
     print(json.dumps(run_tiles(args)[0]))
+    return 0
+
+
+def _live_dir(args) -> str:
+    """Root for runtime tile artifacts (the --live-dir knob): explicit
+    flag > checkpoint dir > system tmp, never the working directory."""
+    if getattr(args, "live_dir", None):
+        return args.live_dir
+    if getattr(args, "checkpoint_dir", None):
+        return args.checkpoint_dir
+    import tempfile
+
+    return os.path.join(tempfile.gettempdir(), "heatmap-tpu")
+
+
+def run_stream_command(args, source=None):
+    """The ``stream`` command: the source as micro-batches of
+    ``--batch-points`` points, ``--interval`` stream seconds apart,
+    through a decaying window raster on ``args.device``, checkpointed
+    every ``--checkpoint-every`` batches, and its final snapshot written
+    as a PNG tile tree. A rerun with the same checkpoint dir replays the
+    source up to the checkpoint and goes on from there.
+
+    Returns ``(summary, snapshot, stream)``: the summary that ``stream``
+    prints (the JAX package's keys, then the device, the resolved
+    binning backend and the milliseconds of each stage), the final raster
+    on the host and the HeatmapStream (both None when --auto-bounds
+    finds no point). ``source``, an opened io Source, replaces
+    ``args.input`` for callers that build their own."""
+    if args.output is None:
+        args.output = os.path.join(_live_dir(args), "live_tiles")
+    if args.half_life <= 0:
+        raise SystemExit(f"--half-life {args.half_life}: must be positive")
+    if args.zoom < args.pixel_delta:
+        raise SystemExit(
+            f"--zoom {args.zoom} must be >= --pixel-delta {args.pixel_delta} "
+            "(tile zoom = zoom - pixel_delta)"
+        )
+    if args.checkpoint_dir and args.checkpoint_every < 1:
+        raise SystemExit(
+            f"--checkpoint-every {args.checkpoint_every}: must be >= 1"
+        )
+    import numpy as np
+    import torch
+
+    from heatmap_tpu_torch.devices import StageTimer, resolve_device
+    from heatmap_tpu_torch.io import PNGTileSink, open_source
+    from heatmap_tpu_torch.ops.histogram import _pick_backend
+    from heatmap_tpu_torch.pipeline.batch import load_columns
+    from heatmap_tpu_torch.streaming import HeatmapStream, StreamConfig
+    from heatmap_tpu_torch.utils import CheckpointManager
+
+    device = resolve_device(_device(args))
+    if args.auto_bounds:
+        # Needs a re-iterable (file) source; the same file on resume
+        # gives the same window (restore() rejects a shifted one).
+        bounds = _scan_bounds(
+            source or open_source(args.input, read_value=False),
+            args.batch_points)
+        if bounds is None:
+            return {"batches": 0, "stream_seconds": 0.0, "live_mass": 0.0,
+                    "tiles": 0, "seconds": 0.0, "output": args.output}, \
+                None, None
+        args.lat_min, args.lat_max, args.lon_min, args.lon_max = bounds
+    window = tiles_window(args)
+    config = StreamConfig(
+        window=window,
+        half_life_s=args.half_life,
+        proj_dtype=torch.float32 if args.no_x64 else torch.float64,
+        pad_to=args.batch_points,
+        backend=args.bin_backend,
+    )
+    stream = HeatmapStream(config, device=device)
+    mgr = None
+    if args.checkpoint_dir:
+        mgr = CheckpointManager(args.checkpoint_dir)
+        if mgr.latest_step() is not None:
+            stream.restore(mgr, weighted=args.weighted)
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    resumed = stream.n_batches
+    t_stream = stream.t or 0.0
+    if source is None:
+        source = open_source(args.input, read_value=args.weighted)
+    batches = iter(source.batches(args.batch_points))
+    i = 0
+    while True:
+        with timer.stage("ingest"):
+            batch = next(batches, None)
+            i += 1
+            if batch is None or i <= resumed:
+                # Past the end, or deterministic source replay up to
+                # the checkpoint.
+                cols = None
+            else:
+                cols = load_columns(batch)
+                if args.weighted and "value" not in cols:
+                    raise SystemExit(
+                        "--weighted needs a 'value' column in the input "
+                        "(CSV/JSONL/Parquet column named 'value')"
+                    )
+        if batch is None:
+            break
+        if cols is None:
+            continue
+        t_stream += args.interval
+        with timer.stage("update"):
+            stream.update(cols["latitude"], cols["longitude"], t_stream,
+                          weights=cols["value"] if args.weighted else None)
+        if mgr is not None and stream.n_batches % args.checkpoint_every == 0:
+            with timer.stage("checkpoint"):
+                stream.checkpoint(mgr, weighted=args.weighted)
+    with timer.stage("egress"):
+        if mgr is not None:
+            stream.checkpoint(mgr, weighted=args.weighted)
+        snap = stream.snapshot()  # one device->host copy, reused below
+        n_tiles = 0
+        if args.output:
+            sink = PNGTileSink(args.output, pixel_delta=args.pixel_delta)
+            n_tiles = sink.write_window(snap, window)
+    summary = {
+        "batches": stream.n_batches,
+        "stream_seconds": stream.t,
+        "live_mass": float(np.sum(snap)),
+        "bounds": [round(args.lat_min, 6), round(args.lat_max, 6),
+                   round(args.lon_min, 6), round(args.lon_max, 6)],
+        "tiles": n_tiles,
+        "seconds": round(time.perf_counter() - t0, 3),
+        "output": args.output,
+        "device": str(device),
+        "window": [window.height, window.width],
+        "bin_backend": _pick_backend(args.bin_backend, window, device),
+        "stage_ms": {k: sum(v) for k, v in timer.ms.items()},
+    }
+    return summary, snap, stream
+
+
+def cmd_stream(args) -> int:
+    _init_backend(args)
+    print(json.dumps(run_stream_command(args)[0]))
+    return 0
+
+
+def cmd_merge(args) -> int:
+    """Merge per-host egress shards into one artifact (no device)."""
+    from heatmap_tpu_torch.io.merge import merge_blob_files, merge_level_dirs
+    from heatmap_tpu_torch.io.sinks import LevelArraysSink, open_sink
+
+    dirs = [os.path.isdir(p) for p in args.inputs]
+    columnar_out = args.output.startswith("arrays:")
+    if all(dirs):
+        if not columnar_out:
+            # Level arrays through a blob spec would write a directory of
+            # .npz files under a name the operator takes for a file.
+            raise SystemExit(
+                "level-array inputs merge into a columnar sink; pass "
+                "--output arrays:DIR (got "
+                f"{args.output!r})"
+            )
+        levels = merge_level_dirs(args.inputs)
+        rows = LevelArraysSink(
+            args.output[len("arrays:"):]
+        ).write_levels(levels)
+        print(json.dumps({"mode": "levels", "inputs": len(args.inputs),
+                          "levels": len(levels), "rows": rows,
+                          "output": args.output}))
+        return 0
+    if any(dirs):
+        raise SystemExit(
+            "merge inputs must be all JSONL blob files or all "
+            "level-array directories, not a mix"
+        )
+    if columnar_out:
+        raise SystemExit(
+            "blob inputs merge into a blob sink (jsonl:/dir:/memory:); "
+            f"arrays: is columnar-only (got {args.output!r})"
+        )
+    blobs = merge_blob_files(args.inputs)
+    with open_sink(args.output) as sink:
+        sink.write((k, json.dumps(v)) for k, v in blobs.items())
+    print(json.dumps({"mode": "blobs", "inputs": len(args.inputs),
+                      "blobs": len(blobs), "output": args.output}))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """The backend and its devices as one JSON line. Device discovery
+    runs on a daemon thread bounded by ``--probe-timeout``; a backend
+    that does not answer, or a card that is not there, is reported as
+    JSON instead of hanging or raising."""
+    if args.device_timeout:
+        args.probe_timeout = args.device_timeout
+    args.device_timeout = 0.0
+    device = _init_backend(args)
+    import threading
+
+    import torch
+
+    import heatmap_tpu_torch
+    from heatmap_tpu_torch import native
+
+    dev_info = {}
+
+    def _probe():
+        if device == "cpu":
+            dev_info.update(platform="cpu", n_devices=1, n_processes=1)
+        elif not torch.cuda.is_available():
+            dev_info.update(
+                platform="unavailable", n_devices=0,
+                note="torch.cuda.is_available() is False; rerun with "
+                     "--backend cpu for host info")
+        else:
+            dev_info.update(platform="cuda",
+                            n_devices=torch.cuda.device_count(),
+                            n_processes=1)
+
+    t = threading.Thread(target=_probe, daemon=True)
+    t.start()
+    t.join(timeout=args.probe_timeout)
+    if t.is_alive():
+        dev_info = {"platform": "unreachable", "n_devices": 0,
+                    "note": f"backend init exceeded {args.probe_timeout:.0f}s; "
+                            "rerun with --backend cpu for host info"}
+    print(json.dumps({
+        "backend": args.backend,
+        **dev_info,
+        "x64": not args.no_x64,
+        "native": native.available(),
+        "version": heatmap_tpu_torch.__version__,
+    }))
     return 0
 
 

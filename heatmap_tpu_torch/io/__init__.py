@@ -1,8 +1,10 @@
-"""Host-side ingest sources (synthetic, CSV, JSONL, HMPB), egress sinks
-(memory, JSONL, per-level arrays) and the PNG tile writer of the port."""
+"""Host-side ingest sources (synthetic, CSV, JSONL, Parquet, HMPB),
+egress sinks (memory, JSONL, directory, per-level arrays), the shard
+merge (``io.merge``) and the PNG tile writer of the port."""
 
 from heatmap_tpu_torch.io.sinks import (
     BlobSink,
+    DirectoryBlobSink,
     JSONLBlobSink,
     LevelArraysSink,
     MemorySink,
@@ -12,13 +14,14 @@ from heatmap_tpu_torch.io.sinks import (
 from heatmap_tpu_torch.io.sources import (
     CSVSource,
     JSONLSource,
+    ParquetSource,
     Source,
     SyntheticSource,
     open_source,
 )
 
 __all__ = [
-    "BlobSink", "CSVSource", "JSONLBlobSink", "JSONLSource",
-    "LevelArraysSink", "MemorySink",
-    "PNGTileSink", "Source", "SyntheticSource", "open_sink", "open_source",
+    "BlobSink", "CSVSource", "DirectoryBlobSink", "JSONLBlobSink",
+    "JSONLSource", "LevelArraysSink", "MemorySink", "PNGTileSink",
+    "ParquetSource", "Source", "SyntheticSource", "open_sink", "open_source",
 ]

@@ -1,7 +1,7 @@
 """Egress sinks: heatmap blob writers, per-level arrays, the PNG tile tree.
 
-Port of the memory, JSONL, ``arrays:`` and PNG-tile sinks of
-heatmap_tpu/io/sinks.py.
+Port of the memory, JSONL, directory, ``arrays:``/``arrays-parquet:``
+and PNG-tile sinks of heatmap_tpu/io/sinks.py.
 Blob records are ``(id, heatmap)`` pairs where ``id`` is the composite
 ``user|timespan|coarseTileId`` key and ``heatmap`` the JSON dict of
 detail-tile counts (reference heatmap.py:156-157). Every blob sink
@@ -22,12 +22,21 @@ from heatmap_tpu_torch.io.png import raster_to_png
 
 
 class BlobSink:
-    """Base: consumes (id, heatmap-dict-or-json) records."""
+    """Base: consumes (id, heatmap-dict-or-json) records.
+
+    ``write`` runs each ``write_one`` under the ``sink.write`` retry
+    policy (faults/retry.py): the fault check fires before the write
+    starts and every ``write_one`` is an upsert by id, so a retried
+    write is idempotent."""
+
+    #: Retry key of the sink kind.
+    KIND = "blob"
 
     def write(self, records: Iterable[tuple]) -> int:
         n = 0
         for blob_id, heatmap in records:
-            self.write_one(blob_id, heatmap)
+            faults.retry_call(self.write_one, blob_id, heatmap,
+                              site="sink.write", key=self.KIND)
             n += 1
         return n
 
@@ -51,11 +60,35 @@ def _as_json(heatmap) -> str:
 class MemorySink(BlobSink):
     """Dict-backed sink (tests, small jobs). Upsert-by-id."""
 
+    KIND = "memory"
+
     def __init__(self):
         self.blobs: dict[str, str] = {}
 
     def write_one(self, blob_id, heatmap):
         self.blobs[blob_id] = _as_json(heatmap)
+
+    def write(self, records) -> int:
+        """Bulk write: one dict update per 16k blobs, each under the
+        ``sink.write`` retry policy (an update is an upsert, so a retried
+        chunk is idempotent). The batch job writes millions of blobs
+        here; a retry call per blob would double the sink's time."""
+        n = 0
+        chunk = []
+        for record in records:
+            chunk.append(record)
+            if len(chunk) >= 16384:
+                n += self._update(chunk)
+                chunk = []
+        if chunk:
+            n += self._update(chunk)
+        return n
+
+    def _update(self, chunk) -> int:
+        faults.retry_call(self.blobs.update,
+                          [(k, _as_json(v)) for k, v in chunk],
+                          site="sink.write", key=self.KIND)
+        return len(chunk)
 
 
 @dataclasses.dataclass
@@ -65,6 +98,8 @@ class JSONLBlobSink(BlobSink):
 
     path: str
     _f: object = dataclasses.field(default=None, repr=False)
+
+    KIND = "jsonl"
 
     def _open(self):
         if self._f is None:
@@ -80,18 +115,21 @@ class JSONLBlobSink(BlobSink):
         self._open().write(self._line(blob_id, heatmap) + "\n")
 
     def write(self, records) -> int:
-        """Bulk write: one ``writelines`` per 16k blobs."""
+        """Bulk write: one ``writelines`` per 16k blobs, each under the
+        ``sink.write`` retry policy."""
         f = self._open()
         n = 0
         lines = []
         for blob_id, heatmap in records:
             lines.append(self._line(blob_id, heatmap) + "\n")
             if len(lines) >= 16384:
-                f.writelines(lines)
+                faults.retry_call(f.writelines, lines, site="sink.write",
+                                  key=self.KIND)
                 n += len(lines)
                 lines.clear()
         if lines:
-            f.writelines(lines)
+            faults.retry_call(f.writelines, lines, site="sink.write",
+                              key=self.KIND)
             n += len(lines)
         return n
 
@@ -112,8 +150,24 @@ class JSONLBlobSink(BlobSink):
 
 
 @dataclasses.dataclass
+class DirectoryBlobSink(BlobSink):
+    """``dir:PATH``: one file per blob id (id sanitized into a
+    filename); overwrite = native upsert."""
+
+    root: str
+
+    KIND = "dir"
+
+    def write_one(self, blob_id, heatmap):
+        os.makedirs(self.root, exist_ok=True)
+        fname = blob_id.replace(os.sep, "_") + ".json"
+        with open(os.path.join(self.root, fname), "w") as f:
+            f.write(_as_json(heatmap))
+
+
+@dataclasses.dataclass
 class LevelArraysSink:
-    """Columnar egress (``arrays:DIR``): one ``.npz`` per pyramid level.
+    """Columnar egress (``arrays:DIR``): one file per pyramid level.
 
     Consumes finalized level arrays (pipeline.cascade.
     finalize_level_arrays) directly: the information of the reference
@@ -126,11 +180,14 @@ class LevelArraysSink:
     dictionary-encoded user/timespan (``user_idx``/``timespan_idx`` int32
     and the ``user_names``/``timespan_names`` tables), coarse_row/
     coarse_col and zoom/coarse_zoom, the arrays the JAX package's
-    ``LevelArraysSink`` writes. ``format`` is ``"npz"`` (plain savez) or
-    ``"npz-compressed"``; the JAX package's parquet format and its
-    synopsis, integral and tilefs side artifacts are not ported. Each
-    level is written to a temporary file and renamed into place, under
-    the ``sink.write`` fault site, so a rerun upserts whole levels.
+    ``LevelArraysSink`` writes. ``format`` is ``"npz"`` (plain savez),
+    ``"npz-compressed"`` or ``"parquet"`` (``arrays-parquet:DIR``;
+    pyarrow, one ``level_z{zoom}.parquet`` with native dictionary
+    columns ``user``/``timespan`` and per-row zoom columns); the JAX
+    package's synopsis, integral and tilefs side artifacts are not
+    ported. Each level is written to a temporary file and renamed into
+    place, under the ``sink.write`` fault site, so a rerun upserts whole
+    levels.
     """
 
     path: str
@@ -141,28 +198,32 @@ class LevelArraysSink:
                "coarse_row", "coarse_col")
 
     def __post_init__(self):
-        if self.format not in ("npz", "npz-compressed"):
+        if self.format not in ("npz", "npz-compressed", "parquet"):
             raise ValueError(
-                f"format must be 'npz' or 'npz-compressed', got "
-                f"{self.format!r}")
+                f"format must be 'npz', 'npz-compressed' or 'parquet', "
+                f"got {self.format!r}")
         os.makedirs(self.path, exist_ok=True)
 
     def write_levels(self, levels) -> int:
         rows = 0
-        save = (np.savez_compressed if self.format == "npz-compressed"
-                else np.savez)
         for lvl in levels:
             out = {k: np.asarray(lvl[k]) for k in self.COLUMNS}
             out["zoom"] = np.asarray(lvl["zoom"])
             out["coarse_zoom"] = np.asarray(lvl["coarse_zoom"])
-            out["user_names"] = np.asarray(lvl["user_names"])
-            out["timespan_names"] = np.asarray(lvl["timespan_names"])
-            final = os.path.join(self.path, f"level_z{lvl['zoom']:02d}.npz")
+            ext = "parquet" if self.format == "parquet" else "npz"
+            final = os.path.join(self.path, f"level_z{lvl['zoom']:02d}.{ext}")
             tmp = final + ".tmp"
 
             def _publish_level():
-                with open(tmp, "wb") as f:
-                    save(f, **out)
+                if self.format == "parquet":
+                    _write_parquet_level(tmp, out, lvl)
+                else:
+                    save = (np.savez_compressed
+                            if self.format == "npz-compressed" else np.savez)
+                    with open(tmp, "wb") as f:
+                        save(f, **out,
+                             user_names=np.asarray(lvl["user_names"]),
+                             timespan_names=np.asarray(lvl["timespan_names"]))
                 os.replace(tmp, final)
 
             faults.retry_call(_publish_level, site="sink.write", key="arrays")
@@ -172,7 +233,7 @@ class LevelArraysSink:
     def write(self, records):
         raise TypeError(
             "LevelArraysSink is columnar-only (write_levels); use a blob "
-            "sink (jsonl:/memory:) for per-blob records")
+            "sink (jsonl:/dir:/memory:) for per-blob records")
 
     def close(self):
         pass
@@ -185,21 +246,70 @@ class LevelArraysSink:
 
     @staticmethod
     def load(path: str) -> dict:
-        """{zoom: dict-of-columns} for every level file in ``path``, with
-        ``user``/``timespan`` materialized as string columns."""
+        """{zoom: dict-of-columns} for every level file in ``path`` (npz or
+        parquet), with ``user``/``timespan`` materialized as string
+        columns and zoom/coarse_zoom as scalars either way."""
         out = {}
         for name in sorted(os.listdir(path)):
-            if not (name.startswith("level_z") and name.endswith(".npz")):
+            if not name.startswith("level_z"):
                 continue
-            with np.load(os.path.join(path, name)) as z:
-                cols = {k: z[k] for k in z.files}
-            for col, names in (("user", "user_names"),
-                               ("timespan", "timespan_names")):
-                if names in cols:
-                    cols[col] = cols[names][cols.pop(f"{col}_idx")]
-                    del cols[names]
+            full = os.path.join(path, name)
+            if name.endswith(".npz"):
+                with np.load(full) as z:
+                    cols = {k: z[k] for k in z.files}
+                for col, names in (("user", "user_names"),
+                                   ("timespan", "timespan_names")):
+                    if names in cols:
+                        cols[col] = cols[names][cols.pop(f"{col}_idx")]
+                        del cols[names]
+            elif name.endswith(".parquet"):
+                cols = _read_parquet_level(full)
+            else:
+                continue
             out[int(cols["zoom"])] = cols
         return out
+
+
+def _write_parquet_level(path, out, lvl):
+    """One level as a parquet table: the row columns, ``user``/``timespan``
+    as dictionary columns over the level's name tables, and zoom/
+    coarse_zoom repeated per row (the JAX package's layout)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = len(out["value"])
+    cols = {}
+    for k, v in out.items():
+        if k == "user_idx":
+            cols["user"] = pa.DictionaryArray.from_arrays(
+                pa.array(v), pa.array(lvl["user_names"]))
+        elif k == "timespan_idx":
+            cols["timespan"] = pa.DictionaryArray.from_arrays(
+                pa.array(v), pa.array(lvl["timespan_names"]))
+        else:
+            cols[k] = np.full(n, v) if v.ndim == 0 else v
+    pq.write_table(pa.table(cols), path)
+
+
+def _read_parquet_level(path) -> dict:
+    """A parquet level file as numpy columns, string columns decoded and
+    the per-row zoom columns back to scalars."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    t = pq.read_table(path)
+    cols = {}
+    for k in t.column_names:
+        c = t[k].combine_chunks()
+        if pa.types.is_dictionary(c.type):
+            cols[k] = np.asarray(c.dictionary_decode()).astype(str)
+        elif pa.types.is_string(c.type):
+            cols[k] = np.asarray(c).astype(str)
+        else:
+            cols[k] = np.asarray(c)
+    for k in ("zoom", "coarse_zoom"):
+        cols[k] = np.asarray(cols[k][0]) if len(cols[k]) else cols[k]
+    return cols
 
 
 @dataclasses.dataclass
@@ -248,19 +358,48 @@ class PNGTileSink:
         return count
 
 
-def open_sink(spec: str):
-    """Sink spec: ``memory:``, ``jsonl:PATH``, ``arrays:DIR`` (columnar
-    per-level npz) or a bare ``.jsonl`` path."""
-    kind, sep, rest = spec.partition(":")
-    if sep and kind == "memory":
-        return MemorySink()
-    if sep and kind == "jsonl":
-        return JSONLBlobSink(rest)
-    if sep and kind == "arrays":
-        return LevelArraysSink(rest)
-    if spec.endswith((".jsonl", ".ndjson")):
-        return JSONLBlobSink(spec)
+#: Sink spec kinds the port opens, in help order.
+SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "dir", "memory")
+
+#: Sink kinds of the JAX package that the port does not open yet.
+UNPORTED_SINK_KINDS = ("arrays-synopsis", "arrays-integral", "arrays-tilefs",
+                       "cassandra")
+
+
+def validate_sink_spec(spec: str) -> str:
+    """Reject a sink kind the port does not open with a one-line error:
+    a typo like ``josnl:x`` names the valid kinds, and a kind of the JAX
+    package that is not ported yet says so. Meant for argument-parse
+    time, so the error comes before any device work or ingest. Returns
+    ``spec`` so it can wrap an argparse ``type=``."""
+    kind, sep, _ = spec.partition(":")
+    if (sep and kind in SINK_KINDS) or spec.endswith((".jsonl", ".ndjson")):
+        return spec
+    if sep and kind in UNPORTED_SINK_KINDS:
+        raise ValueError(
+            f"sink kind {kind!r} is not ported yet to heatmap_tpu_torch; "
+            f"use one of {', '.join(SINK_KINDS)}")
     raise ValueError(
-        f"unrecognized sink spec {spec!r}: use memory:, jsonl:PATH, "
-        "arrays:DIR or a bare .jsonl/.ndjson path"
+        f"unrecognized sink spec {spec!r}: kind must be one of "
+        f"{', '.join(SINK_KINDS)} (e.g. jsonl:blobs.jsonl), or a bare "
+        f".jsonl/.ndjson path"
     )
+
+
+def open_sink(spec: str):
+    """Sink spec: ``memory:``, ``jsonl:PATH``, ``dir:PATH``, ``arrays:DIR``
+    (columnar per-level npz), ``arrays-parquet:DIR`` or a bare ``.jsonl``
+    path."""
+    validate_sink_spec(spec)
+    kind, sep, rest = spec.partition(":")
+    if kind == "memory":
+        return MemorySink()
+    if kind == "jsonl":
+        return JSONLBlobSink(rest)
+    if kind == "dir":
+        return DirectoryBlobSink(rest)
+    if kind == "arrays":
+        return LevelArraysSink(rest)
+    if kind == "arrays-parquet":
+        return LevelArraysSink(rest, format="parquet")
+    return JSONLBlobSink(spec)

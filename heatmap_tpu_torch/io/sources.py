@@ -1,7 +1,7 @@
 """Ingest sources: columnar point-batch readers.
 
-Port of the synthetic, CSV and JSONL readers of heatmap_tpu/io/sources.py
-(HMPB files: io/hmpb.py).
+Port of the synthetic, CSV, JSONL and Parquet readers of
+heatmap_tpu/io/sources.py (HMPB files: io/hmpb.py).
 Every source yields columnar batches (dicts of host numpy arrays and
 string lists) with the reference's row contract (reference
 heatmap.py:25-36): ``latitude``, ``longitude``, ``user_id``, ``source``,
@@ -251,13 +251,46 @@ class JSONLSource(Source):
             yield _finalize_with_value(cols, vals if weighted else None)
 
 
+@dataclasses.dataclass
+class ParquetSource(Source):
+    """Parquet reader (pyarrow), batched at row-group granularity.
+
+    A ``value`` weight column in the schema passes through (nulls
+    default to 1.0) unless ``read_value=False``."""
+
+    path: str
+    read_value: bool | None = None
+
+    def batches(self, batch_size: int = DEFAULT_BATCH) -> Iterator[dict]:
+        import pyarrow.parquet as pq
+
+        pf = pq.ParquetFile(self.path)
+        for rb in pf.iter_batches(batch_size=batch_size):
+            d = rb.to_pydict()
+            out = {
+                "latitude": np.asarray(d["latitude"], np.float64),
+                "longitude": np.asarray(d["longitude"], np.float64),
+                "user_id": [str(u) for u in d.get("user_id", [""] * rb.num_rows)],
+                "source": [str(s) for s in d.get("source", [""] * rb.num_rows)],
+                "timestamp": list(d.get("timestamp", [None] * rb.num_rows)),
+            }
+            if VALUE_COLUMN in d and self.read_value is not False:
+                out[VALUE_COLUMN] = np.asarray(
+                    [1.0 if v is None else float(v) for v in d[VALUE_COLUMN]],
+                    np.float64,
+                )
+            yield out
+
+
 def open_source(spec: str, read_value: bool | None = None):
     """Parse a source spec: ``synthetic:N[:seed]``, ``csv:PATH``,
-    ``jsonl:PATH``, ``hmpb:PATH`` (a file, or a directory of ``*.hmpb``
-    parts), or a bare ``.csv``/``.jsonl``/``.ndjson``/``.hmpb`` path.
+    ``jsonl:PATH``, ``parquet:PATH``, ``hmpb:PATH`` (a file, or a
+    directory of ``*.hmpb`` parts), or a bare ``.csv``/``.jsonl``/
+    ``.ndjson``/``.parquet``/``.pq``/``.hmpb`` path.
 
-    ``read_value`` controls the optional weight column of the CSV and
-    JSONL sources: None = read it when present, False = ignore it."""
+    ``read_value`` controls the optional weight column of the CSV, JSONL
+    and Parquet sources: None = read it when present, False = ignore
+    it."""
     kind, _, rest = spec.partition(":")
     if kind == "hmpb" or (not rest and spec.endswith(".hmpb")):
         from heatmap_tpu_torch.io.hmpb import HMPBDirSource, HMPBSource
@@ -273,11 +306,15 @@ def open_source(spec: str, read_value: bool | None = None):
         return CSVSource(rest, read_value=read_value)
     if kind == "jsonl":
         return JSONLSource(rest, read_value=read_value)
+    if kind == "parquet":
+        return ParquetSource(rest, read_value=read_value)
     if spec.endswith(".csv"):
         return CSVSource(spec, read_value=read_value)
     if spec.endswith((".jsonl", ".ndjson")):
         return JSONLSource(spec, read_value=read_value)
+    if spec.endswith((".parquet", ".pq")):
+        return ParquetSource(spec, read_value=read_value)
     raise ValueError(
         f"unrecognized source spec {spec!r} (synthetic:N[:seed], "
-        "csv:PATH, jsonl:PATH or hmpb:PATH)"
+        "csv:PATH, jsonl:PATH, parquet:PATH or hmpb:PATH)"
     )

@@ -65,14 +65,38 @@ def _level_caps(capacity, n: int, levels: int) -> list:
     return caps
 
 
+def adaptive_keep(count, size: int) -> int | None:
+    """The array length that level data of ``size`` slots, ``count`` of
+    them real, shrinks to under ``adaptive=True``: the next power of two
+    at or above the real count, at least 64; None when nothing shrinks
+    (the level overflowed, ``count > size``, or is already that small).
+    Reads ``count`` on the host: one device sync per level. Slots past
+    ``count`` are sentinel padding, so dropping them changes no result.
+    """
+    n_real = int(count)
+    if n_real > size:
+        return None
+    keep = max(64, 1 << max(0, n_real - 1).bit_length())
+    return keep if keep < size else None
+
+
 def pyramid_sparse_morton(codes, weights=None, valid=None, levels: int = 0,
-                          capacity=None, acc_dtype=None, timer=None):
+                          capacity=None, acc_dtype=None, timer=None,
+                          adaptive: bool = False):
     """Per-level ``(unique codes[capacity_i], sums[capacity_i], n_unique)``.
 
     Entry 0 is the detail zoom, entry i is coarsened by i zooms.
     ``capacity`` is an int (every level) or a per-level list. Levels
     past the first reduce the previous level's unique codes, so the work
     is O(N log N + N + levels * capacity).
+
+    ``adaptive=True`` shrinks every level's input to the previous
+    level's real unique count (:func:`adaptive_keep`), so deep levels
+    reduce ~``n_unique_0`` slots instead of ``capacity``; results are
+    identical. The input never shrinks below the real count (that would
+    falsify the unique count overflow detection relies on); a
+    configured ``caps[lvl]`` below it bounds only the output, where
+    ``n_unique > capacity`` stays detectable.
     """
     n = codes.shape[0]
     caps = _level_caps(capacity, n, levels)
@@ -81,12 +105,18 @@ def pyramid_sparse_morton(codes, weights=None, valid=None, levels: int = 0,
         acc_dtype=acc_dtype, timer=timer)
     out = [(uniq, sums, count)]
     for lvl in range(1, levels + 1):
+        cap = caps[lvl]
+        if adaptive:
+            keep = adaptive_keep(count, uniq.shape[0])
+            if keep is not None:
+                uniq, sums = uniq[:keep], sums[:keep]
+            cap = min(cap, uniq.shape[0])
         # Parent codes of the previous level's uniques; sentinel slots
         # stay sentinel (a plain shift would make plausible codes).
         with stage(timer, "segment_reduce"):
             parents = torch.where(uniq == SENTINEL, SENTINEL, uniq >> 2)
             uniq, sums, count = sparse_ops.aggregate_sorted_keys(
-                parents, sums, caps[lvl], sentinel=SENTINEL)
+                parents, sums, cap, sentinel=SENTINEL)
         out.append((uniq, sums, count))
     return out
 
@@ -94,7 +124,7 @@ def pyramid_sparse_morton(codes, weights=None, valid=None, levels: int = 0,
 def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
                                       capacity=None, weights=None,
                                       weight_bound: int | None = None,
-                                      timer=None):
+                                      timer=None, adaptive: bool = False):
     """Sparse pyramid on the segment-reduce kernel.
 
     Same contract as :func:`pyramid_sparse_morton` (int64 keys, int64-max
@@ -104,6 +134,13 @@ def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
     (``weights`` with ``weight_bound``; float64 sums; a weight outside
     the contract poisons ``n_unique``). Keys must fit 60 bits, which the
     cascade checks.
+
+    ``adaptive=True`` cuts each level's output capacity to
+    :func:`adaptive_keep` of the previous level's real unique count (a
+    level has no more uniques than the level below it), one host sync
+    per level. The kernel still reads the whole sorted stream; only its
+    output arrays, and the work past ``n_unique``, shrink. The JAX
+    package refuses this combination; here the blobs are unchanged.
     """
     codes = codes.to(torch.int64)
     n = codes.shape[0]
@@ -120,9 +157,14 @@ def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
     out = []
     for lvl in range(levels + 1):
         shifted_sentinel = SENTINEL >> (2 * lvl)
+        cap = caps[lvl]
+        if adaptive and lvl:
+            keep = adaptive_keep(out[-1][2], out[-1][0].shape[0])
+            if keep is not None:
+                cap = min(cap, keep)
         with stage(timer, "segment_reduce"):
             uniq, sums, n_unique = sp.aggregate_sorted_keys_partitioned(
-                skeys, caps[lvl], sentinel=shifted_sentinel, shift=2 * lvl,
+                skeys, cap, sentinel=shifted_sentinel, shift=2 * lvl,
                 sorted_weights=sw, weight_bound=weight_bound)
             # Normalize padding to the int64-max sentinel: the level pads
             # with its SHIFTED sentinel, which a `uniq != intmax` mask

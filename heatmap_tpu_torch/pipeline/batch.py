@@ -78,6 +78,10 @@ class BatchJobConfig:
     #: every 'value' is an integer in [0, weight_bound]; a violation is
     #: detected on the device and surfaces as capacity overflow.
     weight_bound: int | None = None
+    #: Shrink cascade levels 1.. to the real unique counts (one host
+    #: sync per level; identical blobs; ops.pyramid.adaptive_keep). On
+    #: the partitioned backend it cuts each level's output capacity.
+    adaptive_capacity: bool = False
 
     def __post_init__(self):
         if self.cascade_backend not in ("auto", "scatter", "partitioned"):
@@ -803,6 +807,7 @@ def _run_job_bounded(source, sink, config: BatchJobConfig,
                 acc_dtype=torch.float64 if e_weights is not None else None,
                 backend=backend,
                 weight_bound=config.weight_bound, timer=timer,
+                adaptive=config.adaptive_capacity,
             )
             with stage(timer, "decode"):
                 levels = cascade_mod.decode_levels(level_data, ccfg)
@@ -1562,6 +1567,7 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
         acc_dtype=torch.float64 if e_weights is not None else None,
         backend=config.resolved_cascade_backend(device),
         weight_bound=config.weight_bound, timer=timer,
+        adaptive=config.adaptive_capacity,
     )
     with stage(timer, "decode"):
         decoded = cascade_mod.decode_levels(levels, ccfg)

@@ -82,14 +82,16 @@ def decode_level_keys(level_keys: np.ndarray, detail_zoom: int, level: int):
 def build_cascade(codes, slots, config: CascadeConfig, n_slots: int,
                   weights=None, valid=None, capacity=None, acc_dtype=None,
                   backend: str = "scatter", weight_bound: int | None = None,
-                  timer=None):
+                  timer=None, adaptive: bool = False):
     """Device-side cascade: per-level (composite key, sum, n_unique).
 
     ``backend`` is "scatter" (ops.sparse.aggregate_sorted_keys per level)
     or "partitioned" (the CUDA segment-reduce kernel reading every level
     from one sort; count jobs, or weighted jobs under the bounded-integer
     ``weight_bound`` contract). The tensors stay on their device; the
-    cascade runs eagerly.
+    cascade runs eagerly. ``adaptive`` (BatchJobConfig.adaptive_capacity)
+    shrinks levels 1.. to the real unique counts on either backend, one
+    host sync per level (ops/pyramid.py); results are identical.
     """
     if backend == "partitioned":
         # Refusal parity with the JAX package: its kernel rebuilds keys
@@ -129,11 +131,12 @@ def build_cascade(codes, slots, config: CascadeConfig, n_slots: int,
             ck, valid=valid, levels=config.n_levels, capacity=capacity,
             weights=weights,
             weight_bound=weight_bound if weights is not None else None,
-            timer=timer,
+            timer=timer, adaptive=adaptive,
         )
     return pyramid_ops.pyramid_sparse_morton(
         ck, weights=weights, valid=valid, levels=config.n_levels,
         capacity=capacity, acc_dtype=acc_dtype, timer=timer,
+        adaptive=adaptive,
     )
 
 

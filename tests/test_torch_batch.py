@@ -233,7 +233,9 @@ def test_import_hygiene():
          "heatmap_tpu_torch.ops.histogram, "
          "heatmap_tpu_torch.ops.pallas_kernels, "
          "heatmap_tpu_torch.ops.partitioned, heatmap_tpu_torch.ops.pyramid, "
-         "heatmap_tpu_torch.ops.splat, heatmap_tpu_torch.tilemath.tile, sys; "
+         "heatmap_tpu_torch.ops.splat, heatmap_tpu_torch.tilemath.tile, "
+         "heatmap_tpu_torch.streaming, heatmap_tpu_torch.ingest, "
+         "heatmap_tpu_torch.io.merge, heatmap_tpu_torch.io.sources, sys; "
          "assert 'jax' not in sys.modules, 'jax imported'; "
          "assert 'heatmap_tpu' not in sys.modules, 'heatmap_tpu imported'"],
         cwd=REPO, capture_output=True, text=True, timeout=120)

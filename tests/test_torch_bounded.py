@@ -348,7 +348,7 @@ def test_arrays_sink_refuses_blobs_and_unknown_format(tmp_path):
     with pytest.raises(TypeError, match="columnar-only"):
         sink.write([("a", "{}")])
     with pytest.raises(ValueError, match="format"):
-        LevelArraysSink(str(tmp_path), format="parquet")
+        LevelArraysSink(str(tmp_path), format="feather")
     compressed = LevelArraysSink(str(tmp_path / "c"), format="npz-compressed")
     plain = LevelArraysSink(str(tmp_path / "p"))
     for s in (compressed, plain):

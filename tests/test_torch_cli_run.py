@@ -69,7 +69,7 @@ def test_run_csv_same_jsonl_bytes(csv_path, jax_jsonl, tmp_path, flags):
     flags = [str(tmp_path / "ckpt") if f == "CKPT" else f for f in flags]
     proc = _cli("heatmap_tpu_torch", "run", "--input", f"csv:{csv_path}",
                 "--output", f"jsonl:{out}", *CFG, *flags)
-    summary = json.loads(proc.stderr.strip().splitlines()[-1])
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["ingest"] == ("standard" if {"--no-fast", "--checkpoint-dir"}
                                  & set(flags) else "fast")
     assert summary["blobs"] == len(jax_jsonl.splitlines()) > 100
@@ -87,7 +87,7 @@ def test_convert_then_run_hmpb_same_bytes(csv_path, jax_jsonl, tmp_path):
     out = tmp_path / "blobs.jsonl"
     proc = _cli("heatmap_tpu_torch", "run", "--input", f"hmpb:{t}",
                 "--output", f"jsonl:{out}", *CFG)
-    assert json.loads(proc.stderr.strip().splitlines()[-1])["ingest"] == \
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["ingest"] == \
         "fast"
     assert out.read_bytes() == jax_jsonl
 
@@ -97,7 +97,7 @@ def test_run_arrays_output_equal_jax(csv_path, tmp_path):
          f"arrays:{tmp_path / 'jax'}", *CFG)
     proc = _cli("heatmap_tpu_torch", "run", "--input", f"csv:{csv_path}",
                 "--output", f"arrays:{tmp_path / 'port'}", *CFG)
-    summary = json.loads(proc.stderr.strip().splitlines()[-1])
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
     assert summary["levels"] == 6 and summary["rows"] > 0
     got = LevelArraysSink.load(str(tmp_path / "port"))
     want = LevelArraysSink.load(str(tmp_path / "jax"))
