@@ -63,6 +63,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -110,6 +111,14 @@ N_TILES = 4_000_000
 #: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
 #: tests, at their sizes, hold 1e-5.
 FRACTIONAL_RTOL = 1e-4
+#: The delta phase: a base of the default job's points, increments of
+#: 262,144 points (seeds 1-4), the user a predicate retraction removes;
+#: and the small sequence run on the card and on the CPU.
+N_DELTA_BASE = N_MAIN
+N_DELTA_INC = 1 << 18
+N_DELTA_SMALL_BASE = 200_000
+N_DELTA_SMALL_INC = 1 << 14
+DELTA_USER = "user-3"
 #: One z8 tile (256 x 256 cells at z16) east of the synthetic hot spot:
 #: the tiles command's window-histogram case.
 SMALL_TILES_BOUNDS = ("--lat-min", "47.1", "--lat-max", "47.95",
@@ -1201,6 +1210,285 @@ def phase_parquet(dev):
           "blobs": len(jsonl["csv"]), "equal_to_csv": True, **out})
 
 
+def cli_call(argv):
+    """``cli.main(argv)`` with its stdout summary captured: (summary,
+    seconds)."""
+    from heatmap_tpu_torch import cli
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        assert cli.main(argv) == 0, argv
+    torch.cuda.synchronize()
+    return (json.loads(printed.getvalue().strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def store_tree(root):
+    """Every file of a delta store, journal entries as their arrays and
+    meta without the wall-clock ``ts``."""
+    from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    for rel, data in read_tree(root).items():
+        if rel.startswith("journal" + os.sep):
+            arrays, meta = load_checkpoint(os.path.join(root, rel))
+            meta.pop("ts")
+            out[rel] = (json.dumps(meta, sort_keys=True),
+                        {k: v.tolist() for k, v in arrays.items()})
+        else:
+            out[rel] = data
+    return out
+
+
+@contextlib.contextmanager
+def timed_attr(module, name, acc):
+    """Add the seconds of every call of ``module.name`` to ``acc[name]``
+    (a measurement wrapper of this script, restored on exit)."""
+    fn = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def delta_sequence(root, device, n_base, n_inc, telemetry=None):
+    """The delta phase's sequence through ``cli.main`` on ``device``: a
+    base, increments of seeds 1-4 (seed 4 with ``--events``,
+    ``--metrics-dir`` and ``--report`` into ``telemetry`` when given),
+    seed 2 again (a duplicate), a signed retraction of seed 3, a
+    predicate retraction of DELTA_USER, a compaction. Each step's
+    summary, seconds, segment-reduce launches and tracer spans; the
+    telemetry step also its delta artifact's files (compaction prunes
+    the artifact later)."""
+    from heatmap_tpu_torch import analytics, synopsis
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.utils.trace import get_tracer
+
+    dev_flag = ["--device", device]
+    upd = ["update", "--journal", root, *dev_flag]
+    steps = [("base", [*upd, "--input", f"synthetic:{n_base}:0"])]
+    for seed in (1, 2, 3, 4):
+        extra = []
+        if seed == 4 and telemetry is not None:
+            extra = ["--events", os.path.join(telemetry, "events.jsonl"),
+                     "--metrics-dir", telemetry, "--report",
+                     os.path.join(telemetry, "run_report.json")]
+        steps.append((f"increment_{seed}",
+                      [*upd, "--input", f"synthetic:{n_inc}:{seed}",
+                       *extra]))
+    steps += [
+        ("duplicate_2", [*upd, "--input", f"synthetic:{n_inc}:2"]),
+        ("retraction_3", [*upd, "--retractions", f"synthetic:{n_inc}:3"]),
+        ("retract_user", ["retract", "--journal", root, *dev_flag,
+                          "--layer", DELTA_USER]),
+        ("compaction", [*upd, "--compact-after", "0"]),
+    ]
+    tracer = get_tracer()
+    out = {}
+    for name, argv in steps:
+        tracer.reset()
+        sp.aggregate_sorted_keys_partitioned.launches = 0
+        side = {}
+        with timed_attr(synopsis, "write_synopses", side), \
+                timed_attr(analytics, "write_integrals", side):
+            summary, seconds = cli_call(argv)
+        spans = {k: v["total_s"] for k, v in tracer.report().items()}
+        out[name] = {"summary": summary, "seconds": seconds,
+                     "launches": sp.aggregate_sorted_keys_partitioned.launches,
+                     "spans_s": spans, "side_s": side}
+        if "--events" in argv:
+            epoch = summary["applied"][0]["epoch"]
+            out[name]["artifact"] = read_tree(
+                os.path.join(root, f"delta-{epoch:06d}"))
+    return out
+
+
+def apply_split(rec, points):
+    """Host seconds of one applied batch by part: read and hash, the
+    cascade (the ``delta.compute`` span less host ingest and egress; the
+    host waits on the card inside it), the artifact write (level files
+    and journal entry) and the affected keys."""
+    s = rec["spans_s"]
+    egress = s.get("egress", 0.0) + s.get("egress.finalize", 0.0)
+    ingest = s.get("ingest.batch", 0.0)
+    return {"seconds": rec["seconds"], "points_per_s": points / rec["seconds"],
+            "read_hash_s": s["delta.read"] + s["delta.hash"],
+            "ingest_s": ingest,
+            "cascade_s": s["delta.compute"] - ingest - egress,
+            "write_s": egress + s["delta.journal"],
+            "keys_s": s["delta.keys"], "launches": rec["launches"]}
+
+
+def check_delta_sequence(seq, n_levels):
+    """Launches and summaries of one sequence: 16 segment reduces per
+    applied batch, none for the duplicate or the compaction."""
+    for name, rec in seq.items():
+        summary = rec["summary"]
+        if name == "duplicate_2":
+            (a,) = summary["applied"]
+            assert a["duplicate"] and rec["launches"] == 0, rec
+            assert a["epoch"] == seq["increment_2"]["summary"][
+                "applied"][0]["epoch"], (a, seq["increment_2"])
+        elif name == "retract_user":
+            assert summary["rows"] > 0 and summary["batches"] == 1, summary
+            assert rec["launches"] == n_levels, rec
+        elif name == "compaction":
+            assert summary["compaction"]["status"] == "ok", summary
+            assert summary["live_deltas"] == 0 and rec["launches"] == 0, rec
+        else:
+            (a,) = summary["applied"]
+            assert not a["duplicate"] and a["rows"] > 0, summary
+            assert rec["launches"] == n_levels, (name, rec["launches"])
+
+
+def survivors(n_base, n_inc):
+    """The points a clean recompute keeps: the base and seeds 1, 2 and
+    4 (seed 3 was retracted) without DELTA_USER's rows, as columns."""
+    from heatmap_tpu_torch.delta import read_columns
+    from heatmap_tpu_torch.io import SyntheticSource
+
+    parts = [read_columns(SyntheticSource(n=n_base, seed=0))]
+    parts += [read_columns(SyntheticSource(n=n_inc, seed=s))
+              for s in (1, 2, 4)]
+    out = {}
+    for k in parts[0]:
+        vals = [p[k] for p in parts]
+        out[k] = (np.concatenate(vals) if isinstance(vals[0], np.ndarray)
+                  else np.asarray(sum(vals, [])))
+    keep = out["user_id"] != DELTA_USER
+    return {k: v[keep] for k, v in out.items()}
+
+
+def phase_delta(dev):
+    """The delta store on the card through the ``update`` and ``retract``
+    commands, as DELTA_* describe, with checks: (a) the compacted base
+    equals one ``run --output arrays:`` over the surviving points; (b)
+    the same sequence at 200k base and 16,384-point increments writes
+    equal stores on the card (with telemetry on one increment) and on
+    the CPU (without); (c) 16 segment-reduce launches per applied
+    batch, none for the duplicate; (d) the telemetry increment's events
+    validate against EVENT_SCHEMA, metrics.prom and the report exist,
+    and its delta artifact equals the same batch applied without
+    telemetry. Returns the launches of the main sequence."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from heatmap_tpu_torch import delta, obs
+    from heatmap_tpu_torch.delta.compact import drop_zero_rows
+    from heatmap_tpu_torch.devices import StageTimer
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.io.merge import merge_level_dirs
+    from heatmap_tpu_torch.io.sinks import LevelArraysSink
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    n_levels = BatchJobConfig().cascade_config().n_levels + 1
+    telemetry = os.path.join("chiprun_out", "delta_telemetry")
+    shutil.rmtree(telemetry, ignore_errors=True)
+    os.makedirs(telemetry)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "store")
+        seq = delta_sequence(root, "cuda", N_DELTA_BASE, N_DELTA_INC,
+                             telemetry=telemetry)
+        check_delta_sequence(seq, n_levels)
+        # (a) the compacted base against one run over the survivors.
+        cols = survivors(N_DELTA_BASE, N_DELTA_INC)
+        pq_path = os.path.join(tmp, "survivors.parquet")
+        pq.write_table(pa.table({
+            "latitude": cols["latitude"], "longitude": cols["longitude"],
+            "user_id": cols["user_id"], "source": cols["source"],
+            "timestamp": cols["timestamp"].astype(np.int64)}), pq_path)
+        run_dir = os.path.join(tmp, "recompute")
+        _, run_s = cli_call(["run", "--input", f"parquet:{pq_path}",
+                             "--output", f"arrays:{run_dir}",
+                             "--device", "cuda"])
+        base = delta.read_current(root)["base"]
+        got = drop_zero_rows(merge_level_dirs([os.path.join(root, base)]))
+        want = merge_level_dirs([run_dir])
+        assert [int(l["zoom"]) for l in got] == [int(l["zoom"]) for l in want]
+        for g, w in zip(got, want):
+            for k in (*LevelArraysSink.COLUMNS, "user_names",
+                      "timespan_names"):
+                assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), \
+                    f"compacted base differs from the recompute at " \
+                    f"z{g['zoom']} {k}"
+        assert DELTA_USER not in set(np.asarray(got[0]["user_names"]))
+        # (d) telemetry: valid events, metrics, report; the increment's
+        # artifact equals the same batch applied without telemetry.
+        recs = obs.read_events(os.path.join(telemetry, "events.jsonl"))
+        for r in recs:
+            obs.validate_event(r)
+        kinds = [r["event"] for r in recs]
+        assert kinds[0] == "run_start" and kinds[-1] == "run_end", kinds
+        assert "delta_applied" in kinds, kinds
+        assert os.path.getsize(os.path.join(telemetry, "metrics.prom"))
+        assert os.path.getsize(os.path.join(telemetry, "run_report.json"))
+        bare = os.path.join(tmp, "bare")
+        timer = StageTimer(dev)
+        res = delta.apply_batch(bare, SyntheticSource(n=N_DELTA_INC, seed=4),
+                                BatchJobConfig(), device=dev, timer=timer)
+        assert seq["increment_4"]["artifact"] == read_tree(
+            os.path.join(bare, res.artifact)), \
+            "telemetry changed the delta artifact"
+        device_split_ms = {k: sum(v) for k, v in timer.ms.items()}
+        # The keys as the JAX package holds them: one Python tuple each.
+        t0 = time.perf_counter()
+        assert len(set(res.affected_keys)) == len(res.affected_keys)
+        keys_as_set_s = time.perf_counter() - t0
+        # (b) the small sequence on the card (telemetry on seed 4) and on
+        # the CPU (none): equal stores.
+        small = {}
+        for device in ("cuda", "cpu"):
+            small_root = os.path.join(tmp, f"small_{device}")
+            tel = os.path.join(tmp, "small_tel") if device == "cuda" else None
+            if tel:
+                os.makedirs(tel)
+            small[device] = delta_sequence(small_root, device,
+                                           N_DELTA_SMALL_BASE,
+                                           N_DELTA_SMALL_INC, telemetry=tel)
+        check_delta_sequence(small["cuda"], n_levels)
+        assert (store_tree(os.path.join(tmp, "small_cuda"))
+                == store_tree(os.path.join(tmp, "small_cpu"))), \
+            "card and CPU delta stores differ"
+    launches = sum(rec["launches"] for rec in seq.values())
+    seq["increment_4"].pop("artifact")
+    splits = {name: apply_split(rec, rec["summary"]["applied"][0]["points"])
+              for name, rec in seq.items()
+              if name.startswith(("base", "increment", "retraction"))}
+    inc = [splits[f"increment_{s}"] for s in (1, 2, 3, 4)]
+    emit({"phase": "delta", "base_points": N_DELTA_BASE,
+          "increment_points": N_DELTA_INC, "launches": launches,
+          "launches_by_step": {k: v["launches"] for k, v in seq.items()},
+          "apply": splits,
+          "increment_median_s": statistics.median(r["seconds"] for r in inc),
+          "duplicate_s": seq["duplicate_2"]["seconds"],
+          "retract_s": seq["retract_user"]["seconds"],
+          "retract_rows": seq["retract_user"]["summary"]["rows"],
+          "compaction_s": seq["compaction"]["seconds"],
+          "compaction_side_s": seq["compaction"]["side_s"],
+          "compaction_rows": seq["compaction"]["summary"]["compaction"][
+              "rows"],
+          "increment_device_split_ms": device_split_ms,
+          "affected_keys": {k: v["summary"]["applied"][0]["affected_keys"]
+                            for k, v in seq.items()
+                            if "applied" in v["summary"]},
+          "increment_keys_as_set_s": keys_as_set_s,
+          "recompute_run_s": run_s, "equal_to_recompute": True,
+          "small_equal_cpu": True, "telemetry_events": len(recs),
+          "small_seconds": {d: sum(r["seconds"] for r in v.values())
+                            for d, v in small.items()}})
+    return launches
+
+
 class ReplaySource:
     """Columnar batches made once and replayed on every ``batches`` call
     (at the batch size they were cut to), so the stream's cases and
@@ -1561,15 +1849,20 @@ def main() -> int:
         phase_weighted(dev)
         phase_cpu_crosscheck(dev)
         phase_parquet(dev)
+        delta_launches = phase_delta(dev)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
     phase_stream_bench(dev)
     phase_splat(dev)
     phase_headline(dev)
+    segment_reduce = kernel_entry(
+        "segment_reduce", "segment_reduce.cu",
+        "heatmap_tpu/ops/sparse_partitioned.py:75", bounded_launches,
+        kernel)
+    segment_reduce["launches_by_path"] = {"bounded": bounded_launches,
+                                          "delta": delta_launches}
     emit({"kernels": [
-        kernel_entry("segment_reduce", "segment_reduce.cu",
-                     "heatmap_tpu/ops/sparse_partitioned.py:75",
-                     bounded_launches, kernel),
+        segment_reduce,
         kernel_entry("window_histogram", "window_histogram.cu",
                      "heatmap_tpu/ops/pallas_kernels.py:49",
                      tiles_launches["window_histogram"], histogram),

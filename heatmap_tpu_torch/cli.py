@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m heatmap_tpu_torch
-run|tiles|stream|convert|merge|info ...``.
+run|tiles|stream|convert|merge|info|update|retract ...``.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
 to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
@@ -11,7 +11,16 @@ into a dense window raster and writes a z/x/y PNG tile tree. ``stream``
 consumes a source as timed micro-batches into a decayed live raster and
 writes its final snapshot as tiles. ``convert`` writes any source as
 HMPB, ``merge`` merges egress shards, ``info`` prints the resolved
-backend and devices.
+backend and devices. ``update`` applies journaled delta batches (and
+signed retractions) to a delta store and compacts it; ``retract``
+removes every journaled row matching a predicate (heatmap_tpu_torch.
+delta). Stores are interchangeable with the JAX package's.
+
+``run`` and ``update`` carry the telemetry envelope: ``--metrics-dir``,
+``--events``, ``--report``, ``--trace-out`` and ``--trace-sample``
+(``run`` also ``--profile``); with all of them off the commands write
+the same bytes. The JAX flags whose modules the port lacks exit 2 at
+parse time with "not ported yet" and their ROADMAP item.
 
 Every command keeps the flag names of ``heatmap_tpu``'s. The device
 commands (``run``, ``tiles``, ``stream``) run on the CUDA card unless
@@ -23,8 +32,10 @@ the fault plane (heatmap_tpu_torch.faults).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 import time
 
 from heatmap_tpu_torch.pipeline.timespan import VALID_TYPES
@@ -119,6 +130,160 @@ def _sink_spec(spec: str) -> str:
         raise argparse.ArgumentTypeError(str(e)) from e
 
 
+def _not_ported(item: int, *off):
+    """argparse ``type=`` of a JAX flag whose module the port lacks: any
+    value but ``off`` (the values that leave the feature off) exits 2
+    at parse time, naming the ROADMAP Queue 1 item that ports it."""
+
+    def parse(value):
+        if value in off:
+            return value
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: not ported yet (ROADMAP Queue 1 item {item})")
+
+    return parse
+
+
+def _add_telemetry_flags(p):
+    p.add_argument("--metrics-dir", default=None, metavar="DIR",
+                   help="enable the metrics registry and write a "
+                   "Prometheus-text dump to DIR/metrics.prom at command "
+                   "end (docs/observability.md)")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append structured run events to PATH (JSONL: "
+                   "run_start, stage_end, delta_applied, compaction_*, "
+                   "run_end; the JAX package's schema)")
+    p.add_argument("--report", nargs="?", const="run_report.json",
+                   default=None, metavar="PATH",
+                   help="fold tracer + metrics + events into a run report "
+                   "at PATH (default run_report.json) and print the span "
+                   "table to stderr")
+
+
+def _add_trace_flags(p):
+    """--trace-out / --trace-sample, and the JAX telemetry flags whose
+    modules wait for ROADMAP Queue 1 item 6 (refused)."""
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="enable hierarchical span tracing and export the "
+                   "span trees as Chrome/Perfetto trace-event JSON to "
+                   "PATH at exit")
+    p.add_argument("--trace-sample", type=float, default=1.0, metavar="P",
+                   help="probability a new trace root is sampled "
+                   "(default 1.0 records every trace)")
+    item6 = _not_ported(6)
+    p.add_argument("--slo", action="append", type=item6, default=None,
+                   metavar="SPEC", help="not ported yet (obs/slo.py)")
+    p.add_argument("--flight-recorder-spans", type=_not_ported(6, "0"),
+                   default=None, metavar="N",
+                   help="not ported yet (obs/recorder.py); 0 is accepted")
+    p.add_argument("--incident-dir", type=item6, default=None,
+                   metavar="DIR", help="not ported yet (obs/incident.py)")
+    p.add_argument("--tail-latency-ms", type=item6, default=None,
+                   metavar="MS", help="not ported yet (obs/recorder.py)")
+    p.add_argument("--telemetry-sample-interval",
+                   type=_not_ported(6, "0", "0.0"), default=None,
+                   metavar="SEC",
+                   help="not ported yet (obs/timeseries.py); 0 is "
+                   "accepted")
+    p.add_argument("--watch", action="append", type=item6, default=None,
+                   metavar="SPEC", help="not ported yet (obs/anomaly.py)")
+
+
+def _add_parallel_flags(p):
+    """The JAX mesh flags: one card needs no mesh, so only the values
+    that leave it off parse (parallel/ is ROADMAP Queue 1 item 7)."""
+    p.add_argument("--data-parallel", choices=("auto", "on", "off"),
+                   type=_not_ported(7, "auto", "off"),
+                   default="auto",
+                   help="auto or off (one card); on is not ported yet")
+    p.add_argument("--dispatch", choices=("auto", "gspmd", "shard_map"),
+                   type=_not_ported(7, "auto"), default="auto",
+                   help="auto (one card); gspmd and shard_map are not "
+                   "ported yet")
+
+
+class _Telemetry:
+    """The telemetry envelope of ``run`` and ``update``, as the JAX CLI
+    wires it: ``--metrics-dir``/``--events``/``--report`` enable the
+    registry (reset for this command) and the event log (``run_start``
+    here, ``run_end`` in :meth:`finish`); ``--trace-out`` installs a
+    span collector; the command's root span opens here. With every flag
+    off nothing is installed. :meth:`finish` leaves obs as it found it,
+    so a later command in the same process starts clean."""
+
+    def __init__(self, args, root: str, config=None, device="cpu"):
+        from heatmap_tpu_torch import obs
+        from heatmap_tpu_torch.obs import tracing
+
+        self.args = args
+        self.on = bool(args.metrics_dir or args.events
+                       or args.report is not None)
+        self.log = None
+        if self.on:
+            obs.get_registry().reset()
+            obs.enable_metrics(True)
+            if args.events:
+                self.log = obs.EventLog(args.events)
+                obs.set_event_log(self.log)
+                manifest = ({} if config is None else
+                            {k: (list(v) if isinstance(v, tuple) else v)
+                             for k, v in dataclasses.asdict(config).items()})
+                obs.emit("run_start", config=manifest, backend=args.backend,
+                         devices=obs.device_topology(device),
+                         argv=sys.argv[1:])
+        self.collector = None
+        if args.trace_out:
+            try:
+                self.collector = obs.enable_tracing(sample=args.trace_sample)
+            except ValueError as e:
+                raise SystemExit(f"--trace-sample: {e}") from e
+        self.root = tracing.begin_span(root)
+        self.t0 = time.perf_counter()
+
+    def finish(self, error=None, sample_memory=False, **end) -> float:
+        """Close the root span and write ``run_end`` (``end`` on
+        success, the error otherwise), metrics.prom, the report and the
+        trace. Returns the command's seconds."""
+        from heatmap_tpu_torch import obs
+        from heatmap_tpu_torch.obs import tracing
+        from heatmap_tpu_torch.utils.trace import get_tracer
+
+        dt = time.perf_counter() - self.t0
+        tracing.end_span(self.root)
+        args = self.args
+        if self.on:
+            if sample_memory:
+                obs.sample_device_memory()
+            if self.log is not None:
+                rec = {"status": "error" if error is not None else "ok",
+                       "seconds": round(dt, 3)}
+                if error is not None:
+                    rec["error"] = repr(error)
+                else:
+                    rec.update(end)
+                obs.emit("run_end", **rec)
+                obs.set_event_log(None)
+                self.log.close()
+            if args.metrics_dir:
+                obs.get_registry().write_prometheus(
+                    os.path.join(args.metrics_dir, "metrics.prom"))
+            if args.report is not None:
+                report = obs.build_run_report(
+                    tracer=get_tracer(), registry=obs.get_registry(),
+                    events_path=args.events)
+                obs.write_run_report(args.report, report)
+                print(obs.format_run_report(report), file=sys.stderr)
+            obs.enable_metrics(False)
+        if self.collector is not None:
+            n = self.collector.export_chrome(args.trace_out)
+            print(json.dumps({"trace_out": args.trace_out,
+                              "span_events": n,
+                              "dropped": self.collector.dropped}),
+                  file=sys.stderr)
+            obs.disable_tracing()
+        return dt
+
+
 BIN_BACKEND_HELP = (
     "binning path: auto (on the card, the histogram kernel for windows up "
     "to 256x256 cells and the partitioned kernel above; the plain scatter "
@@ -190,6 +355,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-bound", type=int, default=None, metavar="W",
                    help="weighted partitioned contract: every 'value' "
                    "is an integer in [0, W]")
+    _add_parallel_flags(p)
+    p.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler trace into "
+                   "LOGDIR/trace.json and print the span/throughput "
+                   "report to stderr")
+    _add_telemetry_flags(p)
+    _add_trace_flags(p)
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("tiles", help="points -> z/x/y PNG tile tree")
@@ -291,10 +463,225 @@ def build_parser() -> argparse.ArgumentParser:
     # info never runs the fail-fast probe; an explicit --device-timeout
     # is honored as the probe timeout (None = flag not given).
     p.set_defaults(fn=cmd_info, device_timeout=None)
+
+    p = sub.add_parser(
+        "update",
+        help="incremental update: journaled delta apply + compaction "
+        "against a delta store")
+    _add_backend_flags(p)
+    _add_update_flags(p)
+    p.set_defaults(fn=cmd_update)
+
+    p = sub.add_parser(
+        "retract",
+        help="predicate retraction against a delta store: journal scan "
+        "-> exact signed counter-batches")
+    _add_backend_flags(p)
+    _add_retract_flags(p)
+    p.set_defaults(fn=cmd_retract)
     return ap
 
 
+def _add_update_flags(p):
+    p.add_argument("--journal", required=True, metavar="ROOT",
+                   help="delta store root (journal/ + base + delta "
+                   "artifacts; created on first use; "
+                   "docs/incremental.md)")
+    p.add_argument("--input", default=None,
+                   help="source spec of NEW points to apply as one "
+                   "journaled delta batch")
+    p.add_argument("--retractions", default=None,
+                   help="source spec of points to RETRACT (a signed "
+                   "delta batch: their counts are subtracted)")
+    p.add_argument("--base", default=None, type=_sink_spec,
+                   metavar="arrays:DIR",
+                   help="adopt an existing columnar artifact as the "
+                   "store's initial base pyramid (copied in; only valid "
+                   "once)")
+    p.add_argument("--compact-after", type=int, default=None, metavar="N",
+                   help="fold the delta stack into a new base when more "
+                   "than N live deltas remain after this update (0 = "
+                   "compact whenever any delta is live)")
+    p.add_argument("--retention", type=int, default=2,
+                   help="journal entries kept after compaction as the "
+                   "idempotency window")
+    p.add_argument("--detail-zoom", type=int, default=21)
+    p.add_argument("--min-detail-zoom", type=int, default=5)
+    p.add_argument("--result-delta", type=int, default=5)
+    p.add_argument("--timespans", default="alltime")
+    p.add_argument("--batch-size", type=int, default=1 << 20)
+    p.add_argument("--weighted", action="store_true",
+                   help="sum the source's per-point 'value' column "
+                   "instead of counting points")
+    p.add_argument("--cascade-backend", default="auto",
+                   choices=("auto", "scatter", "partitioned"))
+    _add_parallel_flags(p)
+    _add_telemetry_flags(p)
+    item5 = _not_ported(5)
+    for flag in ("--bucket-width", "--bucket-fanout", "--bucket-keep",
+                 "--bucket-tiers", "--bucket-unit-s"):
+        p.add_argument(flag, type=item5, default=None,
+                       help="not ported yet (temporal/)")
+    _add_trace_flags(p)
+
+
+def cmd_update(args) -> int:
+    """Incremental update: journaled delta applies + optional compaction
+    against a delta store (heatmap_tpu_torch.delta). The applied batches
+    run the full cascade on the card (auto routing included) over just
+    the new points. Prints the JAX ``update``'s summary keys."""
+    from heatmap_tpu_torch import delta as delta_mod
+    from heatmap_tpu_torch.io import open_source
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    requested = tuple(t.strip() for t in args.timespans.split(",")
+                      if t.strip())
+    bad = [t for t in requested if t not in VALID_TYPES]
+    if bad:
+        raise SystemExit(
+            f"--timespans: unknown type(s) {bad}; valid: "
+            f"{', '.join(VALID_TYPES)}")
+    if not (args.input or args.retractions or args.base
+            or args.compact_after is not None):
+        raise SystemExit("nothing to do: pass --input and/or "
+                         "--retractions, --base, or --compact-after")
+    base_dir = None
+    if args.base:
+        if not args.base.startswith("arrays:"):
+            raise SystemExit("--base must be a columnar arrays:DIR "
+                             f"artifact, got {args.base!r}")
+        base_dir = args.base[len("arrays:"):]
+        if not os.path.isdir(base_dir):
+            raise SystemExit(f"--base: {base_dir!r} is not a directory")
+    config = None
+    device = _device(args)
+    if args.input or args.retractions:
+        if args.no_x64:
+            raise SystemExit(
+                "--no-x64: the composite-key cascade needs int64 keys; "
+                "drop --no-x64")
+        device = _init_backend(args)
+        try:
+            config = BatchJobConfig(
+                detail_zoom=args.detail_zoom,
+                min_detail_zoom=args.min_detail_zoom,
+                result_delta=args.result_delta,
+                timespans=requested,
+                weighted=args.weighted,
+                cascade_backend=args.cascade_backend,
+            )
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    tel = _Telemetry(args, "update", config, device)
+    summary = {"journal": args.journal}
+    try:
+        if base_dir is not None:
+            delta_mod.init_store(args.journal, base_dir)
+            summary["base_adopted"] = args.base
+        applied = []
+        jobs = [(args.input, 1)] if args.input else []
+        if args.retractions:
+            jobs.append((args.retractions, -1))
+        for spec, sign in jobs:
+            res = delta_mod.apply_batch(
+                args.journal, open_source(spec, read_value=args.weighted),
+                config, sign=sign, batch_size=args.batch_size,
+                device=device)
+            applied.append({
+                "input": spec, "epoch": res.epoch, "points": res.points,
+                "sign": res.sign, "duplicate": res.duplicate,
+                "rows": res.rows,
+                "affected_keys": len(res.affected_keys),
+            })
+        if applied:
+            summary["applied"] = applied
+        live = len(delta_mod.live_entries(args.journal))
+        if args.compact_after is not None and live > args.compact_after:
+            comp = delta_mod.compact(args.journal,
+                                     retention=args.retention)
+            summary["compaction"] = {
+                k: comp.get(k) for k in ("status", "base",
+                                         "applied_through", "rows",
+                                         "pruned_entries")}
+            live = len(delta_mod.live_entries(args.journal))
+        summary["live_deltas"] = live
+    except (ValueError, NotImplementedError) as e:
+        # Config mismatch, double --base, an unported store feature:
+        # operator errors, one line.
+        tel.finish(error=e)
+        raise SystemExit(str(e)) from e
+    except BaseException as e:  # run_end must record it
+        tel.finish(error=e)
+        raise
+    seconds = tel.finish(
+        rows=int(sum(a["rows"] for a in summary.get("applied", []))))
+    summary["seconds"] = round(seconds, 3)
+    print(json.dumps(summary))
+    return 0
+
+
+def _add_retract_flags(p):
+    p.add_argument("--journal", required=True, metavar="ROOT",
+                   help="delta store root whose journal is scanned")
+    p.add_argument("--where", action="append", default=[],
+                   metavar="COL=VALUE",
+                   help="equality clause on a point column (repeatable; "
+                   "clauses AND). Columns: user/user_id, source, "
+                   "timestamp, latitude, longitude, value")
+    p.add_argument("--layer", default=None, metavar="USER",
+                   help="shorthand for --where user=USER (the serve "
+                   "tier's layer name)")
+    p.add_argument("--batch-size", type=int, default=1 << 20)
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append structured events to PATH "
+                   "(retraction_applied, delta_applied)")
+
+
+def cmd_retract(args) -> int:
+    """Predicate retraction (delta/retract.py): scan the journal's point
+    payloads for rows matching every --where clause, net them as a
+    signed multiset, and apply exact sign=-1 counter-batches on the
+    card, so the store converges to a clean recompute over the
+    surviving points. Prints the JAX ``retract``'s summary keys."""
+    from heatmap_tpu_torch import obs
+    from heatmap_tpu_torch.delta import retract as retract_mod
+
+    if args.no_x64:
+        raise SystemExit("--no-x64: the composite-key cascade needs int64 "
+                         "keys; drop --no-x64")
+    device = _init_backend(args)
+    pairs = list(args.where or [])
+    if args.layer:
+        pairs.append(f"user={args.layer}")
+    try:
+        where = retract_mod.parse_where(pairs)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    log = None
+    if args.events:
+        log = obs.EventLog(args.events)
+        obs.set_event_log(log)
+    try:
+        summary = retract_mod.retract_predicate(
+            args.journal, where, batch_size=args.batch_size, device=device)
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(str(e)) from e
+    finally:
+        if log is not None:
+            obs.set_event_log(None)
+            log.close()
+    out = {k: v for k, v in summary.items() if k != "results"}
+    out["journal"] = args.journal
+    out["where"] = {k: str(v) for k, v in sorted(where.items())}
+    out["seconds"] = round(out["seconds"], 3)
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_run(args) -> int:
+    import contextlib
+
+    from heatmap_tpu_torch import obs
     from heatmap_tpu_torch.io import open_sink, open_source
     from heatmap_tpu_torch.pipeline.batch import (
         BatchJobConfig,
@@ -302,6 +689,7 @@ def cmd_run(args) -> int:
         run_job_fast,
         run_job_resumable,
     )
+    from heatmap_tpu_torch.utils.trace import get_tracer, torch_profile
 
     if args.no_x64:
         # The JAX package's run ends the same way, with exit code 1
@@ -344,31 +732,49 @@ def cmd_run(args) -> int:
         raise SystemExit("--fast and --no-fast are mutually exclusive")
     _init_backend(args)
     fast_source = _fast_source(args)
-    t0 = time.perf_counter()
-    with open_sink(args.output) as sink:
-        if fast_source is not None:
-            blobs = run_job_fast(
-                fast_source, sink, config, batch_size=args.batch_size,
-                checkpoint_dir=args.checkpoint_dir,
-                checkpoint_every=args.checkpoint_every,
-                max_points_in_flight=args.max_points_in_flight,
-                merge_spill_dir=args.merge_spill_dir, device=args.device)
-        elif args.checkpoint_dir:
-            blobs = run_job_resumable(
-                open_source(args.input, read_value=args.weighted),
-                args.checkpoint_dir, sink, config,
-                batch_size=args.batch_size,
-                checkpoint_every=args.checkpoint_every, device=args.device)
-        else:
-            blobs = run_job(
-                open_source(args.input, read_value=args.weighted), sink,
-                config, batch_size=args.batch_size,
-                max_points_in_flight=args.max_points_in_flight,
-                merge_spill_dir=args.merge_spill_dir, device=args.device)
-    summary = {"seconds": round(time.perf_counter() - t0, 3),
-               "output": args.output,
+    tel = _Telemetry(args, "run", config, args.device)
+    prof = (torch_profile(args.profile) if args.profile
+            else contextlib.nullcontext())
+    try:
+        with prof, open_sink(args.output) as sink:
+            if fast_source is not None:
+                blobs = run_job_fast(
+                    fast_source, sink, config, batch_size=args.batch_size,
+                    checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_every=args.checkpoint_every,
+                    max_points_in_flight=args.max_points_in_flight,
+                    merge_spill_dir=args.merge_spill_dir,
+                    device=args.device)
+            elif args.checkpoint_dir:
+                blobs = run_job_resumable(
+                    open_source(args.input, read_value=args.weighted),
+                    args.checkpoint_dir, sink, config,
+                    batch_size=args.batch_size,
+                    checkpoint_every=args.checkpoint_every,
+                    device=args.device)
+            else:
+                blobs = run_job(
+                    open_source(args.input, read_value=args.weighted),
+                    sink, config, batch_size=args.batch_size,
+                    max_points_in_flight=args.max_points_in_flight,
+                    merge_spill_dir=args.merge_spill_dir,
+                    device=args.device)
+    except BaseException as e:  # run_end must record it
+        tel.finish(error=e, sample_memory=True)
+        raise
+    levels = blobs.get("egress") == "levels"
+    if levels:
+        end = {"levels": blobs["levels"], "rows": blobs["rows"]}
+    else:
+        end = {"blobs": len(blobs)}
+        if tel.log is not None:
+            end["checksum"] = obs.blob_checksum(blobs)
+    seconds = tel.finish(sample_memory=True, **end)
+    if args.profile:
+        print(get_tracer().format_report(), file=sys.stderr)
+    summary = {"seconds": round(seconds, 3), "output": args.output,
                "ingest": "fast" if fast_source is not None else "standard"}
-    if blobs.get("egress") == "levels":
+    if levels:
         summary["levels"] = blobs["levels"]
         summary["rows"] = blobs["rows"]
     else:

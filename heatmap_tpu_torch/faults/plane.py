@@ -19,9 +19,10 @@ Rule shapes: count rules fail the first N matching checks
 (``spacing=1``) or every K-th check until N fired (``spacing=K``);
 probability rules fire when a seeded hash of the check index lands under
 ``p``. Checks run before the guarded operation touches anything, so
-retrying after an injected fault is idempotent by construction. The
-telemetry hooks of the JAX package (fault events and counters, trace
-ids) are left out with its obs core.
+retrying after an injected fault is idempotent by construction. Every
+fired fault is recorded through ``obs.record_fault`` (a
+``fault_injected`` event and the ``faults_injected_total{site}``
+counter).
 """
 
 from __future__ import annotations
@@ -58,12 +59,21 @@ _SITE_SET = frozenset(SITES)
 
 
 class InjectedFault(RuntimeError):
-    """A fault fired by the injection plane (transient by design)."""
+    """A fault fired by the injection plane (transient by design).
+
+    ``trace_id`` is the ambient trace at injection time (None with
+    tracing off), the identity obs.events stamps on the matching
+    ``fault_injected`` event.
+    """
 
     def __init__(self, site: str, key=None, seq: int = 0):
         self.site = site
         self.key = key
         self.seq = seq
+        from heatmap_tpu_torch.obs import tracing
+
+        ids = tracing.current_ids()
+        self.trace_id = ids[0] if ids else None
         at = f"{site}@{key}" if key is not None else site
         super().__init__(f"injected fault #{seq} at {at}")
 
@@ -156,12 +166,16 @@ class FaultPlane:
                     if rule.left <= 0 or n % rule.spacing:
                         continue
                     rule.left -= 1
-                fired = self._seq
+                fired = (self._seq, rule.describe())
                 self._seq += 1
                 self._counts[site] = self._counts.get(site, 0) + 1
                 break
         if fired is not None:
-            raise InjectedFault(site, key, fired)
+            seq, rule_desc = fired
+            from heatmap_tpu_torch import obs
+
+            obs.record_fault(site, seq, key=key, rule=rule_desc)
+            raise InjectedFault(site, key, seq)
 
     @property
     def injected(self) -> int:

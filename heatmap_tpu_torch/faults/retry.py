@@ -16,8 +16,8 @@ injected fault never leaves a half-executed write behind.
 ``retry_call`` guards one operation. ``resumable_iter`` guards a whole
 deterministic stream: on a transient mid-stream failure it rebuilds the
 iterator and skips the prefix already delivered; its
-consecutive-failure budget resets whenever an item is delivered. The
-JAX package's retry counters are left out with its obs core.
+consecutive-failure budget resets whenever an item is delivered. Each
+retry counts in ``io_retries_total{site}``.
 """
 
 from __future__ import annotations
@@ -223,6 +223,9 @@ def retry_call(fn, *args, site: str, key=None,
             if (policy.deadline_s is not None
                     and clock() - start >= policy.deadline_s):
                 raise
+            from heatmap_tpu_torch import obs
+
+            obs.record_io_retry(site)
             sleep_backoff(site, key, attempt,
                           base_s=policy.base_s, cap_s=policy.cap_s)
 
@@ -290,5 +293,8 @@ def resumable_iter(make_iter, *, site: str, key=None,
             if (policy.deadline_s is not None
                     and now - window_start >= policy.deadline_s):
                 raise
+            from heatmap_tpu_torch import obs
+
+            obs.record_io_retry(site)
             sleep_backoff(site, key, attempt,
                           base_s=policy.base_s, cap_s=policy.cap_s)

@@ -17,7 +17,7 @@ from typing import Iterable
 
 import numpy as np
 
-from heatmap_tpu_torch import faults
+from heatmap_tpu_torch import faults, obs
 from heatmap_tpu_torch.io.png import raster_to_png
 
 
@@ -183,15 +183,22 @@ class LevelArraysSink:
     ``LevelArraysSink`` writes. ``format`` is ``"npz"`` (plain savez),
     ``"npz-compressed"`` or ``"parquet"`` (``arrays-parquet:DIR``;
     pyarrow, one ``level_z{zoom}.parquet`` with native dictionary
-    columns ``user``/``timespan`` and per-row zoom columns); the JAX
-    package's synopsis, integral and tilefs side artifacts are not
-    ported. Each level is written to a temporary file and renamed into
-    place, under the ``sink.write`` fault site, so a rerun upserts whole
-    levels.
+    columns ``user``/``timespan`` and per-row zoom columns). Each level
+    is written to a temporary file and renamed into place, under the
+    ``sink.write`` fault site, so a rerun upserts whole levels.
+
+    ``synopses`` and ``integrals`` also publish the wavelet
+    ``synopsis-z*.npz`` and summed-area ``integral-z*.npz`` side
+    artifacts of the coarse levels, the JAX package's bytes (delta
+    compaction sets both). The ``arrays-synopsis:`` and
+    ``arrays-integral:`` sink specs and the tilefs mirrors wait for
+    ROADMAP Queue 1 items 5 and 6.
     """
 
     path: str
     format: str = "npz"
+    synopses: bool = False
+    integrals: bool = False
 
     #: Per-row columns (user/timespan dictionary-encoded).
     COLUMNS = ("row", "col", "value", "user_idx", "timespan_idx",
@@ -206,6 +213,8 @@ class LevelArraysSink:
 
     def write_levels(self, levels) -> int:
         rows = 0
+        if self.synopses or self.integrals:
+            levels = list(levels)  # consumed twice: levels + derived
         for lvl in levels:
             out = {k: np.asarray(lvl[k]) for k in self.COLUMNS}
             out["zoom"] = np.asarray(lvl["zoom"])
@@ -228,6 +237,19 @@ class LevelArraysSink:
 
             faults.retry_call(_publish_level, site="sink.write", key="arrays")
             rows += len(out["value"])
+            if obs.metrics_enabled():
+                obs.SINK_ROWS.inc(len(out["value"]), sink="arrays")
+                obs.SINK_BYTES.inc(os.path.getsize(final), sink="arrays")
+        if self.synopses:
+            from heatmap_tpu_torch.synopsis import write_synopses
+
+            write_synopses(self.path,
+                           {int(lvl["zoom"]): lvl for lvl in levels})
+        if self.integrals:
+            from heatmap_tpu_torch.analytics import write_integrals
+
+            write_integrals(self.path,
+                            {int(lvl["zoom"]): lvl for lvl in levels})
         return rows
 
     def write(self, records):

@@ -15,11 +15,13 @@ runtime that the JAX package loads:
   (native/staging.cpp).
 
 Nothing happens at import. The first call that needs the library (or
-``available()``) runs ``make -C native`` from the sources in this
-checkout, under an exclusive file lock so that parallel processes build
-it once, and loads ``native/build/libheatmap_native.so``. Without a
-toolchain or the sources ``available()`` is False, the bound functions
-raise, and callers take their numpy paths.
+``available()``) runs ``make -C native BUILD=build/torch_kernels/native``
+from the sources in this checkout, under an exclusive file lock so that
+parallel processes build it once, and loads the library from that
+directory. The port never reads ``native/build/``: the JAX package
+builds there at import without a lock, so a library found there may be
+half written. Without a toolchain or the sources ``available()`` is
+False, the bound functions raise, and callers take their numpy paths.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import numpy as np
 
 from heatmap_tpu_torch.pipeline.timespan import TS_MISSING
 
-NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_DIR = os.path.join(_ROOT, "native")
+BUILD_DIR = os.path.join(_ROOT, "build", "torch_kernels", "native")
 LIB_NAME = "libheatmap_native.so"
 
 _load_lock = threading.Lock()
@@ -49,23 +52,26 @@ _c_i32 = ctypes.POINTER(ctypes.c_int32)
 _c_u8 = ctypes.POINTER(ctypes.c_uint8)
 
 
-def build(native_dir: str = NATIVE_DIR) -> str | None:
-    """Run ``make -C native_dir`` under an exclusive lock on
-    ``native_dir/build/.build.lock``; returns the library's path, or
-    None when the build failed or there is nothing to build.
+def build(native_dir: str = NATIVE_DIR,
+          build_dir: str = BUILD_DIR) -> str | None:
+    """Run ``make -C native_dir BUILD=build_dir`` under an exclusive lock
+    on ``build_dir/.build.lock``; returns the library's path, or None
+    when the build failed or there is nothing to build.
 
     The lock serialises every process that builds through this function:
     the first one compiles, and the others then find the library up to
-    date and compile nothing.
+    date and compile nothing. ``build_dir`` is the port's own, so no
+    unlocked writer shares it.
     """
     if not os.path.isfile(os.path.join(native_dir, "Makefile")):
         return None
-    build_dir = os.path.join(native_dir, "build")
+    build_dir = os.path.abspath(build_dir)
     os.makedirs(build_dir, exist_ok=True)
     with open(os.path.join(build_dir, ".build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            rc = subprocess.call(["make", "-C", native_dir],
+            rc = subprocess.call(["make", "-C", native_dir,
+                                  f"BUILD={build_dir}"],
                                  stdout=subprocess.DEVNULL,
                                  stderr=subprocess.DEVNULL)
         except OSError:
@@ -121,9 +127,7 @@ def _declare(lib) -> None:
 def _load():
     path = build()
     if path is None:
-        path = os.path.join(NATIVE_DIR, "build", LIB_NAME)
-        if not os.path.exists(path):
-            return None
+        return None
     try:
         lib = ctypes.CDLL(path)
     except OSError:

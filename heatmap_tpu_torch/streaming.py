@@ -29,6 +29,7 @@ import math
 import numpy as np
 import torch
 
+from heatmap_tpu_torch import obs
 from heatmap_tpu_torch.devices import resolve_device
 from heatmap_tpu_torch.ops.histogram import Window, bin_points_window
 
@@ -159,6 +160,10 @@ class HeatmapStream:
         )
         self.t = t
         self.n_batches += 1
+        if obs.metrics_enabled():
+            obs.STREAM_POINTS.inc(int(n))
+            obs.STREAM_BATCHES.inc()
+            obs.STREAM_TIME.set(float(t))
         return self
 
     def snapshot(self) -> np.ndarray:
@@ -245,9 +250,13 @@ class HeatmapStream:
 
 
 def default_stream_hook(stream: HeatmapStream, t: float):
-    """The default ``on_batch`` of :func:`run_stream`: a no-op. The JAX
-    package records per-tick telemetry here; the port's obs counters are
-    not ported yet."""
+    """The default ``on_batch`` of :func:`run_stream`: per-tick
+    telemetry (``ingest.metrics.record_stream_tick``), a no-op unless a
+    metrics sink is enabled. It does not snapshot the raster, which
+    would be a device-to-host copy a tick."""
+    from heatmap_tpu_torch.ingest.metrics import record_stream_tick
+
+    record_stream_tick(t)
 
 
 def run_stream(stream: HeatmapStream, timed_batches, *, on_batch=None):

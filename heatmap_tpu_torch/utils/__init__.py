@@ -6,6 +6,7 @@ from heatmap_tpu_torch.utils.checkpoint import (  # noqa: F401
     CheckpointManager,
     fsync_dir,
     load_checkpoint,
+    publish_dir,
     save_checkpoint,
 )
 from heatmap_tpu_torch.utils.recovery import FaultInjector  # noqa: F401

@@ -10,6 +10,8 @@ source on failure (reference heatmap.py:113-116,150).
   a truncated checkpoint behind.
 - ``CheckpointManager`` numbers checkpoints by step, finds the latest,
   and prunes old ones (keep-N retention).
+- ``publish_dir`` is the directory-shaped counterpart of
+  ``save_checkpoint`` (delta compaction publishes bases with it).
 """
 
 from __future__ import annotations
@@ -42,6 +44,33 @@ def fsync_dir(path: str):
         pass
     finally:
         os.close(fd)
+
+
+def publish_dir(tmp_path: str, final_path: str):
+    """Durably publish a staged directory: fsync every file it holds,
+    rename ``tmp_path`` -> ``final_path``, then fsync the parent so the
+    rename itself is on disk — the directory-shaped counterpart of
+    ``save_checkpoint``'s tmp+fsync+replace contract. ``final_path``
+    must not exist (a recovery sweep quarantines stale orphans first;
+    see delta/recover.py) — checked explicitly, because POSIX rename
+    onto an empty directory would silently succeed."""
+    if os.path.exists(final_path):
+        raise FileExistsError(
+            f"publish target {final_path!r} already exists; run the "
+            "recovery sweep (delta/recover.py) to quarantine it first")
+    for dirpath, dirnames, filenames in os.walk(tmp_path):
+        for name in sorted(filenames):
+            full = os.path.join(dirpath, name)
+            fd = os.open(full, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        for name in sorted(dirnames):
+            fsync_dir(os.path.join(dirpath, name))
+    fsync_dir(tmp_path)
+    os.rename(tmp_path, final_path)
+    fsync_dir(os.path.dirname(os.path.abspath(final_path)))
 
 
 def save_checkpoint(path: str, arrays: dict, meta: dict | None = None):

@@ -10,15 +10,40 @@ record into it (``ingest.batch``, ``cascade.chunk``, ``merge.chunk``,
 Spans measure the host's clock. Device work inside a span is counted
 only as far as the host waited for it; ``devices.StageTimer`` is the
 fenced per-stage split. ``stage_span`` opens a span only while stage
-tracing is on and costs a nullcontext otherwise. The JAX package's
-telemetry hooks and its ``jax_profile`` are left out with its obs core.
+tracing is on and costs a nullcontext otherwise.
+
+Closed spans of the default tracer also feed the telemetry core
+(heatmap_tpu_torch/obs): a ``stage_duration_seconds`` sample and a
+``stage_end`` event, both no-ops unless a metrics sink or an event log
+is configured, and a node of the span tree while ``obs.enable_tracing``
+has hooked it in. ``torch_profile(logdir)`` is the port's twin of the
+JAX package's ``jax_profile`` (``run --profile LOGDIR``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
+
+_obs = None  # imported at the first span close, not with this module
+
+# Span-tree hooks, installed by obs.tracing.enable_tracing (and removed
+# by disable_tracing). While set, every default-tracer span also opens a
+# node in the hierarchical trace; with tracing off the cost is one
+# global read.
+_tree_begin = None
+_tree_end = None
+
+
+def _obs_record(name: str, wall_s: float, items, attrs: dict):
+    global _obs
+    if _obs is None:
+        from heatmap_tpu_torch import obs
+
+        _obs = obs
+    _obs.record_stage(name, wall_s, items=items, **attrs)
 
 
 class _SpanStats:
@@ -37,6 +62,9 @@ class Tracer:
     def __init__(self):
         self._lock = threading.Lock()
         self._stats: dict[str, _SpanStats] = {}
+        # Set by torch_profile when the profiler cannot start; surfaced
+        # in obs.report.build_run_report's warnings.
+        self.profiler_warning: str | None = None
 
     def _stat(self, name: str) -> _SpanStats:
         s = self._stats.get(name)
@@ -46,8 +74,12 @@ class Tracer:
 
     @contextlib.contextmanager
     def span(self, name: str, items: int | None = None, **attrs):
-        """Time the body under ``name``. Keyword ``attrs`` are accepted
-        for call-site parity with the JAX package and not recorded."""
+        """Time the body under ``name``. Keyword ``attrs`` (e.g.
+        ``backend="partitioned"``) ride along on the stage_end event when
+        an event log is installed."""
+        begin = _tree_begin
+        tree_span = (begin(name, attrs or None)
+                     if begin is not None and self is _default else None)
         t0 = time.perf_counter()
         try:
             yield self
@@ -60,6 +92,14 @@ class Tracer:
                 s.max_s = max(s.max_s, dt)
                 if items:
                     s.items += int(items)
+            if self is _default:
+                # stage_end emits while the tree span is still ambient,
+                # so the event carries this span's identity.
+                _obs_record(name, dt, items, attrs)
+            if tree_span is not None:
+                end = _tree_end
+                if end is not None:  # may be unhooked mid-span in tests
+                    end(tree_span)
 
     def add_items(self, name: str, n: int):
         """Attribute ``n`` processed items to ``name`` (throughput)."""
@@ -84,6 +124,7 @@ class Tracer:
     def reset(self):
         with self._lock:
             self._stats.clear()
+            self.profiler_warning = None
 
     def format_report(self) -> str:
         lines = []
@@ -131,3 +172,46 @@ def stage_span(name: str, items: int | None = None, **attrs):
     if not _stage_tracing:
         return contextlib.nullcontext()
     return _default.span(name, items=items, **attrs)
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: str):
+    """Capture a ``torch.profiler`` trace of the body (host ops and, on a
+    card, its kernels) into ``logdir/trace.json``, a Chrome/Perfetto
+    trace-event file.
+
+    When the profiler cannot start or write, the body still runs: the
+    failure is recorded on ``get_tracer().profiler_warning`` and, when an
+    event log is installed, as a ``profiler_unavailable`` event; both
+    surface in the run report's warnings.
+    """
+    import torch
+
+    from heatmap_tpu_torch.obs import events
+
+    def _unavailable(e):
+        _default.profiler_warning = (
+            f"torch profiler unavailable ({type(e).__name__}: {e}); "
+            f"no trace written to {logdir}")
+        events.emit("profiler_unavailable", error=repr(e),
+                    logdir=str(logdir))
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        prof.__enter__()
+    except (RuntimeError, OSError) as e:
+        _unavailable(e)
+        prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                os.makedirs(logdir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+            except (RuntimeError, OSError) as e:
+                _unavailable(e)

@@ -235,7 +235,12 @@ def test_import_hygiene():
          "heatmap_tpu_torch.ops.partitioned, heatmap_tpu_torch.ops.pyramid, "
          "heatmap_tpu_torch.ops.splat, heatmap_tpu_torch.tilemath.tile, "
          "heatmap_tpu_torch.streaming, heatmap_tpu_torch.ingest, "
-         "heatmap_tpu_torch.io.merge, heatmap_tpu_torch.io.sources, sys; "
+         "heatmap_tpu_torch.io.merge, heatmap_tpu_torch.io.sources, "
+         "heatmap_tpu_torch.obs, heatmap_tpu_torch.obs.report, "
+         "heatmap_tpu_torch.delta, heatmap_tpu_torch.delta.recover, "
+         "heatmap_tpu_torch.delta.retract, heatmap_tpu_torch.delta.metrics, "
+         "heatmap_tpu_torch.synopsis, heatmap_tpu_torch.analytics, "
+         "heatmap_tpu_torch.tilefs, heatmap_tpu_torch.ingest.metrics, sys; "
          "assert 'jax' not in sys.modules, 'jax imported'; "
          "assert 'heatmap_tpu' not in sys.modules, 'heatmap_tpu imported'"],
         cwd=REPO, capture_output=True, text=True, timeout=120)

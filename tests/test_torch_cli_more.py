@@ -8,6 +8,7 @@ refusals. Both CLIs run in this process unless the test needs a fresh
 one (the JAX package's 64-bit mode is process-wide)."""
 
 import csv
+import importlib
 import json
 import os
 import pathlib
@@ -34,6 +35,24 @@ from heatmap_tpu_torch.io import LevelArraysSink, ParquetSource, open_source
 from heatmap_tpu_torch.io import SyntheticSource
 from heatmap_tpu_torch.ops import pyramid as tpyramid
 from heatmap_tpu_torch.pipeline import batch as tbatch
+from heatmap_tpu_torch import native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX reference with its native library. heatmap_tpu.native
+    builds at import without a lock, so under ``pytest -n`` on a fresh
+    checkout a worker can lose that race and import it without its
+    library; it then loads the port's locked build instead (also what
+    ``python -m heatmap_tpu`` subprocesses of this module load)."""
+    from heatmap_tpu import native as jnative
+
+    if jnative._lib is None:
+        path = native.build()
+        assert path, "the native library does not build"
+        os.environ["HEATMAP_TPU_NATIVE_LIB"] = path
+        importlib.reload(jnative)
+    assert jnative.available()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 STREAM = ["--batch-points", "2048", "--interval", "600", "--half-life", "1200",

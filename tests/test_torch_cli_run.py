@@ -6,7 +6,9 @@ same HMPB bytes; ``arrays:`` output; and the flag conflicts exiting
 non-zero before any work."""
 
 import csv
+import importlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -17,6 +19,24 @@ import pytest
 from heatmap_tpu.io.sources import SyntheticSource as JaxSyntheticSource
 from heatmap_tpu_torch import cli
 from heatmap_tpu_torch.io import LevelArraysSink
+from heatmap_tpu_torch import native
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX reference with its native library. heatmap_tpu.native
+    builds at import without a lock, so under ``pytest -n`` on a fresh
+    checkout a worker can lose that race and import it without its
+    library; it then loads the port's locked build instead (also what
+    ``python -m heatmap_tpu`` subprocesses of this module load)."""
+    from heatmap_tpu import native as jnative
+
+    if jnative._lib is None:
+        path = native.build()
+        assert path, "the native library does not build"
+        os.environ["HEATMAP_TPU_NATIVE_LIB"] = path
+        importlib.reload(jnative)
+    assert jnative.available()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CFG = ["--detail-zoom", "12", "--min-detail-zoom", "6",

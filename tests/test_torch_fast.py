@@ -8,7 +8,9 @@ are byte-identical; fractional weighted sums within ``rtol=1e-12``."""
 
 import csv
 import functools
+import importlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -23,6 +25,23 @@ from heatmap_tpu_torch.io import CSVSource, SyntheticSource
 from heatmap_tpu_torch.io import hmpb as thmpb
 from heatmap_tpu_torch.pipeline import batch as tbatch
 from heatmap_tpu_torch.utils import FaultInjector
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX reference with its native library. heatmap_tpu.native
+    builds at import without a lock, so under ``pytest -n`` on a fresh
+    checkout a worker can lose that race and import it without its
+    library; it then loads the port's locked build instead (also what
+    ``python -m heatmap_tpu`` subprocesses of this module load)."""
+    from heatmap_tpu import native as jnative
+
+    if jnative._lib is None:
+        path = native.build()
+        assert path, "the native library does not build"
+        os.environ["HEATMAP_TPU_NATIVE_LIB"] = path
+        importlib.reload(jnative)
+    assert jnative.available()
 
 N = 1500
 SMALL = {"detail_zoom": 12, "min_detail_zoom": 6}

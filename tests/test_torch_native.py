@@ -6,6 +6,7 @@ int32-slot guard); the ``TS_MISSING`` agreement; the CSV decoder; the
 staging pool; and the locked build, which parallel first users run
 once."""
 
+import importlib
 import json
 import os
 import shutil
@@ -24,6 +25,20 @@ from heatmap_tpu_torch.pipeline.timespan import TS_MISSING
 from heatmap_tpu_torch.tilemath import morton
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX reference's bindings, loaded. heatmap_tpu.native builds at
+    import without a lock, so under ``pytest -n`` on a fresh checkout a
+    worker can lose that race and import it without its library; it
+    then loads the port's locked build (``HEATMAP_TPU_NATIVE_LIB``)."""
+    if jnative._lib is None:
+        path = native.build()
+        assert path, "the native library does not build"
+        os.environ["HEATMAP_TPU_NATIVE_LIB"] = path
+        importlib.reload(jnative)
+    assert jnative.available()
 
 
 def test_available_and_ts_missing_agree():
@@ -222,16 +237,19 @@ def test_locked_build_runs_once_under_parallel_first_users(tmp_path):
     cxx = tmp_path / "cxx.sh"
     cxx.write_text(f"#!/bin/sh\necho x >> {count}\nexec g++ \"$@\"\n")
     cxx.chmod(cxx.stat().st_mode | stat.S_IEXEC)
+    out = tmp_path / "out"
     code = ("import ctypes, sys; from heatmap_tpu_torch import native; "
-            "p = native.build(sys.argv[1]); assert p, 'build failed'; "
-            "ctypes.CDLL(p).hm_ts_missing")
+            "p = native.build(sys.argv[1], sys.argv[2]); "
+            "assert p, 'build failed'; ctypes.CDLL(p).hm_ts_missing")
     env = dict(os.environ, CXX=str(cxx))
-    procs = [subprocess.Popen([sys.executable, "-c", code, str(src)],
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(src),
+                               str(out)],
                               cwd=REPO, env=env, stderr=subprocess.PIPE)
              for _ in range(4)]
     errs = [p.communicate(timeout=300)[1] for p in procs]
     assert [p.returncode for p in procs] == [0] * 4, errs
     assert count.read_text().split() == ["x"]
-    assert (src / "build" / native.LIB_NAME).exists()
+    assert (out / native.LIB_NAME).exists()
+    assert not (src / "build").exists()
     # No toolchain sources: no library, and no exception.
     assert native.build(str(tmp_path / "missing")) is None
