@@ -39,6 +39,17 @@ just before it and read just after:
   through a CSV (bit-equal to the uninterrupted run); each against the
   same run on the CPU (bit-equal without decay, within STREAM_RTOL with
   it), and a twin of ``tools/bench_stream.py`` per binning backend;
+- the delta store through ``update`` and ``retract`` (a 4M-point base,
+  262,144-point increments, a duplicate, retractions, a compaction),
+  checked against a one-shot run over the surviving points and against
+  the same sequence on the CPU (16 segment-reduce launches per applied
+  batch);
+- the ``ingest`` command at its defaults over 1M synthetic points (64
+  ticks, 4 compactions), onto the delta phase's store, replayed as
+  duplicates, partly retracted, with every telemetry flag on, and
+  weighted on the card and the CPU: each store checked against a
+  one-shot run, the exact-padded synchronous drain and each other (16
+  launches per applied tick, none per duplicate);
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -119,13 +130,42 @@ N_DELTA_INC = 1 << 18
 N_DELTA_SMALL_BASE = 200_000
 N_DELTA_SMALL_INC = 1 << 14
 DELTA_USER = "user-3"
+#: The ingest phase: the ``ingest`` command's defaults (16,384-point
+#: micro-batches, queue depth 4, feed depth 1, pow2 padding over a 4,096
+#: floor, compaction every 16 live deltas, retention 2) over
+#: ``synthetic:N_INGEST:7``. The drains held against it (exact padding
+#: without queue or feeder, telemetry on) and the replay run its first
+#: INGEST_CUT_TICKS ticks (up to and through the first compaction) or
+#: the INGEST_CUT_TICKS - 1 before it: past a compaction, retention 2
+#: keeps only the two newest folded batches' hashes, so a replay of
+#: older ticks would apply them again. (b) runs INGEST_B_TICKS ticks
+#: onto the delta phase's store; (d) retracts the first
+#: N_INGEST_RETRACT points; (f) drains N_INGEST_WEIGHTED weighted points.
+N_INGEST = 1 << 20
+INGEST_SEED = 7
+INGEST_MICRO = 1 << 14
+INGEST_CUT_TICKS = 16
+INGEST_B_TICKS = 8
+N_INGEST_RETRACT = 1 << 18
+N_INGEST_WEIGHTED = 1 << 16
+#: Points of the segment reduce's padded-tick case: 2 emissions per
+#: kept point fill a little over half of the pow2 bucket, so 40-50% of
+#: the sorted lanes are the sentinel tail.
+INGEST_PAD_POINTS = 9600
 #: One z8 tile (256 x 256 cells at z16) east of the synthetic hot spot:
 #: the tiles command's window-histogram case.
 SMALL_TILES_BOUNDS = ("--lat-min", "47.1", "--lat-max", "47.95",
                       "--lon-min", "-122.33", "--lon-max", "-121.0")
 
 
+#: The script's start: each phase line carries its end as ``at_s``
+#: seconds after it, so the phases' durations read off the output.
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -225,6 +265,39 @@ def main_path_keys(n, dev):
     return skeys, data, n_slots
 
 
+def ingest_tick_keys(points, dev):
+    """A real ingest tick's segment-reduce input: the first ``points``
+    of the ingest phase's source through the batch job's emissions,
+    padded to the pow2 bucket as ``pipeline.batch._run_grouped`` pads
+    them, as sorted composite keys with integer weights sorted beside
+    them (pad lanes weigh 0). Returns (keys, weights, sentinel share)."""
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.pipeline import batch as B
+    from heatmap_tpu_torch.pipeline import bucketing
+    from heatmap_tpu_torch.pipeline.cascade import composite_keys
+    from heatmap_tpu_torch.pipeline.groups import UserVocab
+
+    cfg = B.BatchJobConfig(pad_bucketing="pow2")
+    data = B.ingest_columns(
+        SyntheticSource(n=points, seed=INGEST_SEED).batches(points), cfg)
+    group_ids = UserVocab().group_ids(data["user_id"])
+    codes, valid = B.project_codes(data["latitude"], data["longitude"],
+                                   cfg.detail_zoom, dev)
+    rng = np.random.default_rng([INGEST_SEED, points])
+    w = torch.as_tensor(rng.integers(0, WEIGHT_BOUND + 1, len(group_ids))
+                        .astype(np.float64), device=dev)
+    e_codes, e_slots, e_valid, ts_vocab, n_groups, e_w = B.build_emissions(
+        codes, valid, group_ids, data["timestamp"], cfg, weights=w)
+    target = bucketing.bucket_size(len(e_codes), "pow2", cfg.pad_bucket_min)
+    e_codes, e_slots, e_valid, e_w = bucketing.pad_emissions(
+        e_codes, e_slots, e_valid, e_w, target)
+    n_slots = bucketing.bucket_slots(len(ts_vocab) * n_groups)
+    ck = composite_keys(e_codes, e_slots, cfg.detail_zoom, n_slots)
+    skeys, order = torch.sort(torch.where(e_valid, ck, SENTINEL))
+    tail = int((skeys == SENTINEL).sum()) / target
+    return skeys, e_w[order], tail
+
+
 def phase_device():
     from heatmap_tpu_torch import _build
 
@@ -320,6 +393,25 @@ def phase_kernel(dev):
                             sorted_weights=bad, weight_bound=WEIGHT_BOUND)
                 assert int(got[2]) > capacity
 
+    # A real ingest tick's keys, padded to its pow2 bucket as the ingest
+    # path pads them (pad lanes sort to the sentinel tail), counts and
+    # bounded-integer weights: a default 16,384-point tick and one whose
+    # sentinel tail is 40-50% of the lanes.
+    padded_ticks = []
+    for points in (INGEST_MICRO, INGEST_PAD_POINTS):
+        tkeys, tw, tail = ingest_tick_keys(points, dev)
+        if points == INGEST_PAD_POINTS:
+            assert 0.40 <= tail <= 0.50, tail
+        nt = tkeys.shape[0]
+        for shift in (0, 10, 30):
+            check(f"ingest_tick{points}_shift{shift}", tkeys, nt,
+                  shift=shift, sentinel=SENTINEL >> shift)
+        check(f"ingest_tick{points}_weighted", tkeys, nt, sorted_weights=tw,
+              weight_bound=WEIGHT_BOUND)
+        padded_ticks.append({"points": points, "lanes": nt,
+                             "sentinel_share": tail,
+                             "ms": median_ms(lambda: agg(tkeys, nt))})
+
     # Timing at the main path's shape: level 0 of the default job.
     capacity = n
     err = max_abs_err(agg(skeys, capacity), sp._plain(
@@ -352,7 +444,7 @@ def phase_kernel(dev):
           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "weighted_ms": weighted_ms, "device_us": by_kernel,
           "level_ms": level_ms, "bound_ms": bound_ms, "bytes": bytes_moved,
-          "max_abs_err": err})
+          "padded_ticks": padded_ticks, "max_abs_err": err})
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "max_abs_err": err}, data
 
@@ -1369,9 +1461,10 @@ def survivors(n_base, n_inc):
     return {k: v[keep] for k, v in out.items()}
 
 
-def phase_delta(dev):
+def phase_delta(dev, root):
     """The delta store on the card through the ``update`` and ``retract``
-    commands, as DELTA_* describe, with checks: (a) the compacted base
+    commands, as DELTA_* describe, into ``root`` (left for the ingest
+    phase: a compacted base of about 4M points), with checks: (a) the compacted base
     equals one ``run --output arrays:`` over the surviving points; (b)
     the same sequence at 200k base and 16,384-point increments writes
     equal stores on the card (with telemetry on one increment) and on
@@ -1396,7 +1489,6 @@ def phase_delta(dev):
     shutil.rmtree(telemetry, ignore_errors=True)
     os.makedirs(telemetry)
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "store")
         seq = delta_sequence(root, "cuda", N_DELTA_BASE, N_DELTA_INC,
                              telemetry=telemetry)
         check_delta_sequence(seq, n_levels)
@@ -1486,6 +1578,401 @@ def phase_delta(dev):
           "small_equal_cpu": True, "telemetry_events": len(recs),
           "small_seconds": {d: sum(r["seconds"] for r in v.values())
                             for d, v in small.items()}})
+    return launches
+
+
+def tree_digest(root):
+    """{relative path: sha256} of every file of a delta store; journal
+    entries as their meta without the wall-clock ``ts`` and the sha256 of
+    their arrays."""
+    import hashlib
+
+    from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            rel = os.path.relpath(path, root)
+            h = hashlib.sha256()
+            if rel.startswith("journal" + os.sep):
+                arrays, meta = load_checkpoint(path)
+                meta.pop("ts")
+                h.update(json.dumps(meta, sort_keys=True).encode())
+                for k in sorted(arrays):
+                    h.update(k.encode())
+                    h.update(np.ascontiguousarray(arrays[k]).tobytes())
+            else:
+                with open(path, "rb") as fh:
+                    h.update(fh.read())
+            out[rel] = h.hexdigest()
+    return out
+
+
+def ingest_drain(argv=None, library=None, digest_root=None, digest_at=()):
+    """One drain of the ingest loop: ``cli.run_ingest_command`` on
+    ``argv``, or ``ingest.run_ingest(*library)``. Returns the summary
+    (or None), the IngestStats, the seconds, the flat tracer's span
+    totals and, per tick as the loop measured it, its seconds, and per
+    apply its seconds, points, duplicate flag and segment-reduce
+    launches; and the seconds of each compaction. The loop's
+    ``maybe_promote(ms=...)`` call carries each tick's seconds.
+    ``digest_at`` names the points ("apply15": after the 15th apply,
+    "compaction1": after the first compaction) at which the store at
+    ``digest_root`` is digested mid-drain; that time is taken out of
+    the tick and drain seconds."""
+    from heatmap_tpu_torch import cli, delta, ingest
+    from heatmap_tpu_torch.obs import recorder
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.utils.trace import get_tracer
+
+    agg = sp.aggregate_sorted_keys_partitioned
+    applies, compactions, ticks = [], [], []
+    digests, digest_s = {}, {}
+    real_apply, real_compact = delta.apply_batch, delta.compact
+    real_promote = recorder.maybe_promote
+
+    def snap(label):
+        if label in digest_at:
+            t0 = time.perf_counter()
+            digests[label] = tree_digest(digest_root)
+            digest_s[len(ticks)] = time.perf_counter() - t0
+
+    def apply(*a, **kw):
+        before = agg.launches
+        t0 = time.perf_counter()
+        res = real_apply(*a, **kw)
+        applies.append({"s": time.perf_counter() - t0, "points": res.points,
+                        "duplicate": res.duplicate,
+                        "launches": agg.launches - before})
+        snap(f"apply{len(applies)}")
+        return res
+
+    def compact(*a, **kw):
+        before = agg.launches
+        t0 = time.perf_counter()
+        out = real_compact(*a, **kw)
+        compactions.append(time.perf_counter() - t0)
+        assert agg.launches == before, "compaction launched the kernel"
+        snap(f"compaction{len(compactions)}")
+        return out
+
+    def promote(*a, **kw):
+        if "ms" in kw:
+            ticks.append(kw["ms"] / 1e3 - digest_s.get(len(ticks), 0.0))
+        return real_promote(*a, **kw)
+
+    tracer = get_tracer()
+    tracer.reset()
+    delta.apply_batch, delta.compact = apply, compact
+    recorder.maybe_promote = promote
+    summary = None
+    t0 = time.perf_counter()
+    try:
+        if argv is not None:
+            summary, stats = cli.run_ingest_command(
+                cli.build_parser().parse_args(argv))
+        else:
+            stats = ingest.run_ingest(*library[0], **library[1])
+    finally:
+        delta.apply_batch, delta.compact = real_apply, real_compact
+        recorder.maybe_promote = real_promote
+    seconds = time.perf_counter() - t0 - sum(digest_s.values())
+    assert set(digests) == set(digest_at), (sorted(digests), digest_at)
+    return {"summary": summary, "stats": stats, "seconds": seconds,
+            "spans_s": {k: v["total_s"] for k, v in tracer.report().items()},
+            "ticks_s": ticks, "applies": applies,
+            "compactions_s": compactions, "digests": digests}
+
+
+def check_ticks(rec, n_levels, duplicates=False):
+    """Every apply of a drain: n_levels segment-reduce launches when it
+    applied, none when it was a duplicate (all duplicates when asked)."""
+    for a in rec["applies"]:
+        assert a["duplicate"] == duplicates, a
+        assert a["launches"] == (0 if duplicates else n_levels), a
+    assert len(rec["ticks_s"]) == len(rec["applies"]) == rec["stats"].ticks
+
+
+def drain_numbers(rec):
+    """Seconds per tick (median, max; and without the compaction ticks),
+    points/s, the mean split of an applied tick into spans, seconds per
+    compaction, the feeder's numbers and the queue's high-water mark."""
+    st = rec["stats"]
+    applied = [a for a in rec["applies"] if not a["duplicate"]]
+    n = max(1, len(applied))
+    spans = rec["spans_s"]
+    split = {k: spans.get(k, 0.0) / n for k in (
+        "delta.read", "delta.hash", "cascade.bucket", "delta.compute",
+        "delta.journal", "delta.keys")}
+    ticks = rec["ticks_s"]
+    comp = sum(rec["compactions_s"])
+    split["ingest.tick"] = (sum(ticks) - comp) / n
+    split["rest"] = split["ingest.tick"] - sum(
+        v for k, v in split.items() if k != "ingest.tick")
+    plain = sorted(ticks)[:len(ticks) - len(rec["compactions_s"])]
+    return {"ticks": st.ticks, "points": st.points, "seconds": rec["seconds"],
+            "tick_median_s": statistics.median(ticks),
+            "tick_max_s": max(ticks),
+            "tick_median_s_no_compaction": statistics.median(plain or ticks),
+            "points_per_s": st.points / rec["seconds"],
+            "applied_tick_split_s": split,
+            "compaction_s": rec["compactions_s"],
+            "feed_s": st.feed_s, "wait_s": st.feed_wait_s,
+            "overlap_pct": st.feed_overlap_pct,
+            "feeder_depth_hwm": st.feeder_depth_hwm,
+            "max_queue_depth": st.max_queue_depth}
+
+
+def pad_share(n, seed, micro, floor=1 << 12):
+    """Pad lanes as a share of emissions over the drain of
+    ``synthetic:n:seed`` in ``micro``-point ticks, and the pow2 buckets
+    its emission counts fall into."""
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.pipeline import bucketing
+    from heatmap_tpu_torch.pipeline.batch import kept_rows
+
+    emissions, pads, buckets = 0, 0, set()
+    for b in SyntheticSource(n=n, seed=seed).batches(micro):
+        idx = kept_rows(b)
+        e = 2 * (len(b["latitude"]) if idx is None else len(idx))
+        target = bucketing.bucket_size(e, "pow2", floor)
+        emissions += e
+        pads += target - e
+        buckets.add(target)
+    return pads / emissions, buckets
+
+
+def compare_base(root, run_dir):
+    """The compacted base of ``root`` (no live delta) against one ``run
+    --output arrays:`` of the same points, level by level."""
+    from heatmap_tpu_torch import delta
+    from heatmap_tpu_torch.delta.compact import drop_zero_rows
+    from heatmap_tpu_torch.io.merge import merge_level_dirs
+    from heatmap_tpu_torch.io.sinks import LevelArraysSink
+
+    assert not delta.live_entries(root), "deltas left live"
+    base = delta.read_current(root)["base"]
+    got = drop_zero_rows(merge_level_dirs([os.path.join(root, base)]))
+    want = merge_level_dirs([run_dir])
+    assert [int(l["zoom"]) for l in got] == [int(l["zoom"]) for l in want]
+    for g, w in zip(got, want):
+        for k in (*LevelArraysSink.COLUMNS, "user_names", "timespan_names"):
+            assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), \
+                f"{root}: base differs from the one-shot run at " \
+                f"z{g['zoom']} {k}"
+    return sum(len(l["row"]) for l in got)
+
+
+def write_valued_csv(path, n, seed):
+    """``ValuedSource(n, seed)`` as a CSV with a ``value`` column."""
+    with open(path, "w") as f:
+        f.write("latitude,longitude,user_id,source,timestamp,value\n")
+        for b in ValuedSource(n, seed).batches(1 << 20):
+            f.write("".join(
+                f"{a!r},{o!r},{u},{s},{t},{int(v)}\n" for a, o, u, s, t, v in
+                zip(b["latitude"].tolist(), b["longitude"].tolist(),
+                    b["user_id"], b["source"], b["timestamp"],
+                    b["value"].tolist())))
+
+
+def phase_ingest(dev, big_root):
+    """The ``ingest`` command on the card, as the N_INGEST* constants
+    describe: (a) a drain into a fresh journal at the command's defaults;
+    (b) INGEST_B_TICKS ticks onto ``big_root`` (the delta phase's store,
+    a compacted 4M-point base); (c) the replay of (a)'s first ticks onto
+    a store that holds them, every tick a duplicate; (d) ``--retract``
+    of (a)'s first N_INGEST_RETRACT points; (e) (a)'s first
+    INGEST_CUT_TICKS ticks with every telemetry flag on, into a fresh
+    journal; (f) a weighted geometric drain on the card and on the CPU.
+    Checks: (a)'s compacted base equals one ``run --output arrays:`` of
+    the same points; (a)'s store after its first INGEST_CUT_TICKS - 1
+    ticks equals the drain of those ticks with exact padding and no
+    queue or feeder; 16 segment-reduce launches per applied tick, none
+    per duplicate or compaction; compile_cache misses at most the pow2
+    buckets of the drain's sizes; (d)'s base equals a clean recompute of
+    the surviving points; (e)'s events validate, metrics.prom carries
+    the ingest and bucket series, the report its slo section, the spill
+    dir is written, and its store equals (a)'s after the same ticks;
+    (f)'s stores are equal. Returns (a)'s launches."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from heatmap_tpu_torch import delta, ingest, obs
+    from heatmap_tpu_torch.delta import read_columns
+    from heatmap_tpu_torch.devices import StageTimer
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline import bucketing
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    device = dev.type
+    n_levels = BatchJobConfig().cascade_config().n_levels + 1
+    spec = f"synthetic:{N_INGEST}:{INGEST_SEED}"
+    cut = INGEST_CUT_TICKS
+    telemetry = os.path.join("chiprun_out", "ingest_telemetry")
+    shutil.rmtree(telemetry, ignore_errors=True)
+    os.makedirs(telemetry)
+    out = {"phase": "ingest", "points": N_INGEST,
+           "micro_batch": INGEST_MICRO}
+    with tempfile.TemporaryDirectory() as tmp:
+        def argv(root, source, *extra):
+            return ["ingest", "--journal", os.path.join(tmp, root),
+                    "--input", source, "--device", device,
+                    "--micro-batch", str(INGEST_MICRO), *extra]
+
+        # (a) the drain, its kernel launches and the process-wide
+        # compile-cache mirror counted from 0; the store digested after
+        # tick cut - 1 and after the first compaction (tick cut).
+        bucketing.reset_cache_stats()
+        sp.aggregate_sorted_keys_partitioned.launches = 0
+        a = ingest_drain(argv("a", spec), digest_root=os.path.join(tmp, "a"),
+                         digest_at=(f"apply{cut - 1}", "compaction1"))
+        launches = sp.aggregate_sorted_keys_partitioned.launches
+        check_ticks(a, n_levels)
+        assert launches == n_levels * a["stats"].ticks, launches
+        s_a = a["summary"]
+        assert s_a["ticks"] == N_INGEST // INGEST_MICRO, s_a
+        assert s_a["compactions"] == s_a["ticks"] // cut and \
+            s_a["live_deltas"] == 0, s_a
+        share, buckets = pad_share(N_INGEST, INGEST_SEED, INGEST_MICRO)
+        assert s_a["compile_cache"]["misses"] <= len(buckets), \
+            (s_a["compile_cache"], buckets)
+        run_dir = os.path.join(tmp, "run_a")
+        _, run_s = cli_call(["run", "--input", spec, "--output",
+                             f"arrays:{run_dir}", "--device", device])
+        rows = compare_base(os.path.join(tmp, "a"), run_dir)
+        shutil.rmtree(run_dir)
+        # The first cut - 1 ticks with exact padding, synchronously, no
+        # feeder; then (c), their replay: every tick a duplicate.
+        exact = ingest_drain(library=(
+            (os.path.join(tmp, "exact"),
+             SyntheticSource(n=N_INGEST, seed=INGEST_SEED),
+             BatchJobConfig(pad_bucketing="exact")),
+            {"ingest": ingest.IngestConfig(micro_batch=INGEST_MICRO,
+                                           queue_depth=None, feed_depth=0,
+                                           max_ticks=cut - 1),
+             "device": dev}))
+        check_ticks(exact, n_levels)
+        assert tree_digest(os.path.join(tmp, "exact")) == \
+            a["digests"][f"apply{cut - 1}"], \
+            "exact synchronous drain differs from the padded fed drain"
+        c = ingest_drain(argv("exact", spec, "--max-ticks", str(cut - 1)))
+        check_ticks(c, n_levels, duplicates=True)
+        assert c["summary"]["duplicates"] == c["summary"]["ticks"] == \
+            cut - 1, c["summary"]
+        shutil.rmtree(os.path.join(tmp, "exact"))
+        # (d) retract the first N_INGEST_RETRACT points (a synthetic
+        # source of a multiple of its 65,536-point chunk is a prefix of
+        # a longer one of the same seed).
+        d = ingest_drain(argv("a", f"synthetic:{N_INGEST_RETRACT}:"
+                              f"{INGEST_SEED}", "--retract"))
+        check_ticks(d, n_levels)
+        assert d["summary"]["live_deltas"] == 0, d["summary"]
+        cols = read_columns(SyntheticSource(n=N_INGEST, seed=INGEST_SEED))
+        keep = slice(N_INGEST_RETRACT, None)
+        pq_path = os.path.join(tmp, "survivors.parquet")
+        pq.write_table(pa.table({
+            "latitude": cols["latitude"][keep],
+            "longitude": cols["longitude"][keep],
+            "user_id": cols["user_id"][keep], "source": cols["source"][keep],
+            "timestamp": np.asarray(cols["timestamp"][keep], np.int64)}),
+            pq_path)
+        del cols
+        run_dir = os.path.join(tmp, "run_d")
+        cli_call(["run", "--input", f"parquet:{pq_path}", "--output",
+                  f"arrays:{run_dir}", "--device", device])
+        compare_base(os.path.join(tmp, "a"), run_dir)
+        shutil.rmtree(os.path.join(tmp, "a"))
+        shutil.rmtree(run_dir)
+        # (e) (a)'s first ticks, through the first compaction, with
+        # every telemetry flag on.
+        e = ingest_drain(argv(
+            "e", spec, "--max-ticks", str(cut),
+            "--events", os.path.join(telemetry, "events.jsonl"),
+            "--metrics-dir", telemetry,
+            "--report", os.path.join(telemetry, "run_report.json"),
+            "--slo", "fresh:staleness:max_age_s=30",
+            "--incident-dir", os.path.join(telemetry, "incidents"),
+            "--flight-recorder-spans", "256", "--tail-latency-ms", "1",
+            "--telemetry-sample-interval", "0.5",
+            "--watch", "ingest_lag_seconds:z=6"))
+        check_ticks(e, n_levels)
+        assert tree_digest(os.path.join(tmp, "e")) == \
+            a["digests"]["compaction1"], "telemetry changed the ingest store"
+        shutil.rmtree(os.path.join(tmp, "e"))
+        recs = obs.read_events(os.path.join(telemetry, "events.jsonl"))
+        for r in recs:
+            obs.validate_event(r)
+        kinds = [r["event"] for r in recs]
+        assert kinds[0] == "run_start" and kinds[-1] == "run_end", kinds[:3]
+        lags = [r["lag_s"] for r in recs if r["event"] == "ingest_tick"]
+        assert len(lags) == cut, len(lags)
+        with open(os.path.join(telemetry, "metrics.prom")) as f:
+            prom = f.read()
+        # (a) made every signature of the mirror, so (e)'s dispatches
+        # all count as hits.
+        for series in ("ingest_ticks_total", "ingest_lag_seconds",
+                       "ingest_tick_seconds", "cascade_bucket_hits_total",
+                       "cascade_pad_emissions_total"):
+            assert series in prom, series
+        with open(os.path.join(telemetry, "run_report.json")) as f:
+            report = json.load(f)
+        assert report["slo"]["objectives"][0]["name"] == "fresh", report
+        spill = os.path.join(telemetry, "incidents", "telemetry")
+        assert any(x.startswith("snap-") for x in os.listdir(spill))
+        pads_counted = [float(line.split()[-1]) for line in prom.splitlines()
+                        if line.startswith("cascade_pad_emissions_total")]
+        # (b) ticks onto the delta phase's store (4M-point base).
+        b = ingest_drain(argv(big_root, f"synthetic:"
+                              f"{INGEST_B_TICKS * INGEST_MICRO}:8",
+                              "--max-ticks", str(INGEST_B_TICKS),
+                              "--compact-every", "0"))
+        check_ticks(b, n_levels)
+        # One tick's cascade split on the card (fenced stages).
+        timer = StageTimer(dev)
+        delta.apply_batch(os.path.join(tmp, "split"),
+                          SyntheticSource(n=INGEST_MICRO, seed=9),
+                          BatchJobConfig(pad_bucketing="pow2"), device=dev,
+                          timer=timer)
+        tick_device_ms = {k: sum(v) for k, v in timer.ms.items()}
+        # (f) weighted, geometric padding, card and CPU.
+        csv_path = os.path.join(tmp, "valued.csv")
+        write_valued_csv(csv_path, N_INGEST_WEIGHTED, 11)
+        f_s = {}
+        for dv in (device, "cpu"):
+            rec = ingest_drain(["ingest", "--journal",
+                                os.path.join(tmp, f"f_{dv}"), "--input",
+                                f"csv:{csv_path}", "--device", dv,
+                                "--weighted", "--pad-bucketing", "geometric"])
+            f_s[dv] = rec["seconds"]
+        assert tree_digest(os.path.join(tmp, f"f_{device}")) == \
+            tree_digest(os.path.join(tmp, "f_cpu")), \
+            "weighted card and CPU stores differ"
+    out.update({
+        "launches": launches,
+        "launches_per_applied_tick": n_levels,
+        "a": drain_numbers(a), "b": drain_numbers(b),
+        "c": drain_numbers(c), "d": drain_numbers(d), "e": drain_numbers(e),
+        "a_compile_cache": s_a["compile_cache"],
+        "pow2_buckets": sorted(buckets), "pad_share": share,
+        "pad_lanes_counted_e": pads_counted,
+        "exact_sync_seconds": exact["seconds"],
+        "exact_sync_tick_median_s": statistics.median(exact["ticks_s"]),
+        "padded_fed_first_ticks_median_s": statistics.median(
+            a["ticks_s"][:cut - 1]),
+        "base_rows_a": rows, "run_arrays_s": run_s,
+        "ingest_lag_median_s": statistics.median(lags),
+        "telemetry_cost_first_ticks_s": {"off": sum(a["ticks_s"][:cut]),
+                                         "on": sum(e["ticks_s"])},
+        "telemetry_events": len(recs),
+        "tick_device_split_ms": tick_device_ms,
+        "weighted_seconds": f_s,
+        "equal_to_run": True, "equal_exact_sync": True,
+        "retract_equal_recompute": True, "telemetry_store_equal": True,
+        "weighted_card_equal_cpu": True,
+    })
+    emit(out)
     return launches
 
 
@@ -1849,7 +2336,10 @@ def main() -> int:
         phase_weighted(dev)
         phase_cpu_crosscheck(dev)
         phase_parquet(dev)
-        delta_launches = phase_delta(dev)
+        delta_root = os.path.join(tmp, "delta_store")
+        delta_launches = phase_delta(dev, delta_root)
+        ingest_launches = phase_ingest(dev, delta_root)
+        shutil.rmtree(delta_root)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
     phase_stream_bench(dev)
@@ -1860,7 +2350,8 @@ def main() -> int:
         "heatmap_tpu/ops/sparse_partitioned.py:75", bounded_launches,
         kernel)
     segment_reduce["launches_by_path"] = {"bounded": bounded_launches,
-                                          "delta": delta_launches}
+                                          "delta": delta_launches,
+                                          "ingest": ingest_launches}
     emit({"kernels": [
         segment_reduce,
         kernel_entry("window_histogram", "window_histogram.cu",

@@ -12,7 +12,8 @@ first use (``_build.py``); host decode and JSON egress use the repo's
 C++ runtime (``native/``, bound in ``native.py``), built with ``make``
 at first use. The delta store (``delta``: journaled incremental
 updates, retractions and compaction, each batch one cascade on the
-card) and the telemetry core (``obs``) sit on that job.
+card), continuous ingest (``ingest``: micro-batches fed to the card and
+applied as deltas) and telemetry (``obs``) sit on that job.
 
 It imports torch and numpy only: nothing of JAX and nothing of
 ``heatmap_tpu``. Entry points run on the card (``device="cuda"``)

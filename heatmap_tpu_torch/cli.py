@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m heatmap_tpu_torch
-run|tiles|stream|convert|merge|info|update|retract ...``.
+run|tiles|stream|convert|merge|info|update|retract|ingest ...``.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
 to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
@@ -14,13 +14,19 @@ HMPB, ``merge`` merges egress shards, ``info`` prints the resolved
 backend and devices. ``update`` applies journaled delta batches (and
 signed retractions) to a delta store and compacts it; ``retract``
 removes every journaled row matching a predicate (heatmap_tpu_torch.
-delta). Stores are interchangeable with the JAX package's.
+delta); ``ingest`` drains a source as micro-batches through the
+continuous-ingest loop, each journaled and applied as its own delta
+(heatmap_tpu_torch.ingest). Stores are interchangeable with the JAX
+package's.
 
-``run`` and ``update`` carry the telemetry envelope: ``--metrics-dir``,
-``--events``, ``--report``, ``--trace-out`` and ``--trace-sample``
-(``run`` also ``--profile``); with all of them off the commands write
-the same bytes. The JAX flags whose modules the port lacks exit 2 at
-parse time with "not ported yet" and their ROADMAP item.
+``run``, ``update`` and ``ingest`` carry the telemetry envelope:
+``--metrics-dir``, ``--events``, ``--report``, ``--trace-out``,
+``--trace-sample``, ``--slo``, ``--flight-recorder-spans``,
+``--incident-dir``, ``--tail-latency-ms``,
+``--telemetry-sample-interval`` and ``--watch`` (``run`` also
+``--profile``); with all of them off the commands write the same
+bytes. The JAX flags whose modules the port lacks exit 2 at parse time
+with "not ported yet" and their ROADMAP item.
 
 Every command keeps the flag names of ``heatmap_tpu``'s. The device
 commands (``run``, ``tiles``, ``stream``) run on the CUDA card unless
@@ -161,8 +167,9 @@ def _add_telemetry_flags(p):
 
 
 def _add_trace_flags(p):
-    """--trace-out / --trace-sample, and the JAX telemetry flags whose
-    modules wait for ROADMAP Queue 1 item 6 (refused)."""
+    """--trace-out / --trace-sample and the rest of the telemetry
+    envelope (SLOs, flight recorder, incidents, sampler, watches),
+    shared by run, update and ingest (docs/observability.md)."""
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="enable hierarchical span tracing and export the "
                    "span trees as Chrome/Perfetto trace-event JSON to "
@@ -170,23 +177,115 @@ def _add_trace_flags(p):
     p.add_argument("--trace-sample", type=float, default=1.0, metavar="P",
                    help="probability a new trace root is sampled "
                    "(default 1.0 records every trace)")
-    item6 = _not_ported(6)
-    p.add_argument("--slo", action="append", type=item6, default=None,
-                   metavar="SPEC", help="not ported yet (obs/slo.py)")
-    p.add_argument("--flight-recorder-spans", type=_not_ported(6, "0"),
-                   default=None, metavar="N",
-                   help="not ported yet (obs/recorder.py); 0 is accepted")
-    p.add_argument("--incident-dir", type=item6, default=None,
-                   metavar="DIR", help="not ported yet (obs/incident.py)")
-    p.add_argument("--tail-latency-ms", type=item6, default=None,
-                   metavar="MS", help="not ported yet (obs/recorder.py)")
-    p.add_argument("--telemetry-sample-interval",
-                   type=_not_ported(6, "0", "0.0"), default=None,
+    p.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                   help="declare an SLO as NAME:KIND:k=v,... (kinds: "
+                   "latency, error_rate, staleness; repeatable). "
+                   "Error-budget burn rates fold into the run report "
+                   "and slo_breach events")
+    p.add_argument("--flight-recorder-spans", type=int, default=256,
+                   metavar="N",
+                   help="flight-recorder ring capacity: last N completed "
+                   "spans per subsystem kept regardless of head "
+                   "sampling, promoted into the trace on errors and tail "
+                   "latency (0 disables the recorder; it only arms when "
+                   "--trace-out, --events or --incident-dir is also "
+                   "given)")
+    p.add_argument("--incident-dir", default=None, metavar="DIR",
+                   help="flush self-contained incident bundles here on "
+                   "failure edges (SLO breach, fault storm, anomaly, "
+                   "uncaught exception); rate-limited and pruned "
+                   "age-wins")
+    p.add_argument("--tail-latency-ms", type=float, default=None,
+                   metavar="MS",
+                   help="tail-based retention threshold: any trace "
+                   "slower than this is promoted from the flight "
+                   "recorder into the trace as if head-sampled")
+    p.add_argument("--telemetry-sample-interval", type=float, default=0.0,
                    metavar="SEC",
-                   help="not ported yet (obs/timeseries.py); 0 is "
-                   "accepted")
-    p.add_argument("--watch", action="append", type=item6, default=None,
-                   metavar="SPEC", help="not ported yet (obs/anomaly.py)")
+                   help="background telemetry sampler cadence: every SEC "
+                   "seconds the obs registry is snapshotted into the "
+                   "in-process time-series tiers that back incident "
+                   "bundles (spilled under --incident-dir/telemetry). 0 "
+                   "(the default) disables the sampler: zero threads, "
+                   "zero hot-path cost")
+    p.add_argument("--watch", action="append", default=None, metavar="SPEC",
+                   help="watch a telemetry series for anomalies as "
+                   "NAME:k=v,... (params: z, alpha, min_count, "
+                   "clear_ratio; repeatable), e.g. "
+                   "'ingest_lag_seconds:z=6'. Each rising edge emits one "
+                   "anomaly_detected event and triggers an incident "
+                   "bundle; requires --telemetry-sample-interval > 0")
+
+
+def _setup_tracing(args):
+    """Wire --trace-out/--trace-sample/--slo and the flight recorder,
+    incident manager, sampler and watches, as the JAX CLI does; returns
+    the live TraceCollector (None with tracing off). With every flag
+    off nothing is installed, so every obs hook stays None."""
+    from heatmap_tpu_torch import obs
+
+    collector = None
+    if getattr(args, "trace_out", None):
+        try:
+            collector = obs.enable_tracing(sample=args.trace_sample)
+        except ValueError as e:
+            raise SystemExit(f"--trace-sample: {e}") from e
+    if getattr(args, "slo", None):
+        try:
+            obs.install_specs(args.slo)
+        except ValueError as e:
+            raise SystemExit(f"--slo: {e}") from e
+    # The recorder arms only when some telemetry surface exists to
+    # promote or flush into.
+    spans = getattr(args, "flight_recorder_spans", 0) or 0
+    if spans < 0:
+        raise SystemExit(f"--flight-recorder-spans {spans}: must be >= 0")
+    incident_dir = getattr(args, "incident_dir", None)
+    armed = (collector is not None or incident_dir
+             or getattr(args, "events", None))
+    if spans and armed:
+        tail_ms = getattr(args, "tail_latency_ms", None)
+        if tail_ms is not None and tail_ms <= 0:
+            raise SystemExit(
+                f"--tail-latency-ms {tail_ms}: must be positive")
+        obs.recorder.install(obs.FlightRecorder(
+            max_spans=spans,
+            tail_latency_s=None if tail_ms is None else tail_ms / 1000.0))
+    if incident_dir:
+        obs.incident.set_manager(obs.IncidentManager(incident_dir))
+    # Interval 0 (the default) arms nothing: no store, no thread.
+    interval = getattr(args, "telemetry_sample_interval", 0.0) or 0.0
+    if interval < 0:
+        raise SystemExit(f"--telemetry-sample-interval {interval}: "
+                         "must be >= 0")
+    watches = getattr(args, "watch", None) or []
+    if watches and not interval:
+        raise SystemExit("--watch requires --telemetry-sample-interval "
+                         "> 0 (detectors score sampler ticks)")
+    if interval:
+        engine = None
+        if watches:
+            try:
+                specs = [obs.parse_watch_spec(s) for s in watches]
+            except ValueError as e:
+                raise SystemExit(f"--watch: {e}") from e
+            engine = obs.AnomalyEngine(specs)
+            obs.anomaly.set_engine(engine)
+        spill_dir = (os.path.join(incident_dir, "telemetry")
+                     if incident_dir else None)
+        obs.timeseries.arm(interval, engine=engine, spill_dir=spill_dir)
+    return collector
+
+
+def _fail_telemetry(root_span, error):
+    """Uncaught job exception: tail-promote the failed root's tree out of
+    the flight recorder and flush an exception incident bundle. Both
+    no-op when nothing is installed. Runs before end_span on the root so
+    the root rides the live-forward path."""
+    from heatmap_tpu_torch.obs import incident, recorder
+
+    recorder.maybe_promote(root_span, error=True)
+    incident.trigger("exception", detail=repr(error))
 
 
 def _add_parallel_flags(p):
@@ -203,15 +302,18 @@ def _add_parallel_flags(p):
 
 
 class _Telemetry:
-    """The telemetry envelope of ``run`` and ``update``, as the JAX CLI
-    wires it: ``--metrics-dir``/``--events``/``--report`` enable the
-    registry (reset for this command) and the event log (``run_start``
-    here, ``run_end`` in :meth:`finish`); ``--trace-out`` installs a
-    span collector; the command's root span opens here. With every flag
-    off nothing is installed. :meth:`finish` leaves obs as it found it,
-    so a later command in the same process starts clean."""
+    """The telemetry envelope of ``run``, ``update`` and ``ingest``, as
+    the JAX CLI wires it: ``--metrics-dir``/``--events``/``--report``
+    enable the registry (reset for this command) and the event log
+    (``run_start`` here, ``run_end`` in :meth:`finish`); the trace flags
+    go through :func:`_setup_tracing`; ``providers`` (name -> callable)
+    register incident state providers; the command's root span opens
+    here. With every flag off nothing is installed. :meth:`finish`
+    leaves obs as it found it, so a later command in the same process
+    starts clean."""
 
-    def __init__(self, args, root: str, config=None, device="cpu"):
+    def __init__(self, args, root: str, config=None, device="cpu",
+                 providers=None):
         from heatmap_tpu_torch import obs
         from heatmap_tpu_torch.obs import tracing
 
@@ -232,11 +334,19 @@ class _Telemetry:
                          devices=obs.device_topology(device),
                          argv=sys.argv[1:])
         self.collector = None
-        if args.trace_out:
-            try:
-                self.collector = obs.enable_tracing(sample=args.trace_sample)
-            except ValueError as e:
-                raise SystemExit(f"--trace-sample: {e}") from e
+        try:
+            self.collector = _setup_tracing(args)
+        except SystemExit:
+            # A bad telemetry flag: leave obs as it was found.
+            if self.log is not None:
+                obs.set_event_log(None)
+                self.log.close()
+            obs.enable_metrics(False)
+            obs.disable_tracing()
+            self._teardown()
+            raise
+        for name, fn in (providers or {}).items():
+            obs.incident.add_state_provider(name, fn)
         self.root = tracing.begin_span(root)
         self.t0 = time.perf_counter()
 
@@ -249,6 +359,8 @@ class _Telemetry:
         from heatmap_tpu_torch.utils.trace import get_tracer
 
         dt = time.perf_counter() - self.t0
+        if error is not None:
+            _fail_telemetry(self.root, error)
         tracing.end_span(self.root)
         args = self.args
         if self.on:
@@ -274,14 +386,28 @@ class _Telemetry:
                 obs.write_run_report(args.report, report)
                 print(obs.format_run_report(report), file=sys.stderr)
             obs.enable_metrics(False)
+        # The sampler stops (with a final spill) before the trace export.
+        obs.timeseries.shutdown()
         if self.collector is not None:
             n = self.collector.export_chrome(args.trace_out)
             print(json.dumps({"trace_out": args.trace_out,
                               "span_events": n,
                               "dropped": self.collector.dropped}),
                   file=sys.stderr)
-            obs.disable_tracing()
+        self._teardown()
         return dt
+
+    def _teardown(self):
+        """Uninstall what :func:`_setup_tracing` installed."""
+        from heatmap_tpu_torch import obs
+
+        obs.timeseries.shutdown()
+        obs.anomaly.set_engine(None)
+        obs.incident.set_manager(None)
+        obs.recorder.install(None)
+        obs.slo.set_engine(None)
+        if self.collector is not None:
+            obs.disable_tracing()
 
 
 BIN_BACKEND_HELP = (
@@ -479,7 +605,25 @@ def build_parser() -> argparse.ArgumentParser:
     _add_backend_flags(p)
     _add_retract_flags(p)
     p.set_defaults(fn=cmd_retract)
+
+    p = sub.add_parser(
+        "ingest",
+        help="continuous ingest: source -> bounded queue -> journaled "
+        "delta applies (+ compaction) against a delta store")
+    _add_backend_flags(p)
+    _add_ingest_flags(p)
+    p.set_defaults(fn=cmd_ingest)
     return ap
+
+
+def _add_temporal_refusals(p):
+    """The JAX ``--bucket-*`` flags (temporal/, ROADMAP Queue 1 item 5):
+    any value exits 2 at parse time."""
+    item5 = _not_ported(5)
+    for flag in ("--bucket-width", "--bucket-fanout", "--bucket-keep",
+                 "--bucket-tiers", "--bucket-unit-s"):
+        p.add_argument(flag, type=item5, default=None,
+                       help="not ported yet (temporal/)")
 
 
 def _add_update_flags(p):
@@ -517,11 +661,7 @@ def _add_update_flags(p):
                    choices=("auto", "scatter", "partitioned"))
     _add_parallel_flags(p)
     _add_telemetry_flags(p)
-    item5 = _not_ported(5)
-    for flag in ("--bucket-width", "--bucket-fanout", "--bucket-keep",
-                 "--bucket-tiers", "--bucket-unit-s"):
-        p.add_argument(flag, type=item5, default=None,
-                       help="not ported yet (temporal/)")
+    _add_temporal_refusals(p)
     _add_trace_flags(p)
 
 
@@ -675,6 +815,160 @@ def cmd_retract(args) -> int:
     out["where"] = {k: str(v) for k, v in sorted(where.items())}
     out["seconds"] = round(out["seconds"], 3)
     print(json.dumps(out))
+    return 0
+
+
+def _add_ingest_flags(p):
+    p.add_argument("--journal", required=True, metavar="ROOT",
+                   help="delta store root the loop journals into "
+                   "(created on first use; docs/ingest.md)")
+    p.add_argument("--input", required=True,
+                   help="source spec consumed as micro-batches (each one "
+                   "journaled as its own signed epoch)")
+    p.add_argument("--retract", action="store_true",
+                   help="retract every batch instead of inserting "
+                   "(sign=-1 epochs: counts are subtracted)")
+    p.add_argument("--micro-batch", type=int, default=1 << 14,
+                   help="points per tick (the journal/apply granularity)")
+    p.add_argument("--queue-depth", type=int, default=4,
+                   help="bounded-queue depth between the source reader "
+                   "and the apply loop; a full queue blocks the reader "
+                   "(back-pressure). 0 = synchronous, no reader thread")
+    p.add_argument("--max-ticks", type=int, default=None,
+                   help="stop after N ticks (default: drain the source)")
+    p.add_argument("--compact-every", type=int, default=16, metavar="N",
+                   help="fold the delta stack into a new base whenever N "
+                   "live deltas accumulate (0 = never)")
+    p.add_argument("--compact-max-age", type=float, default=0.0,
+                   metavar="S",
+                   help="also compact when the oldest live delta is "
+                   "older than S seconds (0 = never)")
+    p.add_argument("--retention", type=int, default=2,
+                   help="journal entries kept after compaction as the "
+                   "idempotency window")
+    p.add_argument("--pad-bucketing", default="pow2",
+                   choices=("pow2", "geometric", "exact"),
+                   help="bucketed padding of the cascade's emissions "
+                   "(pipeline/bucketing.py): pow2/geometric pad each "
+                   "batch to a size bucket; exact follows the batch "
+                   "(the same bytes either way)")
+    p.add_argument("--pad-bucket-min", type=int, default=1 << 12,
+                   help="bucket floor: batches below this many emissions "
+                   "pad up to it")
+    p.add_argument("--serve-port", type=_not_ported(6), default=None,
+                   metavar="PORT",
+                   help="not ported yet (serve/): serving the store while "
+                   "ingesting")
+    p.add_argument("--detail-zoom", type=int, default=21)
+    p.add_argument("--min-detail-zoom", type=int, default=5)
+    p.add_argument("--result-delta", type=int, default=5)
+    p.add_argument("--timespans", default="alltime")
+    p.add_argument("--weighted", action="store_true",
+                   help="sum the source's per-point 'value' column "
+                   "instead of counting points")
+    p.add_argument("--cascade-backend", default="auto",
+                   choices=("auto", "scatter", "partitioned"))
+    _add_parallel_flags(p)
+    p.add_argument("--metrics-dir", default=None, metavar="DIR",
+                   help="enable the metrics registry and write "
+                   "DIR/metrics.prom at command end")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append structured events to PATH (ingest_tick, "
+                   "delta_applied, compaction_start/end; the JAX "
+                   "package's schema)")
+    p.add_argument("--report", nargs="?", const="run_report.json",
+                   default=None, metavar="PATH",
+                   help="fold tracer + metrics + events into a run report "
+                   "at PATH and print the span table to stderr")
+    _add_temporal_refusals(p)
+    _add_trace_flags(p)
+
+
+def run_ingest_command(args):
+    """The ``ingest`` command: drain ``--input`` through the
+    continuous-ingest loop (heatmap_tpu_torch.ingest) into the delta
+    store at ``--journal``, each micro-batch journaled as a signed epoch
+    and applied through the bucketed cascade on the card (the CPU with
+    ``--backend cpu``). A ``staleness`` SLO over tick recency rides the
+    shared ``--slo`` flag, e.g. ``--slo fresh:staleness:max_age_s=30``.
+
+    Returns ``(summary, stats)``: the summary that ``ingest`` prints
+    (the JAX ``ingest``'s keys, then ``device``) and the loop's
+    ``IngestStats`` (feeder numbers included)."""
+    from heatmap_tpu_torch import delta as delta_mod
+    from heatmap_tpu_torch import ingest as ingest_mod
+    from heatmap_tpu_torch.io import open_source
+    from heatmap_tpu_torch.pipeline import bucketing
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    requested = tuple(t.strip() for t in args.timespans.split(",")
+                      if t.strip())
+    bad = [t for t in requested if t not in VALID_TYPES]
+    if bad:
+        raise SystemExit(
+            f"--timespans: unknown type(s) {bad}; valid: "
+            f"{', '.join(VALID_TYPES)}")
+    if args.no_x64:
+        raise SystemExit("--no-x64: the composite-key cascade needs int64 "
+                         "keys; drop --no-x64")
+    device = _init_backend(args)
+    try:
+        config = BatchJobConfig(
+            detail_zoom=args.detail_zoom,
+            min_detail_zoom=args.min_detail_zoom,
+            result_delta=args.result_delta,
+            timespans=requested,
+            weighted=args.weighted,
+            cascade_backend=args.cascade_backend,
+            pad_bucketing=args.pad_bucketing,
+            pad_bucket_min=args.pad_bucket_min,
+        )
+        ing = ingest_mod.IngestConfig(
+            micro_batch=args.micro_batch,
+            queue_depth=args.queue_depth or None,
+            sign=-1 if args.retract else 1,
+            compact_every=args.compact_every,
+            compact_max_age_s=args.compact_max_age,
+            retention=args.retention,
+            max_ticks=args.max_ticks,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    tel = _Telemetry(args, "ingest", config, device, providers={
+        "delta": lambda: {
+            "journal": args.journal,
+            "live_deltas": len(delta_mod.live_entries(args.journal))}})
+    summary = {"journal": args.journal}
+    try:
+        delta_mod.init_store(args.journal)
+        stats = ingest_mod.run_ingest(
+            args.journal, open_source(args.input, read_value=args.weighted),
+            config, ingest=ing, device=device)
+        summary.update({
+            "ticks": stats.ticks, "points": stats.points,
+            "epochs": len(stats.epochs), "duplicates": stats.duplicates,
+            "watermark": stats.watermark,
+            "max_queue_depth": stats.max_queue_depth,
+            "compactions": stats.compactions,
+            "keys_invalidated": stats.keys_invalidated,
+            "live_deltas": len(delta_mod.live_entries(args.journal)),
+            "compile_cache": bucketing.cache_stats(),
+        })
+    except (ValueError, NotImplementedError) as e:
+        # A config mismatch or an unported store feature: one line.
+        tel.finish(error=e)
+        raise SystemExit(str(e)) from e
+    except BaseException as e:  # run_end must record it
+        tel.finish(error=e)
+        raise
+    seconds = tel.finish(rows=int(summary.get("points", 0)))
+    summary["seconds"] = round(seconds, 3)
+    summary["device"] = device
+    return summary, stats
+
+
+def cmd_ingest(args) -> int:
+    print(json.dumps(run_ingest_command(args)[0]))
     return 0
 
 

@@ -98,7 +98,8 @@ _AUTO_WATERMARK = object()
 def apply_batch(root: str, source, config, *, sign: int = 1,
                 batch_size: int = 1 << 20,
                 watermark=_AUTO_WATERMARK, device="cuda",
-                timer=None) -> DeltaResult:
+                timer=None, device_columns: dict | None = None
+                ) -> DeltaResult:
     """Journal + compute one incremental batch against a delta store.
 
     Idempotent: a batch whose content hash is already journaled is a
@@ -109,6 +110,11 @@ def apply_batch(root: str, source, config, *, sign: int = 1,
     fenced stages. The default tracer records ``delta.read``,
     ``delta.hash``, ``delta.compute``, ``delta.journal`` and
     ``delta.keys`` spans.
+
+    ``device_columns`` are the batch's numeric columns already on the
+    card (the ingest loop's feeder): the cascade reads them, while the
+    content hash and the journal entry read the source's host columns,
+    so the hash is the one an unfed apply computes.
     """
     if sign not in (1, -1):
         raise ValueError("sign must be +1 (insert) or -1 (retraction)")
@@ -145,7 +151,8 @@ def apply_batch(root: str, source, config, *, sign: int = 1,
         with span("delta.compute", items=n_points):
             stats = compute_delta(ColumnsSource(cols), out_dir, config,
                                   sign=sign, batch_size=batch_size,
-                                  device=device, timer=timer)
+                                  device=device, timer=timer,
+                                  device_columns=device_columns)
         rows = int(stats.get("rows", 0)) if isinstance(stats, dict) else 0
         if watermark is _AUTO_WATERMARK:
             watermark = _watermark(cols)

@@ -106,11 +106,14 @@ class _NegatingLevels:
 
 
 def compute_delta(source, out_dir: str, config, *, sign: int = 1,
-                  batch_size: int = 1 << 20, device="cuda", timer=None):
+                  batch_size: int = 1 << 20, device="cuda", timer=None,
+                  device_columns: dict | None = None):
     """Run ``source`` through the full batch cascade on ``device`` into a
     delta artifact dir (LevelArraysSink format). Returns run_job's
     stats. ``timer`` (a devices.StageTimer) records the job's fenced
-    per-stage milliseconds."""
+    per-stage milliseconds; ``device_columns`` (fed tensors of the
+    source's kept rows, see ``run_job``) replace its numeric host
+    columns on the card."""
     from heatmap_tpu_torch.obs import tracing
     from heatmap_tpu_torch.pipeline.batch import run_job
 
@@ -121,7 +124,8 @@ def compute_delta(source, out_dir: str, config, *, sign: int = 1,
         sink = _NegatingLevels(sink)
     with tracing.span("delta.compute", sign=sign):
         return run_job(source, sink, config, batch_size=batch_size,
-                       device=device, timer=timer)
+                       device=device, timer=timer,
+                       device_columns=device_columns)
 
 
 class TileKeySet(collections.abc.Set):

@@ -1,8 +1,8 @@
 """Ingest-loop metric handles on the shared obs registry.
 
-The port's copy of heatmap_tpu/ingest/metrics.py: the same series. The
-journaled ``run_ingest`` loop that feeds the ``ingest_*`` handles is
-ROADMAP Queue 1 item 4; ``record_stream_tick`` serves ``stream`` now.
+The port's copy of heatmap_tpu/ingest/metrics.py: the same series.
+``run_ingest`` feeds the ``ingest_*`` handles; ``record_stream_tick``
+serves ``stream``.
 
 Module-level, created once at import (the delta/metrics.py pattern):
 handles survive ``registry.reset()`` between tests and self-gate on

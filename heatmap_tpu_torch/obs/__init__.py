@@ -9,7 +9,18 @@ The port's copy of the core of heatmap_tpu/obs (docs/observability.md):
 - ``obs.tracing``: hierarchical span trees with Chrome/Perfetto export
   (``--trace-out``, ``--trace-sample``);
 - ``obs.report``: folds tracer, registry and events into
-  ``run_report.json`` and a table (``--report``).
+  ``run_report.json`` and a table (``--report``);
+- ``obs.recorder``: the flight recorder, bounded rings of completed
+  spans and events with tail-based promotion
+  (``--flight-recorder-spans``, ``--tail-latency-ms``);
+- ``obs.slo``: declarative SLOs with burn rates over the event stream
+  (``--slo``);
+- ``obs.incident``: incident bundles flushed on failure edges
+  (``--incident-dir``);
+- ``obs.timeseries``: the tiered in-process time-series store and its
+  background sampler (``--telemetry-sample-interval``);
+- ``obs.anomaly``: EWMA + MAD z-score watches over sampled series
+  (``--watch``).
 
 This module owns the shared metric handles (created once on the default
 registry; ``registry.reset()`` clears values and keeps these objects
@@ -18,25 +29,31 @@ recorder is a no-op while neither the registry is enabled nor an event
 log installed, so with telemetry off the pipeline pays a global read or
 two per site and writes the same bytes.
 
-Not ported yet (ROADMAP Queue 1 item 6): ``anomaly``, ``incident``,
-``recorder``, ``slo`` and ``timeseries``, with the CLI flags that arm
-them. The serve tier's process gauges wait with ``serve/`` (item 6); the
-multihost recorders (heartbeats, shard retries, elastic shards,
+The serve tier's process gauges wait with ``serve/`` (ROADMAP Queue 1
+item 6); the multihost recorders (heartbeats, shard retries, elastic shards,
 partition plans, speculative launches) wait for ``parallel/`` (item 7):
 the port has one process, index 0 of 1.
 """
 
 from __future__ import annotations
 
-from heatmap_tpu_torch.obs import events, metrics, tracing
+from heatmap_tpu_torch.obs import (anomaly, events, incident, metrics,
+                                   recorder, slo, timeseries, tracing)
+from heatmap_tpu_torch.obs.anomaly import (AnomalyEngine, WatchSpec,
+                                           parse_watch_spec)
 from heatmap_tpu_torch.obs.events import (EVENT_SCHEMA, EventLog, emit,
                                           get_event_log, read_events,
                                           set_event_log, validate_event)
+from heatmap_tpu_torch.obs.incident import IncidentManager
 from heatmap_tpu_torch.obs.metrics import (MetricsRegistry, enable_metrics,
                                            get_registry, metrics_enabled)
+from heatmap_tpu_torch.obs.recorder import FlightRecorder
 from heatmap_tpu_torch.obs.report import (blob_checksum, build_run_report,
                                           format_run_report,
                                           write_run_report)
+from heatmap_tpu_torch.obs.slo import (SLOEngine, SLOSpec, install_specs,
+                                       parse_slo_spec, slo_status)
+from heatmap_tpu_torch.obs.timeseries import TelemetrySampler, TimeSeriesStore
 from heatmap_tpu_torch.obs.tracing import (TraceCollector, current_span,
                                            current_traceparent,
                                            disable_tracing, enable_tracing,
@@ -90,6 +107,16 @@ FAULTS_INJECTED = _registry.counter(
 IO_RETRIES = _registry.counter(
     "io_retries_total", "I/O operations retried by faults.retry",
     labelnames=("site",))
+INCIDENTS_TOTAL = _registry.counter(
+    "incidents_total", "Incident bundles flushed, by trigger edge",
+    labelnames=("trigger",))
+RECORDER_DROPPED = _registry.counter(
+    "recorder_dropped_total",
+    "Flight-recorder ring evictions (spans + events)")
+ANOMALIES_TOTAL = _registry.counter(
+    "anomalies_total",
+    "Anomaly-detector rising edges, by watch spec",
+    labelnames=("watch",))
 
 
 def telemetry_enabled() -> bool:
@@ -187,13 +214,18 @@ def record_io_retry(site: str):
 
 
 __all__ = [
-    "EVENT_SCHEMA", "EventLog", "FEEDER_DEPTH", "MetricsRegistry",
-    "TraceCollector", "blob_checksum", "build_run_report", "current_span",
+    "ANOMALIES_TOTAL", "AnomalyEngine", "EVENT_SCHEMA", "EventLog",
+    "FEEDER_DEPTH", "FlightRecorder", "INCIDENTS_TOTAL", "IncidentManager",
+    "MetricsRegistry", "RECORDER_DROPPED", "SLOEngine", "SLOSpec",
+    "TelemetrySampler", "TimeSeriesStore", "TraceCollector", "WatchSpec",
+    "anomaly", "blob_checksum", "build_run_report", "current_span",
     "current_traceparent", "device_topology", "disable_tracing", "emit",
     "enable_metrics", "enable_tracing", "events", "format_run_report",
-    "get_collector", "get_event_log", "get_registry", "metrics",
-    "metrics_enabled", "parse_traceparent", "read_events", "record_fault",
-    "record_io_retry", "record_stage",
-    "sample_device_memory", "set_event_log", "telemetry_enabled",
-    "tracing", "tracing_enabled", "validate_event", "write_run_report",
+    "get_collector", "get_event_log", "get_registry", "incident",
+    "install_specs", "metrics", "metrics_enabled", "parse_slo_spec",
+    "parse_traceparent", "parse_watch_spec", "read_events", "record_fault",
+    "record_io_retry", "record_stage", "recorder", "sample_device_memory",
+    "set_event_log", "slo", "slo_status", "telemetry_enabled",
+    "timeseries", "tracing", "tracing_enabled", "validate_event",
+    "write_run_report",
 ]

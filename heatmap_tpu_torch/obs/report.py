@@ -2,8 +2,7 @@
 
 The port's copy of heatmap_tpu/obs/report.py. ``blob_checksum`` is the
 JAX package's, so two runs of either package with the same blobs
-carry the same checksum. The SLO section waits for ``obs.slo`` (ROADMAP
-Queue 1 item 6); the report has none until then.
+carry the same checksum.
 
 ``build_run_report`` produces the ``run_report.json`` artifact: the run
 manifest (from ``run_start``/``run_end``), per-stage wall-clock with
@@ -113,11 +112,14 @@ def build_run_report(tracer=None, registry=None,
         if last_mem is not None:
             report["device_memory"] = last_mem
 
-    from heatmap_tpu_torch.obs import tracing
+    from heatmap_tpu_torch.obs import slo, tracing
 
     collector = tracing.get_collector()
     if collector is not None:
         report["trace"] = collector.summary()
+    slo_state = slo.slo_status()
+    if slo_state is not None:
+        report["slo"] = slo_state
 
     if warnings:
         report["warnings"] = warnings

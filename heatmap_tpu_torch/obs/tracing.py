@@ -1,8 +1,7 @@
 """Hierarchical distributed tracing: span trees over the flat tracer.
 
-The port's copy of heatmap_tpu/obs/tracing.py. The flight-recorder hook
-``_recorder`` stays None until ``obs.recorder`` is ported (ROADMAP
-Queue 1 item 6).
+The port's copy of heatmap_tpu/obs/tracing.py. ``obs.recorder.install``
+sets the flight-recorder hook ``_recorder``.
 
 The flat tracer answers "how much time did stage X take in aggregate";
 this module answers "where did *this* request or *this* delta apply

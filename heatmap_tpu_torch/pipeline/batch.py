@@ -37,13 +37,14 @@ import torch
 
 from heatmap_tpu_torch import native
 from heatmap_tpu_torch.devices import resolve_device, stage
+from heatmap_tpu_torch.pipeline import bucketing as bucketing_mod
 from heatmap_tpu_torch.pipeline import cascade as cascade_mod
 from heatmap_tpu_torch.pipeline import feeder as feeder_mod
 from heatmap_tpu_torch.pipeline.groups import ALL_GROUP, EXCLUDED, UserVocab
 from heatmap_tpu_torch.pipeline.timespan import TS_MISSING, TimespanVocab
 from heatmap_tpu_torch.tilemath import mercator, morton
 from heatmap_tpu_torch.utils.checkpoint import CheckpointManager
-from heatmap_tpu_torch.utils.trace import get_tracer
+from heatmap_tpu_torch.utils.trace import get_tracer, stage_tracing_enabled
 
 BACKGROUND_SOURCE = "background"  # dropped at ingest, reference heatmap.py:28-29
 
@@ -82,8 +83,29 @@ class BatchJobConfig:
     #: sync per level; identical blobs; ops.pyramid.adaptive_keep). On
     #: the partitioned backend it cuts each level's output capacity.
     adaptive_capacity: bool = False
+    #: Bucketed padding (pipeline/bucketing.py): "exact" (default;
+    #: shapes follow the input), "pow2" or "geometric" (pad emissions up
+    #: to a power-of-two / 1.25x-geometric bucket with masked pad lanes,
+    #: the JAX package's compile-cache knob). Byte-neutral: decode
+    #: truncates to the real unique counts. Runtime tuning, not data
+    #: semantics: delta/compact.CONFIG_FIELDS leaves it out, so stores
+    #: accept mixed settings.
+    pad_bucketing: str = "exact"
+    #: Bucket floor for pad_bucketing != "exact": batches below this
+    #: many emissions pad up to it (bucketing.bucket_size).
+    pad_bucket_min: int = 1 << 12
 
     def __post_init__(self):
+        if self.pad_bucketing not in bucketing_mod.BUCKETING_MODES:
+            raise ValueError(
+                f"unknown pad_bucketing {self.pad_bucketing!r} (valid: "
+                f"{', '.join(bucketing_mod.BUCKETING_MODES)}) — rejected "
+                "at config time so a typo fails before a multi-hour ingest"
+            )
+        if self.pad_bucket_min < 1:
+            raise ValueError(
+                f"pad_bucket_min must be >= 1, got {self.pad_bucket_min}"
+            )
         if self.cascade_backend not in ("auto", "scatter", "partitioned"):
             raise ValueError(
                 f"unknown cascade backend {self.cascade_backend!r} "
@@ -187,10 +209,19 @@ def load_rows(rows):
     return out
 
 
+def kept_rows(batch):
+    """Indices of the rows the ingest filter keeps (``source`` is not
+    "background", reference heatmap.py:28-29), or None for all rows."""
+    src = batch.get("source")
+    if src is None or not len(src):
+        return None
+    keep = np.asarray(src, object) != BACKGROUND_SOURCE
+    return None if keep.all() else np.flatnonzero(keep)
+
+
 def load_columns(batch):
     """Vectorized ingest filter over a columnar source batch: drops
     ``source == "background"`` rows (reference heatmap.py:28-29)."""
-    src = batch.get("source")
     lat = np.asarray(batch["latitude"], np.float64)
     lon = np.asarray(batch["longitude"], np.float64)
     users = batch["user_id"]
@@ -200,15 +231,13 @@ def load_columns(batch):
         values = np.asarray(values, np.float64)
     if stamps is None or len(stamps) == 0:
         stamps = [None] * len(lat)
-    if src is not None and len(src):
-        keep = np.asarray(src, object) != BACKGROUND_SOURCE
-        if not keep.all():
-            idx = np.flatnonzero(keep)
-            lat, lon = lat[idx], lon[idx]
-            users = [users[i] for i in idx]
-            stamps = [stamps[i] for i in idx]
-            if values is not None:
-                values = values[idx]
+    idx = kept_rows(batch)
+    if idx is not None:
+        lat, lon = lat[idx], lon[idx]
+        users = [users[i] for i in idx]
+        stamps = [stamps[i] for i in idx]
+        if values is not None:
+            values = values[idx]
     out = {
         "latitude": lat,
         "longitude": lon,
@@ -346,7 +375,8 @@ def run_job(source, sink=None, config: BatchJobConfig | None = None,
             overlap_ingest: bool = True,
             merge_spill_dir: str | None = None,
             device="cuda", timer=None,
-            feeder_stats: feeder_mod.FeederStats | None = None):
+            feeder_stats: feeder_mod.FeederStats | None = None,
+            device_columns: dict | None = None):
     """Source-to-sink job over columnar batches (reference batchMain with
     the row reader and the writer replaced by io sources and sinks).
 
@@ -372,9 +402,23 @@ def run_job(source, sink=None, config: BatchJobConfig | None = None,
 
     ``timer`` (a devices.StageTimer) records per-stage milliseconds,
     fenced by device synchronisation.
+
+    ``device_columns`` holds numeric columns already on ``device`` (the
+    ingest loop's feeder, pipeline/feeder.py ``CudaColumns``):
+    ``latitude``, ``longitude`` and ``value`` tensors of the rows the
+    ingest filter keeps, in source order. The cascade reads them in place
+    of the host columns, with no second host-to-device copy; everything
+    host-side (vocabularies, timespans) still comes from the source. Such
+    a job runs single-shot.
     """
     config = config or BatchJobConfig()
     device = resolve_device(device)
+    if device_columns is not None:
+        if max_points_in_flight:
+            raise ValueError("device_columns ride the single-shot path; "
+                             "they cannot combine with "
+                             "max_points_in_flight")
+        max_points_in_flight = 0
     if max_points_in_flight is None:
         max_points_in_flight = _auto_points_in_flight(source)
     if merge_spill_dir is not None and not max_points_in_flight:
@@ -395,8 +439,27 @@ def run_job(source, sink=None, config: BatchJobConfig | None = None,
         data = ingest_columns(source.batches(batch_size), config)
     if data is None:
         return {}
+    if device_columns is not None:
+        data = _with_device_columns(data, device_columns, device)
     return _run_loaded(data, config, as_json=True, sink=sink, device=device,
                        timer=timer)
+
+
+def _with_device_columns(data, device_columns, device):
+    """``data`` with its numeric host columns swapped for the fed
+    tensors of the same rows (checked by length and device)."""
+    out = dict(data)
+    n = len(data["latitude"])
+    for name, t in device_columns.items():
+        if name not in data:
+            continue
+        if t.device.type != device.type or int(t.shape[0]) != n:
+            raise ValueError(
+                f"fed column {name!r} ({int(t.shape[0])} rows on "
+                f"{t.device}) does not match the batch ({n} rows on "
+                f"{device})")
+        out[name] = t
+    return out
 
 
 #: Rough host bytes per point on the string ingest path: two f64 coords
@@ -1543,6 +1606,11 @@ def _run_loaded(data, config: BatchJobConfig, as_json: bool, sink=None,
     )
 
 
+def _dtype_name(t) -> str:
+    """A tensor's dtype as numpy names it ("int64")."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def _run_grouped(lat, lon, group_ids, timestamps, vocab,
                  config: BatchJobConfig, as_json: bool, sink=None,
                  weights=None, device="cuda", timer=None):
@@ -1553,19 +1621,48 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
     with stage(timer, "project"):
         codes, valid = project_codes(lat, lon, config.detail_zoom, device)
     with stage(timer, "emissions"):
-        w = (None if not config.weighted else
-             torch.as_tensor(np.asarray(weights, np.float64), device=device))
+        w = None
+        if config.weighted:
+            w = (weights.to(device=device, dtype=torch.float64)
+                 if isinstance(weights, torch.Tensor) else
+                 torch.as_tensor(np.asarray(weights, np.float64),
+                                 device=device))
         e_codes, e_slots, e_valid, ts_vocab, n_groups, e_weights = (
             build_emissions(codes, valid, group_ids, timestamps, config,
                             weights=w))
     n_slots = len(ts_vocab) * n_groups
     ccfg = config.cascade_config()
+    if config.pad_bucketing != "exact":
+        # Pad to the bucket on the card: capacity and n_slots are then
+        # functions of the bucket, not of the batch (pipeline/bucketing.py).
+        with get_tracer().span("cascade.bucket", items=len(e_codes)):
+            target = bucketing_mod.bucket_size(
+                len(e_codes), config.pad_bucketing, config.pad_bucket_min)
+            e_codes, e_slots, e_valid, e_weights = (
+                bucketing_mod.pad_emissions(
+                    e_codes, e_slots, e_valid, e_weights, target))
+            n_slots = bucketing_mod.bucket_slots(n_slots)
+    backend = config.resolved_cascade_backend(device)
+    capacity = config.capacity or len(e_codes)
+    acc_dtype = torch.float64 if e_weights is not None else None
+    if not stage_tracing_enabled() and not config.adaptive_capacity:
+        # The JAX package's jit cache key for this dispatch (shapes and
+        # every static arg of its _build_cascade_jit, one device, no
+        # mesh): the mirror counts what it would compile, so
+        # cache_stats() equals the JAX package's.
+        bucketing_mod.note_dispatch(
+            (int(e_codes.shape[0]), _dtype_name(e_codes),
+             _dtype_name(e_slots), e_valid is not None,
+             None if e_weights is None else _dtype_name(e_weights),
+             ccfg, n_slots, capacity,
+             None if acc_dtype is None else "float64",
+             backend, None, "replicated", config.weight_bound, None, None),
+            config.pad_bucketing)
     levels = cascade_mod.run_cascade(
         e_codes, e_slots, ccfg, n_slots=n_slots, valid=e_valid,
-        capacity=config.capacity or len(e_codes), weights=e_weights,
+        capacity=capacity, weights=e_weights,
         # Weighted sums accumulate in f64; counts use int32.
-        acc_dtype=torch.float64 if e_weights is not None else None,
-        backend=config.resolved_cascade_backend(device),
+        acc_dtype=acc_dtype, backend=backend,
         weight_bound=config.weight_bound, timer=timer,
         adaptive=config.adaptive_capacity,
     )

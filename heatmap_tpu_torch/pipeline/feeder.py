@@ -7,7 +7,9 @@ of the consumer. The chunked batch job (pipeline/batch.py) feeds each
 chunk's ``latitude``, ``longitude`` and ``value`` columns this way.
 
 Only the transfer differs from the JAX package's ``device_put``
-(:class:`CudaTransfer`): on a CUDA device the worker copies a chunk's
+(:class:`CudaTransfer` for the chunked job's tuples, :class:`CudaColumns`
+for the ingest loop's column dicts, the counterpart of
+``device_put_columns``): on a CUDA device the worker copies the numeric
 columns into pinned host memory and issues ``non_blocking`` copies on a
 side stream of its own, then records an event there; the consumer makes
 its stream wait on that event before it reads the tensors
@@ -106,30 +108,90 @@ class CudaTransfer:
                 for i in self.columns:
                     col = item[i]
                     if isinstance(col, np.ndarray):
-                        pinned = torch.empty(
-                            col.shape, pin_memory=True,
-                            dtype=torch.from_numpy(col[:0].copy()).dtype)
-                        pinned.numpy()[...] = col
-                        out[i] = pinned.to(self.device, non_blocking=True)
+                        out[i] = _pinned_copy(col, self.device)
             event = torch.cuda.Event()
             event.record(self._stream)
         return Fed(tuple(out), event, self.device)
 
 
+def _pinned_copy(col: np.ndarray, device) -> torch.Tensor:
+    """``col`` through a fresh pinned host buffer onto ``device``, as a
+    ``non_blocking`` copy on the current stream."""
+    pinned = torch.empty(col.shape, pin_memory=True,
+                         dtype=torch.from_numpy(col[:0].copy()).dtype)
+    pinned.numpy()[...] = col
+    return pinned.to(device, non_blocking=True)
+
+
+@dataclasses.dataclass
+class FedColumns:
+    """One column batch after a :class:`CudaColumns` transfer: ``cols``
+    is the batch as the source gave it (host arrays, which the content
+    hash and the journal read), ``device`` the kept rows' numeric
+    columns on the card (which the cascade reads)."""
+
+    cols: dict
+    device: dict
+
+
+class CudaColumns:
+    """``transfer`` for :func:`feed` of column dicts onto a CUDA device:
+    the counterpart of the JAX package's ``device_put_columns``.
+
+    The float columns among ``columns`` (``latitude``, ``longitude`` and
+    ``value`` by default) of the rows the ingest filter keeps
+    (``pipeline.batch.kept_rows``) go to ``device`` as float64 through
+    pinned buffers on the worker's side stream, as in
+    :class:`CudaTransfer`. The call returns a :class:`Fed` whose item is
+    a :class:`FedColumns` holding the untouched host dict beside the
+    tensors, so nothing downstream copies a fed batch back to the host.
+    """
+
+    def __init__(self, device, columns=("latitude", "longitude", "value")):
+        self.device = torch.device(device)
+        self.columns = columns
+        self._stream = None
+
+    def __call__(self, cols: dict) -> Fed:
+        from heatmap_tpu_torch.pipeline.batch import kept_rows
+
+        idx = kept_rows(cols)
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            out = {}
+            with torch.cuda.stream(self._stream):
+                for name in self.columns:
+                    col = cols.get(name)
+                    if not (isinstance(col, np.ndarray)
+                            and col.dtype.kind in "fiu"):
+                        continue
+                    col = np.asarray(col, np.float64)
+                    if idx is not None:
+                        col = col[idx]
+                    out[name] = _pinned_copy(col, self.device)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return Fed(FedColumns(cols, out), event, self.device)
+
+
 def ready(fed):
-    """The consumer's side of :class:`CudaTransfer`: make the current
-    stream wait for the copies, mark each tensor as used on that stream
-    (so the caching allocator keeps its memory until the consumer's work
-    on it is done, not just the side stream's), and return the item.
-    Anything else passes through."""
+    """The consumer's side of :class:`CudaTransfer` and
+    :class:`CudaColumns`: make the current stream wait for the copies,
+    mark each tensor as used on that stream (so the caching allocator
+    keeps its memory until the consumer's work on it is done, not just
+    the side stream's), and return the item. Anything else passes
+    through."""
     if not isinstance(fed, Fed):
         return fed
     stream = torch.cuda.current_stream(fed.device)
     stream.wait_event(fed.event)
-    for col in fed.item:
+    item = fed.item
+    tensors = item.device.values() if isinstance(item, FedColumns) else item
+    for col in tensors:
         if isinstance(col, torch.Tensor) and col.is_cuda:
             col.record_stream(stream)
-    return fed.item
+    return item
 
 
 def feed(items, transfer, *, depth: int = DEFAULT_DEPTH,

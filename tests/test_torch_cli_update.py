@@ -182,13 +182,14 @@ def test_update_config_mismatch_is_one_line(tmp_path, capsys):
                    "cpu"])
 
 
+BASE_ARGV = {
+    "run": ["run", "--input", "synthetic:10"],
+    "update": ["update", "--journal", "R", "--input", "synthetic:10"],
+    "ingest": ["ingest", "--journal", "R", "--input", "synthetic:10"],
+}
+
+
 @pytest.mark.parametrize("cmd,flag,value,item", [
-    ("run", "--slo", "lat:latency:p=0.99", 6),
-    ("run", "--flight-recorder-spans", "64", 6),
-    ("run", "--incident-dir", "inc", 6),
-    ("run", "--tail-latency-ms", "50", 6),
-    ("run", "--telemetry-sample-interval", "1", 6),
-    ("run", "--watch", "x:z=6", 6),
     ("run", "--data-parallel", "on", 7),
     ("run", "--dispatch", "gspmd", 7),
     ("update", "--dispatch", "shard_map", 7),
@@ -197,12 +198,10 @@ def test_update_config_mismatch_is_one_line(tmp_path, capsys):
     ("update", "--bucket-keep", "8", 5),
     ("update", "--bucket-tiers", "4", 5),
     ("update", "--bucket-unit-s", "1", 5),
-    ("update", "--slo", "x:latency:p=0.9", 6),
 ])
 def test_unported_flags_refused_at_parse_time(capsys, cmd, flag, value,
                                               item):
-    base = (["run", "--input", "synthetic:10"] if cmd == "run"
-            else ["update", "--journal", "R", "--input", "synthetic:10"])
+    base = BASE_ARGV[cmd]
     with pytest.raises(SystemExit) as exc:
         tcli.build_parser().parse_args([*base, flag, value])
     assert exc.value.code == 2
@@ -216,8 +215,7 @@ def test_unported_flags_refused_at_parse_time(capsys, cmd, flag, value,
     ["--data-parallel", "auto"],
 ])
 def test_off_values_of_unported_flags_parse(flags):
-    for base in (["run", "--input", "synthetic:10"],
-                 ["update", "--journal", "R", "--input", "synthetic:10"]):
+    for base in BASE_ARGV.values():
         tcli.build_parser().parse_args([*base, *flags])
     with pytest.raises(SystemExit) as exc:
         tcli.build_parser().parse_args(["run", "--input", "synthetic:10",
