@@ -44,12 +44,20 @@ just before it and read just after:
   checked against a one-shot run over the surviving points and against
   the same sequence on the CPU (16 segment-reduce launches per applied
   batch);
-- the ``ingest`` command at its defaults over 1M synthetic points (64
-  ticks, 4 compactions), onto the delta phase's store, replayed as
+- the ``ingest`` command at its defaults over 512k synthetic points (32
+  ticks, 2 compactions), onto the delta phase's store, replayed as
   duplicates, partly retracted, with every telemetry flag on, and
   weighted on the card and the CPU: each store checked against a
   one-shot run, the exact-padded synchronous drain and each other (16
   launches per applied tick, none per duplicate);
+- serving: ``delta:`` over the delta phase's store in a ``ServeApp``,
+  1,100 tiles (png and json) fetched cold and warm over HTTP; ``ingest
+  --serve-port 0`` (8 ticks) onto a fresh store while a client
+  fetches, every touched cached tile equal to a cold mount's after
+  each tick, and the store equal to the same drain without serving and
+  on the CPU (16 segment-reduce launches per applied tick); ``serve
+  --follow-stream`` for 16 ticks (one window-histogram launch a tick),
+  its live raster bit-equal to the port's stream on the CPU;
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -141,13 +149,39 @@ DELTA_USER = "user-3"
 #: older ticks would apply them again. (b) runs INGEST_B_TICKS ticks
 #: onto the delta phase's store; (d) retracts the first
 #: N_INGEST_RETRACT points; (f) drains N_INGEST_WEIGHTED weighted points.
-N_INGEST = 1 << 20
+#: (2^20 points until the serve phase came; halved to keep the smoke
+#: within its time.)
+N_INGEST = 1 << 19
 INGEST_SEED = 7
 INGEST_MICRO = 1 << 14
 INGEST_CUT_TICKS = 16
 INGEST_B_TICKS = 8
 N_INGEST_RETRACT = 1 << 18
 N_INGEST_WEIGHTED = 1 << 16
+#: The serve phase. (a) and (b) run in one ``ingest --serve-port 0``
+#: process at the command's defaults over the delta phase's store: (a)
+#: its mount of ``delta:`` and a tile list (the SERVE_TILES most
+#: populated tiles over tile zooms SERVE_ZOOMS of all/alltime, an equal
+#: share per zoom, plus SERVE_EMPTY empty ones, png and json) fetched
+#: cold then warm before the first tick; (b) one tick of INGEST_MICRO
+#: points per entry of SERVE_CLIENT_RPS while a client fetches that list
+#: at the entry's requests a second (0: no client, so the tick shows
+#: the refresh's own cost; None: as fast as one connection goes). No
+#: source gives a request rate per serving process, so the rate is a
+#: free parameter: the small-store case runs one tick at each rate of
+#: SERVE_CURVE_RPS onto a fresh N_SERVE_BASE-point base. Each tick at
+#: the delta phase's 37M rows rebuilds the whole overlay index, and the
+#: stale check after the last mounts the store cold, each about a
+#: minute on an H100 host; with (0, 50) the smoke took 968 s of its
+#: 1,200, so (b) runs the one tick that shows the refresh's own cost.
+#: (c) SERVE_TICKS follow-stream ticks of STREAM_BATCH.
+SERVE_TILES = 1000
+SERVE_EMPTY = 100
+SERVE_ZOOMS = tuple(range(8, 17))
+SERVE_CLIENT_RPS = (0,)
+SERVE_CURVE_RPS = (0, 50, 200, None)
+SERVE_TICKS = 16
+N_SERVE_BASE = 1 << 16
 #: Points of the segment reduce's padded-tick case: 2 emissions per
 #: kept point fill a little over half of the pow2 bucket, so 40-50% of
 #: the sorted lanes are the sentinel tail.
@@ -1609,7 +1643,8 @@ def tree_digest(root):
     return out
 
 
-def ingest_drain(argv=None, library=None, digest_root=None, digest_at=()):
+def ingest_drain(argv=None, library=None, digest_root=None, digest_at=(),
+                 on_serve=None):
     """One drain of the ingest loop: ``cli.run_ingest_command`` on
     ``argv``, or ``ingest.run_ingest(*library)``. Returns the summary
     (or None), the IngestStats, the seconds, the flat tracer's span
@@ -1620,7 +1655,8 @@ def ingest_drain(argv=None, library=None, digest_root=None, digest_at=()):
     ``digest_at`` names the points ("apply15": after the 15th apply,
     "compaction1": after the first compaction) at which the store at
     ``digest_root`` is digested mid-drain; that time is taken out of
-    the tick and drain seconds."""
+    the tick and drain seconds. ``on_serve`` goes to
+    ``run_ingest_command`` (``--serve-port`` drains)."""
     from heatmap_tpu_torch import cli, delta, ingest
     from heatmap_tpu_torch.obs import recorder
     from heatmap_tpu_torch.ops import sparse_partitioned as sp
@@ -1658,7 +1694,7 @@ def ingest_drain(argv=None, library=None, digest_root=None, digest_at=()):
         return out
 
     def promote(*a, **kw):
-        if "ms" in kw:
+        if "ms" in kw and not a:  # the tick's call, not a served request's
             ticks.append(kw["ms"] / 1e3 - digest_s.get(len(ticks), 0.0))
         return real_promote(*a, **kw)
 
@@ -1671,7 +1707,7 @@ def ingest_drain(argv=None, library=None, digest_root=None, digest_at=()):
     try:
         if argv is not None:
             summary, stats = cli.run_ingest_command(
-                cli.build_parser().parse_args(argv))
+                cli.build_parser().parse_args(argv), on_serve=on_serve)
         else:
             stats = ingest.run_ingest(*library[0], **library[1])
     finally:
@@ -1794,7 +1830,8 @@ def phase_ingest(dev, big_root):
     the surviving points; (e)'s events validate, metrics.prom carries
     the ingest and bucket series, the report its slo section, the spill
     dir is written, and its store equals (a)'s after the same ticks;
-    (f)'s stores are equal. Returns (a)'s launches."""
+    (f)'s stores are equal. Returns (a)'s launches and (b)'s tick
+    seconds."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -1973,7 +2010,429 @@ def phase_ingest(dev, big_root):
         "weighted_card_equal_cpu": True,
     })
     emit(out)
-    return launches
+    return launches, b["ticks_s"]
+
+
+def serve_tile_list(store, n_full, n_empty, zooms, seed):
+    """The serve phase's fixed list: the ``n_full`` most populated tiles
+    over ``zooms`` of the all/alltime layer (an equal share per zoom,
+    the rest to the lowest zooms; population = the sum of the tile's
+    detail cells), then ``n_empty`` tiles of those zooms with no data.
+    Returns [(z, x, y, total)]; total 0.0 marks an empty tile."""
+    from heatmap_tpu_torch.tilemath.morton import (morton_decode_np,
+                                                   morton_encode_np)
+
+    layer = store.layer("all|alltime")
+    rd = layer.result_delta
+    share, extra = divmod(n_full, len(zooms))
+    full, seen = [], {}
+    for i, z in enumerate(zooms):
+        level = layer.levels[z + rd]
+        tiles, inv = np.unique(np.asarray(level.codes) >> (2 * rd),
+                               return_inverse=True)
+        sums = np.bincount(inv, weights=np.asarray(level.values))
+        top = np.argsort(-sums, kind="stable")[:share + (i < extra)]
+        r, c = morton_decode_np(tiles[top])
+        full += [(z, int(x), int(y), float(v))
+                 for x, y, v in zip(c.tolist(), r.tolist(), sums[top])]
+        seen[z] = set(tiles.tolist())
+    rng = np.random.default_rng(seed)
+    empty = []
+    while len(empty) < n_empty:
+        z = int(zooms[len(empty) % len(zooms)])
+        x, y = (int(v) for v in rng.integers(0, 1 << z, 2))
+        code = int(morton_encode_np(np.int64(y), np.int64(x)))
+        if code not in seen[z] and (z, x, y, 0.0) not in empty:
+            empty.append((z, x, y, 0.0))
+    return full + empty
+
+
+def tile_paths(tiles, layer="all%7Calltime"):
+    return [f"/tiles/{layer}/{z}/{x}/{y}.{fmt}"
+            for z, x, y, _ in tiles for fmt in ("png", "json")]
+
+
+def fetch(base, paths):
+    """GET every path once over one keep-alive connection: (latencies in
+    s, {path: (status, etag, body)})."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    lat, got = [], {}
+    try:
+        for p in paths:
+            t0 = time.perf_counter()
+            conn.request("GET", p)
+            r = conn.getresponse()
+            body = r.read()
+            lat.append(time.perf_counter() - t0)
+            got[p] = (r.status, r.getheader("ETag"), body)
+    finally:
+        conn.close()
+    return lat, got
+
+
+def paced_client(base, paths, stop, client, gate):
+    """Cycle over ``paths`` on one keep-alive connection until ``stop``
+    is set, at ``client["rps"]`` requests a second (0 pauses; None goes
+    as fast as the connection does), each request under the lock
+    ``gate``; appends (``client["tick"]``, rate, seconds) of each request
+    to ``client["log"]``."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=600)
+    i = 0
+    try:
+        while not stop.is_set():
+            rps = client["rps"]
+            if rps == 0:
+                stop.wait(0.05)
+                continue
+            with gate:
+                t0 = time.perf_counter()
+                conn.request("GET", paths[i % len(paths)])
+                conn.getresponse().read()
+                dt = time.perf_counter() - t0
+            client["log"].append((client["tick"], rps, dt))
+            i += 1
+            if rps is not None:
+                stop.wait(max(1.0 / rps - dt, 0.0))
+    finally:
+        conn.close()
+
+
+def pct_ms(lat):
+    a = np.asarray(lat) * 1e3
+    if not len(a):
+        return {"n": 0}
+    return {"n": len(a), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "max_ms": float(a.max())}
+
+
+def check_tiles(tiles, got):
+    """Populated tiles answer 200 with a JSON body whose values sum to
+    the tile's total and a PNG; empty ones 404."""
+    for z, x, y, total in tiles:
+        js = got[f"/tiles/all%7Calltime/{z}/{x}/{y}.json"]
+        png = got[f"/tiles/all%7Calltime/{z}/{x}/{y}.png"]
+        if total == 0.0:
+            assert js[0] == png[0] == 404, (z, x, y, js[0], png[0])
+            continue
+        assert js[0] == png[0] == 200, (z, x, y, js[0], png[0])
+        assert png[2].startswith(b"\x89PNG"), (z, x, y)
+        assert math.isclose(sum(json.loads(js[2]).values()), total,
+                            rel_tol=1e-12), (z, x, y)
+
+
+def cold_index(spec):
+    """A cold mount for the stale checks: the tile index a ``TileStore``
+    over ``spec`` builds, without its synopsis and integral views, which
+    plain tile requests do not read."""
+    from heatmap_tpu_torch.serve import TileStore
+
+    class TileIndex(TileStore):
+        def _attach_synopses(self, *a):
+            pass
+
+        def _attach_integrals(self, *a):
+            pass
+
+    return TileIndex(spec)
+
+
+def served_drain(root, spec, rates, device, tiles_of, cold_every_tick):
+    """``ingest --serve-port 0`` at the command's defaults (INGEST_MICRO
+    is its ``--micro-batch``) onto the store at ``root``: one tick of
+    ``spec``'s INGEST_MICRO-point batches per
+    entry of ``rates``, while a client thread fetches the tiles
+    ``tiles_of(app, base_url)`` names at tick k's entry of ``rates`` requests a
+    second (``paced_client``). ``tiles_of`` runs once the server is up,
+    before the first tick. After every applied tick, with the client
+    held: each tile cached before or after the refresh that the tick
+    touched, and each such JSON tile, re-fetched over HTTP equals the live index's uncached answer
+    (status, body, ETag), and a cold mount's (``cold_index``) after
+    every tick when ``cold_every_tick``, else after the last. All ticks'
+    batches are queued before the first tick (at most the default
+    queue's 4), so a tick's lag less the checks so far is its lag
+    without them. Returns the drain record (``ingest_drain``) with the
+    launches, the tile list and, per tick, its figures."""
+    import threading
+    import urllib.parse
+
+    from heatmap_tpu_torch import delta, obs
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.serve import ServeApp, TileCache
+
+    assert 1 <= len(rates) <= 4, rates
+    events = root + ".serve_events.jsonl"
+    stop, gate = threading.Event(), threading.Lock()
+    client = {"rps": rates[0], "tick": 0, "log": []}
+    per = {"refresh_s": [], "dropped": [], "checked": [], "check_s": []}
+    state = {}
+    real_refresh = delta.refresh_serving
+
+    def on_serve(app, base_url):
+        state["base"] = base_url
+        state["tiles"] = tiles_of(app, base_url)
+        state["thread"] = threading.Thread(
+            target=paced_client, daemon=True,
+            args=(base_url, tile_paths(state["tiles"]), stop, client, gate))
+        state["thread"].start()
+
+    def refresh(result, store, cache=None):
+        before = list(cache._entries)
+        t0 = time.perf_counter()
+        n = real_refresh(result, store, cache)
+        per["refresh_s"].append(time.perf_counter() - t0)
+        per["dropped"].append(n)
+        tick = len(per["refresh_s"])
+        with gate:
+            t0 = time.perf_counter()
+            keys = [k for k in dict.fromkeys(before + list(cache._entries))
+                    if len(k) == 5 and (k in result.affected_keys
+                                        or k[4] == "json")]
+            paths = [f"/tiles/{urllib.parse.quote(k[0], safe='')}/"
+                     f"{k[1]}/{k[2]}/{k[3]}.{k[4]}" for k in keys]
+            _, live = fetch(state["base"], paths)
+            apps = [ServeApp(store, TileCache())]
+            if cold_every_tick or tick == len(rates):
+                apps.append(ServeApp(cold_index(f"delta:{root}"),
+                                     TileCache()))
+            for p in paths:
+                for app in apps:
+                    want = app.handle("GET", p)
+                    assert live[p] == (want[0], want[3], want[2]), \
+                        f"stale tile after tick {tick}: {p}"
+            per["checked"].append(len(paths))
+            per["check_s"].append(time.perf_counter() - t0)
+            client["tick"] = tick
+            client["rps"] = rates[min(tick, len(rates) - 1)]
+        return n
+
+    delta.refresh_serving = refresh
+    sp.aggregate_sorted_keys_partitioned.launches = 0
+    try:
+        rec = ingest_drain(["ingest", "--journal", root, "--input", spec,
+                            "--device", device, "--serve-port", "0",
+                            "--micro-batch", str(INGEST_MICRO),
+                            "--events", events], on_serve=on_serve)
+    finally:
+        delta.refresh_serving = real_refresh
+        stop.set()
+    rec["launches"] = sp.aggregate_sorted_keys_partitioned.launches
+    state["thread"].join(60)
+    assert rec["stats"].ticks == len(rates) == len(per["refresh_s"]), \
+        (rec["stats"].ticks, len(per["refresh_s"]))
+    lags = [r["lag_s"] for r in obs.read_events(events)
+            if r["event"] == "ingest_tick"]
+    rec["tiles"] = state["tiles"]
+    rec["per_tick"] = [{
+        "client_rps": rates[i],
+        "tick_s": rec["ticks_s"][i] - per["check_s"][i],
+        "refresh_serving_s": per["refresh_s"][i],
+        "entries_dropped": per["dropped"][i],
+        "ingest_lag_s": lags[i] - sum(per["check_s"][:i + 1]),
+        "tiles_during_tick": pct_ms([s for t, _, s in client["log"]
+                                     if t == i]),
+        "stale_check": {"tiles": per["checked"][i],
+                        "seconds": per["check_s"][i]},
+    } for i in range(len(rates))]
+    return rec
+
+
+def phase_serve(dev, big_root, plain_ticks_s):
+    """Serving on the card's stores, as SERVE_* describe. (a) and (b):
+    ``ingest --serve-port 0`` at its defaults onto the delta phase's
+    store (``big_root``): its mount of ``delta:``, the tile list fetched
+    cold then warm before the first tick (equal answers, each tile's
+    JSON summing to its total), then one tick per SERVE_CLIENT_RPS entry
+    with the stale checks of ``served_drain`` (a cold mount after the
+    last tick); 16 segment-reduce launches per applied tick; the store
+    equal to the same drain on the CPU. ``plain_ticks_s`` are the ingest
+    phase's ticks onto that store without serving. The small-store
+    case: the same onto a fresh compacted N_SERVE_BASE-point base, one
+    tick per SERVE_CURVE_RPS entry, a cold mount after every tick, the
+    store equal to the same drain without serving. (c) ``serve
+    --follow-stream`` at its defaults with ``--tick-seconds 0`` for
+    SERVE_TICKS ticks over the small store: one window-histogram launch
+    a tick, the live raster bit-equal to the port's HeatmapStream on the
+    CPU over the same points. Returns the segment-reduce launches of the
+    served ticks and (c)'s histogram launches."""
+    import threading
+
+    from heatmap_tpu_torch import cli, delta
+    from heatmap_tpu_torch.io import open_source
+    from heatmap_tpu_torch.ops.histogram import window_from_bounds
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, load_columns
+    from heatmap_tpu_torch.serve import LiveLayer
+    from heatmap_tpu_torch.streaming import HeatmapStream
+
+    device = dev.type
+    n_levels = BatchJobConfig().cascade_config().n_levels + 1
+    out = {"phase": "serve"}
+
+    def ticks_summary(rec, plain_s):
+        served = [t["tick_s"] for t in rec["per_tick"]]
+        return {"ticks": len(served), "launches": rec["launches"],
+                "launches_per_applied_tick": n_levels,
+                "per_tick": rec["per_tick"],
+                "tick_s_plain": {"median": statistics.median(plain_s),
+                                 "max": max(plain_s)}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) and (b) on the delta phase's store; a copy for the CPU.
+        cpu_root = os.path.join(tmp, "big_cpu")
+        shutil.copytree(big_root, cpu_root)
+        spec = f"synthetic:{len(SERVE_CLIENT_RPS) * INGEST_MICRO}:22"
+        a = {"live_deltas": len(delta.live_entries(big_root))}
+        t_start = time.perf_counter()
+
+        def cold_then_warm(app, base_url):
+            a["mount_s"] = time.perf_counter() - t_start
+            store = app.store
+            a["store_rows"] = int(sum(
+                len(lv) for name, layer in store.layers.items()
+                if name != "default" for lv in layer.levels.values()))
+            tiles = serve_tile_list(store, SERVE_TILES, SERVE_EMPTY,
+                                    SERVE_ZOOMS, 1)
+            paths = tile_paths(tiles)
+            t0 = time.perf_counter()
+            cold_lat, cold = fetch(base_url, paths)
+            cold_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            warm_lat, warm = fetch(base_url, paths)
+            warm_s = time.perf_counter() - t0
+            assert warm == cold, "warm answers differ from cold"
+            check_tiles(tiles, cold)
+            a.update({
+                "requests": len(paths),
+                "cold": {**pct_ms(cold_lat),
+                         "requests_per_s": len(paths) / cold_s},
+                "warm": {**pct_ms(warm_lat),
+                         "requests_per_s": len(paths) / warm_s},
+                "cache_entries": len(app.cache),
+                "cache_bytes": app.cache.nbytes})
+            return tiles
+
+        big = served_drain(big_root, spec, SERVE_CLIENT_RPS, device,
+                           cold_then_warm, cold_every_tick=False)
+        check_ticks(big, n_levels)
+        assert big["launches"] == n_levels * len(SERVE_CLIENT_RPS), \
+            big["launches"]
+        cpu = ingest_drain(["ingest", "--journal", cpu_root, "--input",
+                            spec, "--device", "cpu", "--micro-batch",
+                            str(INGEST_MICRO)])
+        assert tree_digest(big_root) == tree_digest(cpu_root), \
+            "card and CPU ingest stores differ"
+        shutil.rmtree(cpu_root)
+        out["a"] = a
+        out["b"] = {**ticks_summary(big, plain_ticks_s),
+                    "tick_s_cpu_median": statistics.median(cpu["ticks_s"]),
+                    "equal_cpu": True}
+        launches = big["launches"]
+        del big, cpu
+        gc.collect()
+
+        # The small-store case: one tick per client rate.
+        roots = {k: os.path.join(tmp, k) for k in ("serve", "plain")}
+        cli_call(["update", "--journal", roots["serve"], "--input",
+                  f"synthetic:{N_SERVE_BASE}:21", "--compact-after", "0",
+                  "--device", device])
+        shutil.copytree(roots["serve"], roots["plain"])
+        spec = f"synthetic:{len(SERVE_CURVE_RPS) * INGEST_MICRO}:22"
+        def warm_list(app, base_url):
+            # Fetched once, so the first tick finds the cache filled.
+            tiles = serve_tile_list(app.store, 200, 20, SERVE_ZOOMS, 2)
+            fetch(base_url, tile_paths(tiles))
+            return tiles
+
+        small = served_drain(roots["serve"], spec, SERVE_CURVE_RPS, device,
+                             warm_list, cold_every_tick=True)
+        check_ticks(small, n_levels)
+        assert small["launches"] == n_levels * len(SERVE_CURVE_RPS), \
+            small["launches"]
+        plain = ingest_drain(["ingest", "--journal", roots["plain"],
+                              "--input", spec, "--device", device,
+                              "--micro-batch", str(INGEST_MICRO)])
+        check_ticks(plain, n_levels)
+        assert tree_digest(roots["serve"]) == tree_digest(roots["plain"]), \
+            "serving changed the ingest store"
+        out["b_small_store"] = {**ticks_summary(small, plain["ticks_s"]),
+                                "base_points": N_SERVE_BASE,
+                                "equal_plain": True}
+        launches += small["launches"]
+
+        # (c) serve --follow-stream at its defaults.
+        follow = f"synthetic:{SERVE_TICKS * STREAM_BATCH}:23"
+        args = cli.build_parser().parse_args(
+            ["serve", "--store", f"delta:{roots['serve']}", "--port", "0",
+             "--follow-stream", follow, "--tick-seconds", "0",
+             "--batch-points", str(STREAM_BATCH), "--device", device])
+        tick_s = []
+        real_tick = LiveLayer.tick
+
+        def tick(self, *a, **kw):
+            t0 = time.perf_counter()
+            keys = real_tick(self, *a, **kw)
+            tick_s.append(time.perf_counter() - t0)
+            return keys
+
+        zero_window_counters()
+        LiveLayer.tick = tick
+        try:
+            handle = cli.start_serve(args)
+            handle.live.thread.join(300)
+            assert not handle.live.thread.is_alive(), "follow-stream hung"
+        finally:
+            LiveLayer.tick = real_tick
+        hist = window_counters()["window_histogram"]
+        try:
+            assert handle.live.ticks == SERVE_TICKS == hist, \
+                (handle.live.ticks, hist)
+            layer = handle.live.layer
+            got = layer.stream.snapshot()
+            cpu_stream = HeatmapStream(layer.stream.config, device="cpu")
+            t = 0.0
+            for batch in open_source(follow, read_value=False).batches(
+                    args.batch_points):
+                cols = load_columns(batch)
+                t += args.interval
+                cpu_stream.update(cols["latitude"], cols["longitude"], t)
+            want = cpu_stream.snapshot()
+            assert got.shape == want.shape and np.array_equal(got, want), \
+                "live raster differs from the CPU stream's"
+            assert layer.window == window_from_bounds(
+                (args.lat_min, args.lat_max), (args.lon_min, args.lon_max),
+                zoom=args.zoom)
+            server = handle.server
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            rows, cols = np.nonzero(want)
+            rows = rows + layer.window.row0
+            cols = cols + layer.window.col0
+            live_tiles = []
+            for z in (6, 7, 8):  # a rollup, the stored zoom, an upsample
+                shift = args.zoom - z
+                live_tiles += [(z, int(x), int(y), 0.0) for x, y in set(
+                    zip((cols >> shift).tolist(), (rows >> shift).tolist()))]
+            _, live = fetch(handle.banner["serving"],
+                            tile_paths(live_tiles, "live"))
+            assert all(v[0] == 200 for v in live.values()), "live 404"
+            server.shutdown()
+        finally:
+            handle.close()
+        out["c"] = {"ticks": handle.live.ticks, "launches": hist,
+                    "window": [layer.window.height, layer.window.width],
+                    "tick_ms": {"median": statistics.median(tick_s) * 1e3,
+                                "max": max(tick_s) * 1e3},
+                    "live_tiles_fetched": len(live),
+                    "raster_equal_cpu": True}
+    emit(out)
+    return launches, hist
 
 
 class ReplaySource:
@@ -2338,7 +2797,9 @@ def main() -> int:
         phase_parquet(dev)
         delta_root = os.path.join(tmp, "delta_store")
         delta_launches = phase_delta(dev, delta_root)
-        ingest_launches = phase_ingest(dev, delta_root)
+        ingest_launches, plain_ticks = phase_ingest(dev, delta_root)
+        serve_launches, follow_launches = phase_serve(dev, delta_root,
+                                                      plain_ticks)
         shutil.rmtree(delta_root)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
@@ -2351,12 +2812,18 @@ def main() -> int:
         kernel)
     segment_reduce["launches_by_path"] = {"bounded": bounded_launches,
                                           "delta": delta_launches,
-                                          "ingest": ingest_launches}
+                                          "ingest": ingest_launches,
+                                          "serve": serve_launches}
+    window_histogram = kernel_entry(
+        "window_histogram", "window_histogram.cu",
+        "heatmap_tpu/ops/pallas_kernels.py:49",
+        tiles_launches["window_histogram"], histogram)
+    window_histogram["launches_by_path"] = {
+        "tiles": tiles_launches["window_histogram"],
+        "serve": follow_launches}
     emit({"kernels": [
         segment_reduce,
-        kernel_entry("window_histogram", "window_histogram.cu",
-                     "heatmap_tpu/ops/pallas_kernels.py:49",
-                     tiles_launches["window_histogram"], histogram),
+        window_histogram,
         kernel_entry("window_partitioned", "window_bucketed.cu",
                      "heatmap_tpu/ops/partitioned.py:104",
                      tiles_launches["window_partitioned"], part_counts),

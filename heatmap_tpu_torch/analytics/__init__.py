@@ -1,12 +1,18 @@
-"""Integral-histogram pyramids (summed-area tables per coarse level).
+"""Integral-histogram pyramids and the range-query engine.
 
-The port's copy of the numpy half of heatmap_tpu/analytics: integral
+The port's copy of heatmap_tpu/analytics (numpy only): integral
 artifacts that compaction writes beside the merged base (arxiv
-1711.01919; docs/analytics.md). The range-query engine (``query.py``)
-waits with ``serve/`` for ROADMAP Queue 1 item 6.
+1711.01919; docs/analytics.md), their read side, and the ``/query``
+evaluators (``query.py``). The jit'd scan ``integral2d_jax`` waits for
+ROADMAP Queue 1 item 5, the Morton-shard merge for item 7.
 """
 
 from heatmap_tpu_torch.analytics.integral import (  # noqa: F401
-    DEFAULT_MAX_Z, HARD_MAX_Z, SCHEMA, build_pair, integral2d_np,
-    integral_path, verify_integral, write_integrals,
+    DEFAULT_MAX_Z, HARD_MAX_Z, SCHEMA, IntegralPair, build_pair,
+    grid_from_sat, integral2d_np, integral_path, load_integrals,
+    verify_integral, write_integrals,
+)
+from heatmap_tpu_torch.analytics.query import (  # noqa: F401
+    VALID_OPS, parse_bbox, quantile, quantile_rows, range_sum,
+    range_sum_rows, top_k_hotspots, top_k_rows, validate_op,
 )

@@ -4,8 +4,8 @@ The port's copy of the numpy half of heatmap_tpu/analytics/integral.py:
 for the same level arrays it writes the same ``integral-z*.npz`` bytes.
 The jit'd scan ``integral2d_jax`` waits for ROADMAP Queue 1 item 5;
 compaction builds integrals on the host in both packages. The read side
-(``IntegralPair``, ``load_integrals``) and the Morton-shard merge wait
-with ``serve/`` and ``parallel/`` (items 6 and 7).
+(``IntegralPair``, ``load_integrals``) serves ``/query``; the
+Morton-shard merge waits with ``parallel/`` (item 7).
 
 ``write_integrals`` turns every ``level_z*.npz`` below ``max_z`` in a
 level directory into an ``integral-z{zoom:02d}.npz`` sitting alongside
@@ -49,8 +49,9 @@ from heatmap_tpu_torch import faults, obs
 from heatmap_tpu_torch.synopsis.transform import grid_from_rows_np
 
 __all__ = [
-    "DEFAULT_MAX_Z", "HARD_MAX_Z", "SCHEMA", "build_pair", "integral2d_np",
-    "integral_path", "verify_integral", "write_integrals",
+    "DEFAULT_MAX_Z", "HARD_MAX_Z", "SCHEMA", "IntegralPair", "build_pair",
+    "grid_from_sat", "integral2d_np", "integral_path", "load_integrals",
+    "verify_integral", "write_integrals",
 ]
 
 SCHEMA = "heatmap-tpu.integral.v1"
@@ -73,6 +74,63 @@ def integral2d_np(grid: np.ndarray) -> np.ndarray:
     if grid.ndim != 2:
         raise ValueError(f"integral2d wants a 2D grid, got {grid.shape}")
     return np.cumsum(np.cumsum(grid, axis=0), axis=1)
+
+
+def grid_from_sat(sat: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`integral2d_np` by finite differences — exact
+    in f64 for integer-valued grids (differences of exact integers)."""
+    sat = np.asarray(sat, np.float64)
+    return np.diff(np.diff(sat, axis=0, prepend=0.0), axis=1, prepend=0.0)
+
+
+class IntegralPair:
+    """One (user, timespan) slice of one level's integral pyramid."""
+
+    __slots__ = ("user", "timespan", "zoom", "n", "sat", "cnt")
+
+    def __init__(self, user, timespan, zoom, sat, cnt):
+        self.user = str(user)
+        self.timespan = str(timespan)
+        self.zoom = int(zoom)
+        self.sat = np.asarray(sat, np.float64)
+        self.cnt = np.asarray(cnt, np.float64)
+        self.n = int(self.sat.shape[0])
+
+    @staticmethod
+    def _rect(table, r0, c0, r1, c1) -> float:
+        s = table[r1, c1]
+        if r0:
+            s -= table[r0 - 1, c1]
+        if c0:
+            s -= table[r1, c0 - 1]
+        if r0 and c0:
+            s += table[r0 - 1, c0 - 1]
+        return float(s)
+
+    def range_sum(self, r0, c0, r1, c1) -> float:
+        """Sum over the inclusive cell rect — four corner lookups."""
+        return self._rect(self.sat, r0, c0, r1, c1)
+
+    def cell_count(self, r0, c0, r1, c1) -> int:
+        """Occupied (nonzero) cells in the inclusive rect, O(1)."""
+        return int(round(self._rect(self.cnt, r0, c0, r1, c1)))
+
+    def grid(self) -> np.ndarray:
+        """Dense ``(n, n)`` count grid recovered from the SAT."""
+        return grid_from_sat(self.sat)
+
+    def with_extras(self, rows, cols, values) -> "IntegralPair":
+        """New pair with delta rows folded in: recover the grid,
+        scatter-add the extras, rescan. Exact for integer grids, so a
+        base integral plus live delta rows answers queries identically
+        to a full recompute over base ⊕ deltas."""
+        grid = self.grid()
+        np.add.at(grid, (np.asarray(rows, np.int64),
+                         np.asarray(cols, np.int64)),
+                  np.asarray(values, np.float64))
+        return IntegralPair(self.user, self.timespan, self.zoom,
+                            integral2d_np(grid),
+                            integral2d_np((grid != 0.0).astype(np.float64)))
 
 
 def build_pair(rows, cols, values, zoom: int):
@@ -189,3 +247,36 @@ def verify_integral(path: str) -> str | None:
     except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
         return repr(e)
     return None
+
+
+def load_integrals(level_dir: str) -> dict:
+    """``{zoom: [IntegralPair, ...]}`` for every readable integral
+    artifact in ``level_dir``. Unreadable or wrong-schema files are
+    SKIPPED, not raised — serving falls through to exact rows and the
+    recovery sweep owns quarantining torn artifacts."""
+    out: dict = {}
+    try:
+        names = sorted(os.listdir(level_dir))
+    except OSError:
+        return out
+    for name in names:
+        if not (name.startswith("integral-z") and name.endswith(".npz")):
+            continue
+        full = os.path.join(level_dir, name)
+        try:
+            with np.load(full) as z:
+                if str(z["schema"]) != SCHEMA:
+                    continue
+                zoom = int(z["zoom"])
+                users = z["users"]
+                tss = z["timespans"]
+                sat = z["sat"]
+                cnt = z["cnt"]
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile):
+            continue
+        pairs = []
+        for i in range(len(users)):
+            pairs.append(IntegralPair(users[i], tss[i], zoom,
+                                      sat[i], cnt[i]))
+        out[zoom] = pairs
+    return out

@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m heatmap_tpu_torch
-run|tiles|stream|convert|merge|info|update|retract|ingest ...``.
+run|tiles|stream|serve|render|convert|merge|info|update|retract|ingest
+...``.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
 to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
@@ -16,8 +17,11 @@ signed retractions) to a delta store and compacts it; ``retract``
 removes every journaled row matching a predicate (heatmap_tpu_torch.
 delta); ``ingest`` drains a source as micro-batches through the
 continuous-ingest loop, each journaled and applied as its own delta
-(heatmap_tpu_torch.ingest). Stores are interchangeable with the JAX
-package's.
+(heatmap_tpu_torch.ingest), publishing to an in-process tile server
+with ``--serve-port``. ``serve`` answers tile, query and health requests
+over a stored artifact (heatmap_tpu_torch.serve), with a live stream
+layer under ``--follow-stream``; ``render`` draws a stored slice as a
+PNG tile tree. Stores are interchangeable with the JAX package's.
 
 ``run``, ``update`` and ``ingest`` carry the telemetry envelope:
 ``--metrics-dir``, ``--events``, ``--report``, ``--trace-out``,
@@ -28,8 +32,11 @@ package's.
 bytes. The JAX flags whose modules the port lacks exit 2 at parse time
 with "not ported yet" and their ROADMAP item.
 
-Every command keeps the flag names of ``heatmap_tpu``'s. The device
-commands (``run``, ``tiles``, ``stream``) run on the CUDA card unless
+Every command keeps the flag names of ``heatmap_tpu``'s. ``serve``
+(without ``--follow-stream``) and ``render`` do no device work, as in
+the JAX package; ``writeplane`` and ``serve --fleet`` exit 2 (not
+ported yet). The device commands (``run``, ``tiles``, ``stream``, and
+``ingest`` and ``serve --follow-stream``) run on the CUDA card unless
 ``--backend cpu`` (or its alias ``--device cpu``) asks for the plain
 PyTorch versions of the kernels; ``--chaos``/``$HEATMAP_TPU_CHAOS`` arm
 the fault plane (heatmap_tpu_torch.faults).
@@ -613,7 +620,150 @@ def build_parser() -> argparse.ArgumentParser:
     _add_backend_flags(p)
     _add_ingest_flags(p)
     p.set_defaults(fn=cmd_ingest)
+
+    p = sub.add_parser(
+        "serve",
+        help="tile HTTP server over stored heatmaps: "
+        "GET /tiles/{layer}/{z}/{x}/{y}.png|.json (docs/serving.md)")
+    _add_backend_flags(p)  # used only by --follow-stream
+    _add_serve_flags(p)
+    p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "render",
+        help="stored heatmaps (arrays:DIR / jsonl:PATH) -> PNG tile tree")
+    p.add_argument("--input", required=True,
+                   help="arrays:DIR, arrays-parquet:DIR or jsonl:PATH")
+    p.add_argument("--output", default="rendered_tiles")
+    p.add_argument("--user", default="all",
+                   help="user slice to render (default 'all')")
+    p.add_argument("--timespan", default="alltime")
+    p.add_argument("--zoom", type=int, default=None,
+                   help="stored detail zoom to render "
+                   "(default: finest available)")
+    p.add_argument("--pixel-delta", type=int, default=8)
+    p.set_defaults(fn=cmd_render)
+
+    # ``writeplane`` (writeplane/ and parallel/partition.py): any
+    # invocation exits 2 at parse time.
+    parser_class, sub._parser_class = sub._parser_class, _NotPortedParser
+    sub.add_parser("writeplane",
+                   help="not ported yet (ROADMAP Queue 1 item 6)")
+    sub._parser_class = parser_class
     return ap
+
+
+class _NotPortedParser(argparse.ArgumentParser):
+    """A subcommand of the JAX CLI whose modules the port lacks: parsing
+    it, with any flags, exits 2 naming its ROADMAP item."""
+
+    def parse_known_args(self, args=None, namespace=None):
+        self.error("not ported yet (ROADMAP Queue 1 item 6)")
+
+
+def _add_serve_flags(p):
+    """The JAX ``serve``'s flags. ``--fleet`` and the flags only the
+    fleet router reads (``--max-inflight``, ``--queue-deadline``,
+    ``--hedge-quantile``, ``--probe-interval``) exit 2 at parse time:
+    ``serve/router.py`` and ``serve/fleet.py`` are ROADMAP Queue 1
+    item 6's next slice."""
+    item6 = _not_ported(6)
+    p.add_argument("--store", required=True,
+                   help="arrays:DIR (incl. multihost host*/ shard dirs) | "
+                   "jsonl:PATH | dir:PATH | delta:ROOT | tilefs:ROOT — "
+                   "any stored heatmap artifact")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000,
+                   help="listen port (0 = ephemeral; the bound address is "
+                   "printed to stderr)")
+    p.add_argument("--cache-bytes", type=int, default=256 << 20,
+                   help="tile cache budget in bytes (LRU past it; 0 "
+                   "disables caching but keeps single-flight render dedup)")
+    p.add_argument("--ttl", type=float, default=None,
+                   help="tile cache TTL seconds (default: none for static "
+                   "stores; live mode defaults to interval/2 to bound "
+                   "decay drift)")
+    p.add_argument("--layers", default=None,
+                   help="comma list of name=user|timespan layer mounts "
+                   "(default: every slice in the artifact plus 'default' "
+                   "-> all|alltime)")
+    p.add_argument("--synopsis-default", action="store_true",
+                   help="serve coarse tiles from wavelet synopses by "
+                   "default (docs/synopsis.md); per-request "
+                   "?synopsis=0/1 always wins")
+    p.add_argument("--render-timeout", type=float, default=None,
+                   metavar="S",
+                   help="per-tile render deadline in seconds; a render "
+                   "past it serves the last-good cached bytes (stale-200) "
+                   "or a typed 503, never a hung request")
+    p.add_argument("--fleet", type=item6, default=None, metavar="N",
+                   help="not ported yet (serve/fleet.py): N backend "
+                   "processes behind a consistent-hash router")
+    for flag in ("--max-inflight", "--queue-deadline", "--hedge-quantile",
+                 "--probe-interval"):
+        p.add_argument(flag, type=item6, default=None,
+                       help="not ported yet (serve/router.py; read only "
+                       "by --fleet)")
+    p.add_argument("--degrade", action="store_true",
+                   help="arm the brownout controller: SLO burn (--slo) "
+                   "steps a rung ladder that trades tile fidelity for "
+                   "availability under overload. Off by default")
+    p.add_argument("--degrade-dwell", type=float, default=10.0,
+                   metavar="S",
+                   help="seconds the burn must stay above the up "
+                   "threshold before the ladder steps up one rung")
+    p.add_argument("--degrade-hold", type=float, default=30.0, metavar="S",
+                   help="seconds the burn must stay below the down "
+                   "threshold before the ladder steps back down")
+    p.add_argument("--degrade-ladder", default="", metavar="SPEC",
+                   help="ladder tuning, comma list of k=v: "
+                   "up=BURN,down=BURN,ttl=SCALE,shed=FRAC,max=RUNG "
+                   "(default up=1.0,down=0.5,ttl=4,shed=0.5,max=3)")
+    p.add_argument("--disk-cache", default=None, metavar="DIR",
+                   help="persist rendered tile bytes under DIR as a "
+                   "second cache tier below the heap LRU (docs/tilefs.md)")
+    p.add_argument("--disk-cache-bytes", type=int, default=1 << 30,
+                   metavar="B",
+                   help="disk cache size cap (mtime-LRU eviction)")
+    p.add_argument("--prewarm-events", action="append", default=None,
+                   metavar="PATH",
+                   help="replay the Zipf head of these http_request event "
+                   "logs into the caches at startup and after /reload; "
+                   "repeatable")
+    p.add_argument("--prewarm-top-k", type=int, default=64, metavar="K",
+                   help="how many of the most popular tile paths the "
+                   "prewarm replays (decayed frequency rank)")
+    p.add_argument("--prewarm-budget-s", type=float, default=10.0,
+                   metavar="S",
+                   help="wall-clock budget for one prewarm pass")
+    p.add_argument("--prewarm-bytes", type=int, default=64 << 20,
+                   metavar="B",
+                   help="rendered-byte budget for one prewarm pass")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append http_request events to PATH (JSONL, the "
+                   "JAX package's schema)")
+    _add_trace_flags(p)
+    p.add_argument("--follow-stream", default=None, metavar="SPEC",
+                   help="live mode: consume this source spec as "
+                   "micro-batches into a decayed stream layer on the card "
+                   "(--backend cpu: on the host; name via --live-layer); "
+                   "ticks invalidate only the affected tile keys")
+    p.add_argument("--live-layer", default="live",
+                   help="layer name the --follow-stream raster is served "
+                   "under")
+    p.add_argument("--batch-points", type=int, default=1 << 16)
+    p.add_argument("--interval", type=float, default=60.0,
+                   help="stream seconds advanced per micro-batch")
+    p.add_argument("--tick-seconds", type=float, default=1.0,
+                   help="wall-clock pause between micro-batch ticks (0 = "
+                   "consume as fast as possible)")
+    p.add_argument("--half-life", type=float, default=3600.0)
+    p.add_argument("--zoom", type=int, default=12,
+                   help="live window detail zoom")
+    p.add_argument("--lat-min", type=float, default=45.0)
+    p.add_argument("--lat-max", type=float, default=50.0)
+    p.add_argument("--lon-min", type=float, default=-125.0)
+    p.add_argument("--lon-max", type=float, default=-119.0)
 
 
 def _add_temporal_refusals(p):
@@ -855,10 +1005,10 @@ def _add_ingest_flags(p):
     p.add_argument("--pad-bucket-min", type=int, default=1 << 12,
                    help="bucket floor: batches below this many emissions "
                    "pad up to it")
-    p.add_argument("--serve-port", type=_not_ported(6), default=None,
-                   metavar="PORT",
-                   help="not ported yet (serve/): serving the store while "
-                   "ingesting")
+    p.add_argument("--serve-port", type=int, default=None, metavar="PORT",
+                   help="serve the store over HTTP while ingesting (0 = "
+                   "ephemeral port): each applied tick publishes through "
+                   "targeted cache invalidation (docs/serving.md)")
     p.add_argument("--detail-zoom", type=int, default=21)
     p.add_argument("--min-detail-zoom", type=int, default=5)
     p.add_argument("--result-delta", type=int, default=5)
@@ -884,17 +1034,21 @@ def _add_ingest_flags(p):
     _add_trace_flags(p)
 
 
-def run_ingest_command(args):
+def run_ingest_command(args, on_serve=None):
     """The ``ingest`` command: drain ``--input`` through the
     continuous-ingest loop (heatmap_tpu_torch.ingest) into the delta
     store at ``--journal``, each micro-batch journaled as a signed epoch
     and applied through the bucketed cascade on the card (the CPU with
-    ``--backend cpu``). A ``staleness`` SLO over tick recency rides the
-    shared ``--slo`` flag, e.g. ``--slo fresh:staleness:max_age_s=30``.
+    ``--backend cpu``). With ``--serve-port`` an in-process tile server
+    over the store answers while the loop runs, and each applied tick
+    publishes to it through targeted invalidation. A ``staleness`` SLO
+    over tick recency rides the shared ``--slo`` flag, e.g. ``--slo
+    fresh:staleness:max_age_s=30``.
 
     Returns ``(summary, stats)``: the summary that ``ingest`` prints
     (the JAX ``ingest``'s keys, then ``device``) and the loop's
-    ``IngestStats`` (feeder numbers included)."""
+    ``IngestStats`` (feeder numbers included). ``on_serve(app,
+    base_url)``, when given, is called once the server is up."""
     from heatmap_tpu_torch import delta as delta_mod
     from heatmap_tpu_torch import ingest as ingest_mod
     from heatmap_tpu_torch.io import open_source
@@ -939,11 +1093,26 @@ def run_ingest_command(args):
             "journal": args.journal,
             "live_deltas": len(delta_mod.live_entries(args.journal))}})
     summary = {"journal": args.journal}
+    server = None
     try:
         delta_mod.init_store(args.journal)
+        store = cache = None
+        if args.serve_port is not None:
+            from heatmap_tpu_torch.serve import (ServeApp, TileCache,
+                                                 TileStore, serve_in_thread)
+
+            store = TileStore(f"delta:{args.journal}")
+            cache = TileCache()
+            app = ServeApp(store, cache)
+            server, base_url = serve_in_thread(app, port=args.serve_port)
+            summary["serving"] = base_url
+            print(f"serving {base_url}/tiles/... while ingesting",
+                  file=sys.stderr)
+            if on_serve is not None:
+                on_serve(app, base_url)
         stats = ingest_mod.run_ingest(
             args.journal, open_source(args.input, read_value=args.weighted),
-            config, ingest=ing, device=device)
+            config, ingest=ing, store=store, cache=cache, device=device)
         summary.update({
             "ticks": stats.ticks, "points": stats.points,
             "epochs": len(stats.epochs), "duplicates": stats.duplicates,
@@ -961,6 +1130,10 @@ def run_ingest_command(args):
     except BaseException as e:  # run_end must record it
         tel.finish(error=e)
         raise
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
     seconds = tel.finish(rows=int(summary.get("points", 0)))
     summary["seconds"] = round(seconds, 3)
     summary["device"] = device
@@ -969,6 +1142,320 @@ def run_ingest_command(args):
 
 def cmd_ingest(args) -> int:
     print(json.dumps(run_ingest_command(args)[0]))
+    return 0
+
+
+def _parse_layers(arg: str | None):
+    """``--layers name=user|timespan,...`` -> {name: selector} or None
+    (= expose every slice + the 'default' alias)."""
+    if not arg:
+        return None
+    layers = {}
+    for part in arg.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, sel = part.partition("=")
+        layers[name.strip()] = (sel if sep else name).strip()
+    return layers or None
+
+
+class LivePump:
+    """``serve --follow-stream``: micro-batches of the source pumped into
+    a LiveLayer on a daemon thread (the only thread that touches the
+    card); each tick invalidates only the cache keys of the tiles the
+    batch touched. ``thread`` ends when the source does; ``stop()``
+    ends it early."""
+
+    def __init__(self, args, app, device):
+        import threading
+
+        import torch
+
+        from heatmap_tpu_torch.io import open_source
+        from heatmap_tpu_torch.ops.histogram import window_from_bounds
+        from heatmap_tpu_torch.pipeline.batch import load_columns
+        from heatmap_tpu_torch.serve import LiveLayer
+        from heatmap_tpu_torch.streaming import HeatmapStream, StreamConfig
+
+        window = window_from_bounds(
+            (args.lat_min, args.lat_max), (args.lon_min, args.lon_max),
+            zoom=args.zoom)
+        config = StreamConfig(
+            window=window,
+            half_life_s=args.half_life,
+            proj_dtype=torch.float32 if args.no_x64 else torch.float64,
+            pad_to=args.batch_points,
+        )
+        self.layer = LiveLayer(HeatmapStream(config, device=device),
+                               name=args.live_layer)
+        app.attach_layer(args.live_layer, self.layer)
+        self.ticks = 0
+        self._done = threading.Event()
+
+        def _pump():
+            t_stream = 0.0
+            source = open_source(args.follow_stream, read_value=False)
+            for batch in source.batches(args.batch_points):
+                if self._done.is_set():
+                    break
+                cols = load_columns(batch)
+                t_stream += args.interval
+                keys = self.layer.tick(cols["latitude"], cols["longitude"],
+                                       t_stream)
+                app.cache.invalidate_matching(keys)
+                self.ticks += 1
+                if args.tick_seconds > 0:
+                    self._done.wait(args.tick_seconds)
+
+        self.thread = threading.Thread(target=_pump, name="serve-stream",
+                                       daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        self._done.set()
+        self.thread.join(timeout=5)
+
+
+@dataclasses.dataclass
+class ServeHandle:
+    """What ``serve`` has set up before it blocks: the bound (not yet
+    serving) server, its app, the live pump (None without
+    --follow-stream), the stderr banner and the resolved device (None
+    when the command does no device work)."""
+
+    server: object
+    app: object
+    live: LivePump | None
+    banner: dict
+    device: str | None
+    args: argparse.Namespace
+    collector: object = None
+    ev_log: object = None
+
+    def close(self):
+        """Stop the pump, close the socket, export the trace and close
+        the event log: ``serve``'s exit path."""
+        from heatmap_tpu_torch import obs
+
+        if self.live is not None:
+            self.live.stop()
+        self.server.server_close()
+        obs.timeseries.shutdown()
+        if self.collector is not None:
+            n = self.collector.export_chrome(self.args.trace_out)
+            print(json.dumps({"trace_out": self.args.trace_out,
+                              "span_events": n,
+                              "dropped": self.collector.dropped}),
+                  file=sys.stderr)
+        if self.ev_log is not None:
+            obs.set_event_log(None)
+            self.ev_log.close()
+
+
+def start_serve(args) -> ServeHandle:
+    """Everything ``serve`` does before ``serve_forever``: the store, the
+    cache, the brownout ladder, the disk tier and pre-warm, the app and
+    (with --follow-stream) the live pump, then the bound server and the
+    startup pre-warm. Without --follow-stream nothing here touches
+    torch.cuda, as the JAX package never starts a backend for ``serve``:
+    a tile server stays up beside a busy or dead card."""
+    from heatmap_tpu_torch import faults, obs
+    from heatmap_tpu_torch.serve import (ServeApp, TileCache, TileStore,
+                                         make_server)
+    from heatmap_tpu_torch.serve import degrade as degrade_mod
+
+    # serve skips _init_backend unless it follows a stream: arm chaos here.
+    faults.install_from_env(getattr(args, "chaos", None))
+    # /metrics is a first-class endpoint here, not an opt-in artifact.
+    obs.enable_metrics(True)
+    ev_log = None
+    if args.events:
+        ev_log = obs.EventLog(args.events)
+        obs.set_event_log(ev_log)
+    collector = _setup_tracing(args)
+    ttl = args.ttl
+    if args.follow_stream and not (ttl and ttl > 0):
+        # Targeted invalidation only drops tiles a batch touched; decay
+        # drifts every OTHER cached tile, so live mode needs its
+        # staleness bounded by a finite TTL (serve/live.py).
+        ttl = max(1.0, args.interval / 2)
+    try:
+        store = TileStore(args.store, layers=_parse_layers(args.layers))
+    except (ValueError, OSError) as e:
+        raise SystemExit(str(e)) from e
+    cache = TileCache(max_bytes=args.cache_bytes,
+                      ttl_s=ttl if (ttl and ttl > 0) else None)
+    try:
+        controller = degrade_mod.controller_from_flags(
+            args.degrade, args.degrade_dwell, args.degrade_hold,
+            args.degrade_ladder)
+    except ValueError as e:
+        raise SystemExit(f"--degrade-ladder: {e}") from e
+    disk_cache = prewarm = None
+    if args.disk_cache:
+        from heatmap_tpu_torch.tilefs import DiskTileCache
+
+        disk_cache = DiskTileCache(args.disk_cache,
+                                   max_bytes=args.disk_cache_bytes)
+    if args.prewarm_events:
+        from heatmap_tpu_torch.tilefs import PrewarmConfig
+
+        prewarm = PrewarmConfig(events=tuple(args.prewarm_events),
+                                top_k=args.prewarm_top_k,
+                                budget_s=args.prewarm_budget_s,
+                                budget_bytes=args.prewarm_bytes)
+    app = ServeApp(store, cache, render_timeout_s=args.render_timeout,
+                   synopsis_default=args.synopsis_default,
+                   degrade=controller, disk_cache=disk_cache,
+                   prewarm=prewarm)
+    # Incident bundles capture the same state /healthz serves, plus the
+    # mount fingerprint (no-ops without --incident-dir).
+    obs.incident.add_state_provider("healthz", app._health)
+    obs.incident.add_state_provider("config", lambda: {
+        "store": args.store, "layers": app.layer_names(),
+        "cache_bytes": cache.max_bytes, "ttl_s": cache.ttl_s})
+    live = device = None
+    if args.follow_stream:
+        from heatmap_tpu_torch.devices import resolve_device
+
+        device = _init_backend(args)
+        live = LivePump(args, app, resolve_device(device))
+    server = make_server(app, host=args.host, port=args.port)
+    host, port = server.server_address[:2]
+    # Warm before announcing readiness on stderr: a supervisor that
+    # waits for the banner sees a server whose popular tiles are hot.
+    app.prewarm_now(source="startup")
+    banner = {
+        "serving": f"http://{host}:{port}",
+        "store": args.store,
+        "layers": app.layer_names(),
+        "cache_bytes": cache.max_bytes,
+        "ttl_s": cache.ttl_s,
+        "device": device,
+    }
+    return ServeHandle(server, app, live, banner, device, args,
+                       collector=collector, ev_log=ev_log)
+
+
+def cmd_serve(args) -> int:
+    """Tile HTTP server over a stored heatmap artifact (docs/serving.md):
+    the JAX ``serve``'s flags and banner (then ``device``). Numpy only
+    unless --follow-stream is given."""
+    handle = start_serve(args)
+    print(json.dumps(handle.banner), file=sys.stderr, flush=True)
+    try:
+        handle.server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        handle.close()
+    return 0
+
+
+def run_render(args) -> dict:
+    """The ``render`` command: one (user, timespan, zoom) slice of a
+    stored artifact (``arrays:DIR``, ``arrays-parquet:DIR`` or
+    ``jsonl:PATH``) drawn as a z/x/y PNG tile tree from the stored
+    counts, with no re-aggregation and no device work. Returns the
+    summary it prints: the JAX ``render``'s keys, then ``device``
+    (None)."""
+    import numpy as np
+
+    from heatmap_tpu_torch.io import PNGTileSink
+    from heatmap_tpu_torch.io.sinks import JSONLBlobSink, LevelArraysSink
+
+    kind, _, rest = args.input.partition(":")
+    if kind in ("arrays", "arrays-parquet"):
+        levels = LevelArraysSink.load(rest)
+        if not levels:
+            raise SystemExit(f"no level files under {rest!r}")
+        zoom = args.zoom if args.zoom is not None else max(levels)
+        if zoom not in levels:
+            raise SystemExit(
+                f"zoom {zoom} not stored; available: {sorted(levels)}")
+        lvl = levels[zoom]
+        keep = ((lvl["user"] == args.user)
+                & (lvl["timespan"] == args.timespan))
+        rows = lvl["row"][keep].astype(np.int64)
+        cols = lvl["col"][keep].astype(np.int64)
+        vals = lvl["value"][keep]
+    elif kind == "jsonl" or args.input.endswith((".jsonl", ".ndjson")):
+        from heatmap_tpu_torch.tilemath.keys import parse_tile_id
+
+        path = rest if kind == "jsonl" else args.input
+        blobs = JSONLBlobSink.load(path)
+        # One pass: collect every matching (z, r, c, v); pick/filter the
+        # zoom afterwards. Malformed ids drop, as the reference parser.
+        entries = []
+        for blob_id, heat in blobs.items():
+            user, ts, _coarse = blob_id.split("|", 2)
+            if user != args.user or ts != args.timespan:
+                continue
+            for tile_id, v in heat.items():
+                parsed = parse_tile_id(tile_id)
+                if parsed is not None:
+                    entries.append((*parsed, float(v)))
+        zooms_seen = {e[0] for e in entries}
+        zoom = args.zoom if args.zoom is not None else (
+            max(zooms_seen) if zooms_seen else None)
+        if zoom is None or zoom not in zooms_seen:
+            raise SystemExit(
+                f"zoom {zoom} not stored for "
+                f"{args.user!r}/{args.timespan!r}; "
+                f"available: {sorted(zooms_seen)}")
+        sel = [e for e in entries if e[0] == zoom]
+        rows = np.asarray([e[1] for e in sel], np.int64)
+        cols = np.asarray([e[2] for e in sel], np.int64)
+        vals = np.asarray([e[3] for e in sel], np.float64)
+    else:
+        raise SystemExit(
+            f"render input must be arrays:DIR, arrays-parquet:DIR or "
+            f"jsonl:PATH, got {args.input!r}")
+
+    if len(rows) == 0:
+        return {"tiles": 0, "output": args.output, "user": args.user,
+                "timespan": args.timespan, "device": None}
+    pixel_delta = min(args.pixel_delta, zoom)
+    px = 1 << pixel_delta
+    # Rasterize PER OCCUPIED OUTPUT TILE, not over one bounding box: per-
+    # tile blocks bound memory at px*px regardless of extent. One shared
+    # vmax keeps the colormap consistent across tiles.
+    from heatmap_tpu_torch.ops.histogram import Window
+
+    t0 = time.perf_counter()
+    tile_key = (rows // px) * (1 << 40) + (cols // px)
+    order = np.argsort(tile_key, kind="stable")
+    sorted_keys = tile_key[order]
+    starts = np.flatnonzero(
+        np.concatenate([[True], sorted_keys[1:] != sorted_keys[:-1]]))
+    bounds = np.append(starts, len(sorted_keys))
+    sink = PNGTileSink(args.output, pixel_delta=pixel_delta)
+    vmax = float(vals.max())
+    n = 0
+    for k, s in enumerate(starts):
+        sel = order[s:bounds[k + 1]]
+        ty = int(rows[sel[0]]) // px
+        tx = int(cols[sel[0]]) // px
+        block = np.zeros(px * px, np.float64)
+        np.add.at(block, (rows[sel] - ty * px) * px + (cols[sel] - tx * px),
+                  vals[sel])
+        window = Window(zoom=zoom, row0=ty * px, col0=tx * px,
+                        height=px, width=px)
+        n += sink.write_window(block.reshape(px, px), window, vmax=vmax)
+    return {
+        "tiles": n,
+        "tile_zoom": zoom - pixel_delta,
+        "zoom": zoom,
+        "aggregates": int(len(rows)),
+        "seconds": round(time.perf_counter() - t0, 3),
+        "output": args.output,
+        "device": None,
+    }
+
+
+def cmd_render(args) -> int:
+    print(json.dumps(run_render(args)))
     return 0
 
 

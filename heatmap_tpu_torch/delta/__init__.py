@@ -5,8 +5,8 @@ store written by ``python -m heatmap_tpu update`` continues under
 ``python -m heatmap_tpu_torch update`` and the reverse (same content
 hashes, journal entries, config fingerprint, artifacts and compacted
 base). Each applied batch runs the port's cascade on ``device`` (the
-card unless the caller names the CPU). ``refresh_serving`` needs
-``serve/`` (ROADMAP Queue 1 item 6) and raises until then.
+card unless the caller names the CPU). ``refresh_serving`` publishes
+an applied batch to a live tile server (``serve/``).
 
 The reference job recomputes all 16 levels from source on every run
 (reference heatmap.py:152-158); because tile counts are pure sums, the
@@ -177,11 +177,23 @@ def apply_batch(root: str, source, config, *, sign: int = 1,
 
 
 def refresh_serving(result: DeltaResult, store, cache=None) -> int:
-    """Bring a live serving store up to date after ``apply_batch``.
-    Serving is not ported yet: raises NotImplementedError."""
-    raise NotImplementedError(
-        "refresh_serving needs serve/ (TileStore, TileCache), which "
-        "heatmap_tpu_torch does not port yet (ROADMAP Queue 1 item 6)")
+    """Bring a live TileStore (mounted on this store's ``delta:`` spec)
+    up to date after ``apply_batch`` — the targeted alternative to
+    ``store.reload()``: the overlay index is rebuilt WITHOUT a
+    generation bump (an additive delta cannot change untouched tiles'
+    bytes, so their cache entries stay valid) and only the affected
+    tile keys are invalidated, with their sliding-window variants (the
+    cache tracks which window params it has served). Returns the number
+    of cache entries dropped: the JAX package's count, found by testing
+    the cache's keys against the result's ``TileKeySet`` instead of
+    building the set (``TileCache.invalidate_matching``)."""
+    if result.duplicate:
+        return 0
+    store.refresh_layers()
+    if cache is None:
+        return 0
+    params = getattr(cache, "window_params", lambda: ())()
+    return cache.invalidate_matching(result.affected_keys, params)
 
 
 __all__ = [

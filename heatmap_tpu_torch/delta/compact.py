@@ -3,9 +3,10 @@
 The port's copy of heatmap_tpu/delta/compact.py: the same store layout,
 CURRENT pointer and config fingerprint, so a store written by either
 package continues in the other, and compaction writes the same base
-(levels, synopses and integrals). Two refusals until their modules are
-ported: a store with a temporal config (ROADMAP Queue 1 item 5) and a
-base that carries tilefs mirrors (item 6) raise NotImplementedError.
+(levels, synopses, integrals, and tilefs mirrors when the old base
+carried them). A store with a temporal config raises
+NotImplementedError until ``temporal/`` is ported (ROADMAP Queue 1
+item 5).
 
 Store layout (one directory, self-describing):
 
@@ -278,11 +279,6 @@ def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
     journal = DeltaJournal(journal_dir(root))
     live = live_entries(root)
     base_name = cur.get("base")
-    if base_name and sniff_tilefs(os.path.join(root, base_name)):
-        raise NotImplementedError(
-            f"compact({root}): base {base_name} carries tilefs mirrors, "
-            "which heatmap_tpu_torch does not write yet (tilefs/ is "
-            "ROADMAP Queue 1 item 6); use heatmap_tpu")
     if not live:
         return {"status": "noop", "base": base_name, "deltas": 0,
                 "applied_through": int(cur.get("applied_through", 0))}
@@ -304,9 +300,12 @@ def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
         # staging dir, so the published base atomically carries exact
         # levels, synopses, and integrals consistent with base ⊕
         # deltas (stale ones would violate the stamped error / exact-sum
-        # contracts).
-        rows = LevelArraysSink(tmp_path, synopses=True,
-                               integrals=True).write_levels(merged)
+        # contracts). tilefs mirrors are inherited: if the old base
+        # carried them, the new base carries fresh ones too.
+        keep_tilefs = bool(base_name) and sniff_tilefs(
+            os.path.join(root, base_name))
+        rows = LevelArraysSink(tmp_path, synopses=True, integrals=True,
+                               tilefs=keep_tilefs).write_levels(merged)
         faults.retry_call(publish_dir, tmp_path, new_path,
                           site="compact.publish", key="base")
         cur = dict(cur)

@@ -146,6 +146,9 @@ class TileKeySet(collections.abc.Set):
         self._len = sum(len(names) * len(codes)
                         for names, _z, codes in self._groups
                         ) * len(TILE_FORMATS)
+        #: (name, zoom) -> packed tiles, for membership tests.
+        self._index = {(nm, z): codes for names, z, codes in self._groups
+                       for nm in names}
 
     def __len__(self) -> int:
         return self._len
@@ -166,12 +169,14 @@ class TileKeySet(collections.abc.Set):
             return False
         if fmt not in TILE_FORMATS:
             return False
-        for names, gz, codes in self._groups:
-            if gz == z and nm in names:
-                i = int(np.searchsorted(codes, code))
-                if i < len(codes) and codes[i] == code:
-                    return True
-        return False
+        try:
+            codes = self._index.get((nm, z))
+        except TypeError:  # an unhashable name or zoom
+            return False
+        if codes is None:
+            return False
+        i = int(np.searchsorted(codes, code))
+        return i < len(codes) and int(codes[i]) == code
 
     def __repr__(self) -> str:
         return f"TileKeySet({len(self)} keys)"

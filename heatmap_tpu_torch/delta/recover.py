@@ -3,8 +3,7 @@
 The port's copy of heatmap_tpu/delta/recover.py: the same quarantine
 decisions, reasons and events. Stores with a temporal plane are refused
 (``NotImplementedError``) until ``temporal/`` is ported (ROADMAP Queue 1
-item 5), and a base's ``tilefs-z*.bin`` mirrors are left unverified
-until ``tilefs/`` is (item 6).
+item 5).
 
 The store's write paths are atomic (save_checkpoint entries, tmp+rename
 artifact publishes, the CURRENT pointer flip), so a crash can only
@@ -40,9 +39,10 @@ What gets quarantined:
 - torn or schema-invalid ``integral-z*.npz`` artifacts inside CURRENT's
   base, same contract (reason ``torn_integral``): /query falls through
   to the exact rows, so quarantining only surfaces the corruption;
-- orphan ``tilefs-*.tmp`` staging files inside CURRENT's base (the JAX
-  package also verifies the ``tilefs-z*.bin`` mirrors themselves; the
-  port leaves them to ``tilefs/``, ROADMAP Queue 1 item 6).
+- torn ``tilefs-z*.bin`` zero-copy mirrors inside CURRENT's base, same
+  contract (reason ``torn_tilefs``, heatmap_tpu_torch.tilefs): the store
+  serves the sibling npz level for that zoom, and orphan
+  ``tilefs-*.tmp`` staging files.
 
 Digest verification re-hashes artifact bytes, so results are memoised
 per entry file identity (path, size, mtime_ns) — journaled entries and
@@ -302,6 +302,16 @@ def sweep(root: str, *, verify: bool = True) -> dict:
                                 items, detail)
             elif name.startswith("tilefs-") and name.endswith(".tmp"):
                 _quarantine(root, full, "orphan_tmp", "tilefs", items)
+            elif name.startswith("tilefs-z") and name.endswith(".bin"):
+                from heatmap_tpu_torch.tilefs import verify_tilefs
+
+                detail = verify_tilefs(full)
+                if detail is not None:
+                    # Serving falls back to the exact npz level for that
+                    # zoom, so quarantining a torn mirror costs mmap
+                    # sharing, never correctness.
+                    _quarantine(root, full, "torn_tilefs", "tilefs",
+                                items, detail)
 
     # 6. Temporal buckets inside CURRENT's base (heatmap_tpu.temporal).
     if bdir and os.path.isdir(bdir):

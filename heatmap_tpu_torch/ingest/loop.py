@@ -9,7 +9,9 @@ micro-batch:
 1. journal + apply through the ordinary cascade on the card
    (``delta.apply_batch``: exactly-once by content hash, so a retried or
    replayed tick is an idempotent no-op);
-2. compact the delta stack when the size/age policy says so.
+2. publish to a live serve store via ``delta.refresh_serving``
+   (targeted invalidation, no generation bump);
+3. compact the delta stack when the size/age policy says so.
 
 ``run_ingest`` defaults the job config to bucketed padding
 (``pipeline/bucketing.py``, ``pad_bucketing="pow2"``), as the JAX
@@ -23,20 +25,27 @@ The loop rides the existing planes:
   recorder's tail promotion per tick and the time-series spill at the
   end;
 - tracing: every tick is an ``ingest.tick`` span;
-- faults: ticks run under the ``ingest.tick`` site with its retry
-  policy, and the feeder's transfers under ``feeder.put``. Both are
-  idempotent end to end; a crash mid-tick heals byte-identical through
-  ``delta/recover.py`` on the next apply's startup sweep.
+- faults: ticks and publishes run under the ``ingest.tick`` /
+  ``ingest.publish`` sites with their retry policies, and the feeder's
+  transfers under ``feeder.put``. All are idempotent end to end; a
+  crash mid-tick heals byte-identical through ``delta/recover.py`` on
+  the next apply's startup sweep.
 
 The feeder (``pipeline/feeder.py``, ``feed_depth``) moves micro-batch
 k+1's numeric columns to the card while tick k runs
 (``feeder.CudaColumns``); the tick hashes and journals the host columns
 and cascades the fed tensors.
 
-Publishing to a live tile server (the provisional synopsis overlay,
-``refresh_serving`` and the window roll of the JAX loop) needs
-``serve/`` and ``temporal/`` (ROADMAP Queue 1 items 6 and 5):
-``run_ingest`` refuses a ``store`` or ``cache`` until then.
+**Early serving** (docs/synopsis.md): before the exact apply, a tick
+overlays the micro-batch's coarse cell counts onto the store's decoded
+wavelet-synopsis views (``TileStore.publish_provisional``) under the
+``ingest.synopsis`` fault site — a numpy projection on the host, no
+cascade. ``?synopsis=1`` tiles reflect the batch immediately, marked
+``stale=1``, until the exact apply's ``refresh_serving`` supersedes
+them. The publish is best-effort: a terminal failure is swallowed, and
+a duplicate tick's overlay is discarded by an immediate
+``refresh_layers``. The card's work stays on this loop's thread; the
+server's request threads read only the store's numpy levels.
 
 Timestamps: event time comes from the batches' ``timestamp`` column
 (the watermark); loop durations use ``time.monotonic()``. Wall-clock
@@ -167,8 +176,7 @@ class IngestConfig:
     #: Stop after this many ticks (None = drain the source).
     max_ticks: int | None = None
     #: Publish a provisional synopsis overlay before each exact apply
-    #: (needs a serve store, which run_ingest refuses until serve/ is
-    #: ported; kept for the JAX package's field set).
+    #: (no-op when the serve store carries no synopsis views).
     provisional_synopsis: bool = True
     #: Host->device feeder depth (pipeline/feeder.py): micro-batch k+1's
     #: numeric columns transfer to the card while tick k computes, with
@@ -213,6 +221,98 @@ class IngestStats:
     feeder_depth_hwm: int = 0
 
 
+def _provisional_rows(store, cols, config, sign: int) -> dict:
+    """Coarse cell rows for the serve store's synopsis zooms, computed
+    from one micro-batch: ``{(user, timespan): {zoom: (rows, cols,
+    values)}}`` in the shape ``TileStore.publish_provisional`` takes.
+
+    A host-side shadow of the cascade's grouping (route_user / 'all'
+    aggregation / timespan labels) — exact for the counts it covers,
+    best-effort by contract: zooms with no synopsis view, timespan types
+    the batch cannot label, and the ``amplify_all`` compat recurrence
+    (not reproducible per-batch) all fall out as empty, and the exact
+    apply supersedes everything it publishes.
+    """
+    targets: dict[tuple, list] = {}
+    for name in store.layer_names():
+        layer = store.layer(name)
+        syn = getattr(layer, "synopses", None)
+        if syn:
+            targets[(layer.user, layer.timespan)] = sorted(syn)
+    if not targets or getattr(config, "amplify_all", False):
+        return {}
+    import numpy as np
+
+    from heatmap_tpu_torch.pipeline import groups, timespan
+    from heatmap_tpu_torch.tilemath.mercator import project_points_np
+
+    lat = np.asarray(cols.get("latitude", ()), np.float64)
+    n = len(lat)
+    if n == 0:
+        return {}
+    lon = np.asarray(cols["longitude"], np.float64)
+    user_ids = cols.get("user_id") or [""] * n
+    routed = np.empty(n, object)  # None = excluded (x-prefix)
+    for i, uid in enumerate(user_ids):
+        routed[i] = groups.route_user(uid)
+    if getattr(config, "weighted", False) and cols.get("value") is not None:
+        weights = np.asarray(cols["value"], np.float64) * float(sign)
+    else:
+        weights = np.full(n, float(sign))
+    vocab = timespan.TimespanVocab()
+    label_cols = []
+    stamps = cols.get("timestamp")
+    for ts_type in getattr(config, "timespans", ("alltime",)):
+        try:
+            label_cols.append(vocab.label_ids(
+                ts_type, stamps if stamps is not None else [None] * n))
+        except (TypeError, ValueError):
+            continue  # dated type without usable timestamps
+        if getattr(config, "first_timespan_only", False):
+            break
+    if not label_cols:
+        return {}
+    umasks = {}
+    for user, _ in targets:
+        if user not in umasks:
+            if user == groups.ALL_NAME:
+                umasks[user] = np.array([r is not None for r in routed])
+            else:
+                umasks[user] = routed == user
+    out: dict[tuple, dict] = {}
+    zooms = sorted({z for zs in targets.values() for z in zs})
+    for zoom in zooms:
+        rr, cc, valid = project_points_np(lat, lon, zoom)
+        for (user, ts_name), pair_zooms in targets.items():
+            if zoom not in pair_zooms:
+                continue
+            tid = vocab.id_for(ts_name)
+            tmask = np.zeros(n, bool)
+            for ids in label_cols:
+                tmask |= ids == tid
+            sel = umasks[user] & tmask & np.asarray(valid, bool)
+            if not sel.any():
+                continue
+            out.setdefault((user, ts_name), {})[zoom] = (
+                np.asarray(rr, np.int64)[sel],
+                np.asarray(cc, np.int64)[sel],
+                weights[sel])
+    return out
+
+
+def _roll_windows(root: str, cache) -> int:
+    """Sliding-window invalidation on a bucket roll: 0 on a store with
+    no temporal config, as in the JAX loop. On one that has it the roll
+    needs ``temporal/`` (ROADMAP Queue 1 item 5) and raises."""
+    from heatmap_tpu_torch.delta.compact import read_current
+
+    if read_current(root).get("temporal") is None:
+        return 0
+    raise NotImplementedError(
+        f"{root}: the store pins a temporal config, whose window roll "
+        "needs temporal/: not ported yet (ROADMAP Queue 1 item 5)")
+
+
 def _event_watermark(cols) -> float | None:
     """Max event-time timestamp of a column batch (None when absent)."""
     stamps = cols.get("timestamp")
@@ -229,15 +329,14 @@ def run_ingest(root: str, source, config=None, *,
                store=None, cache=None, device="cuda") -> IngestStats:
     """Drain ``source`` through the continuous-ingest loop into the
     delta store at ``root``, each tick's cascade on ``device`` (the card
-    unless the caller names the CPU).
+    unless the caller names the CPU), publishing to ``store``/``cache``
+    (a live ``serve.TileStore`` mounted on this root's ``delta:`` spec)
+    when given.
 
     ``config=None`` defaults to ``BatchJobConfig(pad_bucketing="pow2")``.
     Safe to restart after any crash: the journal's content hashes make
     every tick exactly-once, and the recovery sweep inside
     ``apply_batch`` quarantines torn state first.
-
-    ``store``/``cache`` (a live tile server to publish each tick to)
-    raise NotImplementedError: serving is ROADMAP Queue 1 item 6.
     """
     from heatmap_tpu_torch import delta as delta_mod
     from heatmap_tpu_torch.devices import resolve_device
@@ -245,12 +344,6 @@ def run_ingest(root: str, source, config=None, *,
     from heatmap_tpu_torch.pipeline import feeder as feeder_mod
     from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
 
-    if store is not None or cache is not None:
-        raise NotImplementedError(
-            "run_ingest(store=, cache=) publishes to a live tile server "
-            "(provisional synopsis overlay, refresh_serving, window "
-            "roll), which needs serve/: not ported yet (ROADMAP Queue 1 "
-            "item 6)")
     ing = ingest or IngestConfig()
     if config is None:
         config = BatchJobConfig(pad_bucketing="pow2")
@@ -269,6 +362,21 @@ def run_ingest(root: str, source, config=None, *,
         else:
             cols, fed = got, None
         with tracing.span("ingest.tick", tick=ctx.index):
+            provisional = 0
+            if store is not None and ing.provisional_synopsis:
+                def _early():
+                    rows_by = _provisional_rows(store, cols, config,
+                                                ing.sign)
+                    return store.publish_provisional(rows_by)
+
+                # Best-effort early serving: a terminal failure here
+                # must not cost the tick its exact apply.
+                try:
+                    provisional = faults.retry_call(
+                        _early, site="ingest.synopsis", key=ctx.index)
+                except Exception:
+                    provisional = 0
+
             def _apply():
                 return delta_mod.apply_batch(
                     root, delta_mod.ColumnsSource(cols), config,
@@ -276,6 +384,17 @@ def run_ingest(root: str, source, config=None, *,
 
             result = faults.retry_call(
                 _apply, site="ingest.tick", key=ctx.index)
+            invalidated = 0
+            if store is not None and result.duplicate and provisional:
+                # The overlay double-counted an already-applied batch;
+                # rebuilding the index discards every provisional view.
+                store.refresh_layers()
+            if store is not None and not result.duplicate:
+                invalidated = faults.retry_call(
+                    delta_mod.refresh_serving, result, store, cache,
+                    site="ingest.publish", key=ctx.index)
+            if cache is not None and not result.duplicate:
+                invalidated += _roll_windows(root, cache)
             compacted = False
             if not result.duplicate:
                 if not oldest_live:
@@ -291,6 +410,11 @@ def run_ingest(root: str, source, config=None, *,
                     oldest_live.clear()
                     compacted = True
                     stats.compactions += 1
+                    if store is not None:
+                        # Compaction is byte-neutral (base ⊕ deltas
+                        # pinned identical), so re-point the overlay
+                        # without dropping any cache entries.
+                        store.refresh_layers()
         seconds = time.monotonic() - t0
         # Tail-based retention: a tick past the recorder's latency
         # threshold promotes its whole (possibly unsampled) tree out of
@@ -303,6 +427,7 @@ def run_ingest(root: str, source, config=None, *,
             stats.watermark = wm  # monotonic under out-of-order batches
         stats.ticks += 1
         stats.points += result.points if not result.duplicate else 0
+        stats.keys_invalidated += invalidated
         if result.duplicate:
             stats.duplicates += 1
         else:
@@ -321,7 +446,7 @@ def run_ingest(root: str, source, config=None, *,
                  seconds=round(seconds, 6), epoch=result.epoch,
                  duplicate=result.duplicate, watermark=stats.watermark,
                  lag_s=round(lag, 6), queue_depth=ctx.queue_depth,
-                 keys_invalidated=0, compacted=compacted)
+                 keys_invalidated=invalidated, compacted=compacted)
 
     batches = source.batches(ing.micro_batch)
     if ing.max_ticks is not None:

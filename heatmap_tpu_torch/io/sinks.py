@@ -190,15 +190,17 @@ class LevelArraysSink:
     ``synopses`` and ``integrals`` also publish the wavelet
     ``synopsis-z*.npz`` and summed-area ``integral-z*.npz`` side
     artifacts of the coarse levels, the JAX package's bytes (delta
-    compaction sets both). The ``arrays-synopsis:`` and
-    ``arrays-integral:`` sink specs and the tilefs mirrors wait for
-    ROADMAP Queue 1 items 5 and 6.
+    compaction sets both). ``tilefs`` also publishes the zero-copy
+    ``tilefs-z*.bin`` mirrors the serving tier mmaps (``arrays-tilefs:``
+    spec; heatmap_tpu_torch.tilefs). The ``arrays-synopsis:`` and
+    ``arrays-integral:`` sink specs wait for ROADMAP Queue 1 item 5.
     """
 
     path: str
     format: str = "npz"
     synopses: bool = False
     integrals: bool = False
+    tilefs: bool = False
 
     #: Per-row columns (user/timespan dictionary-encoded).
     COLUMNS = ("row", "col", "value", "user_idx", "timespan_idx",
@@ -213,7 +215,7 @@ class LevelArraysSink:
 
     def write_levels(self, levels) -> int:
         rows = 0
-        if self.synopses or self.integrals:
+        if self.synopses or self.integrals or self.tilefs:
             levels = list(levels)  # consumed twice: levels + derived
         for lvl in levels:
             out = {k: np.asarray(lvl[k]) for k in self.COLUMNS}
@@ -250,6 +252,21 @@ class LevelArraysSink:
 
             write_integrals(self.path,
                             {int(lvl["zoom"]): lvl for lvl in levels})
+        if self.tilefs:
+            # Zero-copy mirrors from the same in-memory levels, split on
+            # the string keys exactly like TileStore._build_from_levels.
+            from heatmap_tpu_torch.tilefs import format as tilefs_format
+
+            tilefs_format.write_tilefs_from_loaded(self.path, {
+                int(lvl["zoom"]): {
+                    "row": lvl["row"], "col": lvl["col"],
+                    "value": lvl["value"],
+                    "coarse_zoom": lvl["coarse_zoom"],
+                    "user": np.asarray(lvl["user_names"])[
+                        np.asarray(lvl["user_idx"])],
+                    "timespan": np.asarray(lvl["timespan_names"])[
+                        np.asarray(lvl["timespan_idx"])],
+                } for lvl in levels})
         return rows
 
     def write(self, records):
@@ -381,11 +398,11 @@ class PNGTileSink:
 
 
 #: Sink spec kinds the port opens, in help order.
-SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "dir", "memory")
+SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "arrays-tilefs", "dir",
+              "memory")
 
 #: Sink kinds of the JAX package that the port does not open yet.
-UNPORTED_SINK_KINDS = ("arrays-synopsis", "arrays-integral", "arrays-tilefs",
-                       "cassandra")
+UNPORTED_SINK_KINDS = ("arrays-synopsis", "arrays-integral", "cassandra")
 
 
 def validate_sink_spec(spec: str) -> str:
@@ -410,7 +427,8 @@ def validate_sink_spec(spec: str) -> str:
 
 def open_sink(spec: str):
     """Sink spec: ``memory:``, ``jsonl:PATH``, ``dir:PATH``, ``arrays:DIR``
-    (columnar per-level npz), ``arrays-parquet:DIR`` or a bare ``.jsonl``
+    (columnar per-level npz), ``arrays-parquet:DIR``, ``arrays-tilefs:DIR``
+    (the npz levels plus their tilefs mirrors) or a bare ``.jsonl``
     path."""
     validate_sink_spec(spec)
     kind, sep, rest = spec.partition(":")
@@ -424,4 +442,6 @@ def open_sink(spec: str):
         return LevelArraysSink(rest)
     if kind == "arrays-parquet":
         return LevelArraysSink(rest, format="parquet")
+    if kind == "arrays-tilefs":
+        return LevelArraysSink(rest, tilefs=True)
     return JSONLBlobSink(spec)

@@ -29,13 +29,15 @@ recorder is a no-op while neither the registry is enabled nor an event
 log installed, so with telemetry off the pipeline pays a global read or
 two per site and writes the same bytes.
 
-The serve tier's process gauges wait with ``serve/`` (ROADMAP Queue 1
-item 6); the multihost recorders (heartbeats, shard retries, elastic shards,
+The serve tier's process gauges (``refresh_process_gauges``, stamped at
+every ``/metrics`` scrape) are here too; the multihost recorders (heartbeats, shard retries, elastic shards,
 partition plans, speculative launches) wait for ``parallel/`` (item 7):
 the port has one process, index 0 of 1.
 """
 
 from __future__ import annotations
+
+import time
 
 from heatmap_tpu_torch.obs import (anomaly, events, incident, metrics,
                                    recorder, slo, timeseries, tracing)
@@ -117,6 +119,27 @@ ANOMALIES_TOTAL = _registry.counter(
     "anomalies_total",
     "Anomaly-detector rising edges, by watch spec",
     labelnames=("watch",))
+PROCESS_UPTIME = _registry.gauge(
+    "process_uptime_seconds", "Seconds since this process imported obs")
+BUILD_INFO = _registry.gauge(
+    "heatmap_build_info", "Constant 1; the version label is the payload",
+    labelnames=("version",))
+_T0 = time.monotonic()
+
+
+def refresh_process_gauges():
+    """Stamp process_uptime_seconds and heatmap_build_info{version}.
+
+    Gauge writes no-op while the registry is disabled, so these are
+    refreshed at scrape time (serve /metrics) rather than set once at
+    import.
+    """
+    if not _registry.enabled:
+        return
+    from heatmap_tpu_torch import __version__
+
+    PROCESS_UPTIME.set(time.monotonic() - _T0)
+    BUILD_INFO.set(1, version=__version__)
 
 
 def telemetry_enabled() -> bool:
@@ -214,7 +237,8 @@ def record_io_retry(site: str):
 
 
 __all__ = [
-    "ANOMALIES_TOTAL", "AnomalyEngine", "EVENT_SCHEMA", "EventLog",
+    "ANOMALIES_TOTAL", "AnomalyEngine", "BUILD_INFO", "EVENT_SCHEMA",
+    "EventLog", "PROCESS_UPTIME", "refresh_process_gauges",
     "FEEDER_DEPTH", "FlightRecorder", "INCIDENTS_TOTAL", "IncidentManager",
     "MetricsRegistry", "RECORDER_DROPPED", "SLOEngine", "SLOSpec",
     "TelemetrySampler", "TimeSeriesStore", "TraceCollector", "WatchSpec",

@@ -1,41 +1,33 @@
-"""Recognising the zero-copy tile store's files (``tilefs-z*.bin``).
+"""tilefs: zero-copy serving storage (docs/tilefs.md).
 
-The port's copy of ``sniff_tilefs`` from heatmap_tpu/tilefs/format.py,
-so that compaction can tell a base that carries tilefs mirrors and
-refuse it. Writing and reading the mirrors (``arrays-tilefs:``) waits
-with ``serve/`` for ROADMAP Queue 1 item 6.
+The port's copy of heatmap_tpu/tilefs (numpy only): the same files, the
+same bytes. Three pillars:
+
+- :mod:`heatmap_tpu_torch.tilefs.format`    — the mmap'd columnar
+  per-zoom file format (``tilefs-z*.bin``) and its reader/writer/
+  verifier;
+- :mod:`heatmap_tpu_torch.tilefs.diskcache` — the size-capped disk tier
+  of rendered tile bytes between the heap LRU and on-demand render;
+- :mod:`heatmap_tpu_torch.tilefs.prewarm`   — popularity-driven cache
+  pre-warming from the ``http_request`` event log.
+
+Nothing here touches torch or a device: a tile server keeps serving
+beside a busy or dead card.
 """
 
-from __future__ import annotations
+from heatmap_tpu_torch.tilefs.diskcache import DiskTileCache
+from heatmap_tpu_torch.tilefs.format import (SCHEMA, TilefsError,
+                                             TilefsReader, list_tilefs,
+                                             open_tilefs, sniff_tilefs,
+                                             tilefs_path, verify_tilefs,
+                                             write_tilefs,
+                                             write_tilefs_from_loaded)
+from heatmap_tpu_torch.tilefs.prewarm import (PrewarmConfig, build_plan,
+                                              warm)
 
-import os
-import struct
-
-TRAILER_MAGIC = b"TILEFSIX"
-HEADER_SIZE = 64
-TRAILER_SIZE = struct.calcsize("=QII8s")
-
-
-def sniff_tilefs(dirpath: str) -> bool:
-    """True when ``dirpath`` holds at least one ``tilefs-z*.bin`` file
-    with an intact trailer magic (one stat and one 8-byte read per
-    candidate)."""
-    try:
-        names = sorted(os.listdir(dirpath))
-    except OSError:
-        return False
-    for name in names:
-        if not (name.startswith("tilefs-z") and name.endswith(".bin")):
-            continue
-        try:
-            int(name[len("tilefs-z"):-len(".bin")])
-            with open(os.path.join(dirpath, name), "rb") as f:
-                size = os.fstat(f.fileno()).st_size
-                if size < HEADER_SIZE + TRAILER_SIZE:
-                    continue
-                f.seek(size - 8)
-                if f.read(8) == TRAILER_MAGIC:
-                    return True
-        except (ValueError, OSError):
-            continue
-    return False
+__all__ = [
+    "SCHEMA", "TilefsError", "TilefsReader", "DiskTileCache",
+    "PrewarmConfig", "build_plan", "list_tilefs", "open_tilefs",
+    "sniff_tilefs", "tilefs_path", "verify_tilefs", "warm",
+    "write_tilefs", "write_tilefs_from_loaded",
+]

@@ -344,7 +344,7 @@ def test_output_typo_fails_at_parse_time(capsys, command):
 
 
 @pytest.mark.parametrize("kind", ["arrays-synopsis", "arrays-integral",
-                                  "arrays-tilefs", "cassandra"])
+                                  "cassandra"])
 def test_unported_sink_kind_fails_at_parse_time(capsys, kind):
     with pytest.raises(SystemExit) as err:
         tcli.main(["run", "--input", "synthetic:10", "--backend", "cpu",

@@ -380,11 +380,14 @@ def _store(tmp_path):
 
 
 def test_refusals_of_later_slices(tmp_path):
-    """A temporal store, a tilefs base and serving refresh raise
-    NotImplementedError naming their ROADMAP item."""
+    """A temporal store raises NotImplementedError naming its ROADMAP
+    item. A tilefs base and serving refresh, ported since, work: a torn
+    mirror is quarantined by the sweep, and a duplicate result publishes
+    nothing."""
     root = _store(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        delta.refresh_serving(None, None)
+    dup = delta.DeltaResult(epoch=1, points=0, sign=1, duplicate=True,
+                            artifact=None, rows=0, seconds=0.0)
+    assert delta.refresh_serving(dup, None) == 0
     cur = read_current(root)
     write_current(root, {**cur, "temporal": {"width": 3600.0}})
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -398,9 +401,11 @@ def test_refusals_of_later_slices(tmp_path):
         f.write(b"\0" * 200 + b"TILEFSIX")
     delta.apply_batch(root, delta.ColumnsSource(_cols(1, 100)),
                       _cfg("torch"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        delta.compact(root)
-    os.remove(os.path.join(base, "tilefs-z08.bin"))
+    assert not os.path.exists(os.path.join(base, "tilefs-z08.bin"))
+    assert any("tilefs-z08.bin" in n
+               for n in os.listdir(os.path.join(root, "quarantine")))
+    assert delta.compact(root)["status"] == "ok"
+    base = os.path.join(root, read_current(root)["base"])
     os.mkdir(os.path.join(base, "buckets"))
     with pytest.raises(NotImplementedError, match="item 5"):
         delta.sweep(root)
