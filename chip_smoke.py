@@ -39,7 +39,7 @@ just before it and read just after:
   through a CSV (bit-equal to the uninterrupted run); each against the
   same run on the CPU (bit-equal without decay, within STREAM_RTOL with
   it), and a twin of ``tools/bench_stream.py`` per binning backend;
-- the delta store through ``update`` and ``retract`` (a 4M-point base,
+- the delta store through ``update`` and ``retract`` (a 2M-point base,
   262,144-point increments, a duplicate, retractions, a compaction),
   checked against a one-shot run over the surviving points and against
   the same sequence on the CPU (16 segment-reduce launches per applied
@@ -58,6 +58,16 @@ just before it and read just after:
   on the CPU (16 segment-reduce launches per applied tick); ``serve
   --follow-stream`` for 16 ticks (one window-histogram launch a tick),
   its live raster bit-equal to the port's stream on the CPU;
+- the write plane: the ``writeplane`` command at its defaults over
+  262,144 points (2 pump threads launching the cascade concurrently, 16
+  segment reduces per applied sub-batch), its levels equal to a one-shot
+  run and to the exact-padded drain, a replay that applies nothing, 4
+  writers with a retraction and a rebalance against a one-shot run over
+  the survivors, the card against the CPU, and 1, 2 and 4 writers;
+- the serve fleet: ``serve --fleet 2`` over the write plane's root as a
+  process, tiles through the router equal to a single-process app's, a
+  child SIGKILLed mid-list (no 500; restarted and back on the ring), and
+  no process of the fleet holding a CUDA context;
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -130,10 +140,13 @@ N_TILES = 4_000_000
 #: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
 #: tests, at their sizes, hold 1e-5.
 FRACTIONAL_RTOL = 1e-4
-#: The delta phase: a base of the default job's points, increments of
-#: 262,144 points (seeds 1-4), the user a predicate retraction removes;
-#: and the small sequence run on the card and on the CPU.
-N_DELTA_BASE = N_MAIN
+#: The delta phase: a base of 2M points, increments of 262,144 points
+#: (seeds 1-4), the user a predicate retraction removes; and the small
+#: sequence run on the card and on the CPU. The base is also the ingest
+#: phase's (b) store and the serve phase's large store. (The default
+#: job's 4M points until the write-plane and fleet phases came; halved
+#: to keep the smoke within its time.)
+N_DELTA_BASE = 2_000_000
 N_DELTA_INC = 1 << 18
 N_DELTA_SMALL_BASE = 200_000
 N_DELTA_SMALL_INC = 1 << 14
@@ -182,6 +195,26 @@ SERVE_CLIENT_RPS = (0,)
 SERVE_CURVE_RPS = (0, 50, 200, None)
 SERVE_TICKS = 16
 N_SERVE_BASE = 1 << 16
+#: The write-plane phase: the ``writeplane`` command at its defaults (2
+#: writers, 16,384-point micro-batches, queue depth 4, a publish every
+#: batch, compaction every 16 live deltas, retention 2, pow2 padding).
+#: (a) drains synthetic:N_WRITEPLANE:7, 16 batches (a deployment's
+#: stream is endless; 16 batches let each range compact once); (c) 4
+#: writers over synthetic:N_WRITEPLANE_C:11 with its first
+#: N_WRITEPLANE_RETRACT points retracted, then a rebalance; (d) and the
+#: writer curve run (a)'s first WRITEPLANE_CUT_TICKS and
+#: WRITEPLANE_CURVE_TICKS batches.
+N_WRITEPLANE = 1 << 18
+N_WRITEPLANE_C = 1 << 17
+N_WRITEPLANE_RETRACT = 1 << 15
+WRITEPLANE_CUT_TICKS = 4
+WRITEPLANE_CURVE_TICKS = 8
+WRITEPLANE_WRITERS = (1, 2, 4)
+#: The fleet phase: ``serve --fleet FLEET_BACKENDS`` over (a)'s root, in
+#: process mode; FLEET_RESTART_WAIT_S bounds the wait for a killed
+#: child's return to the ring.
+FLEET_BACKENDS = 2
+FLEET_RESTART_WAIT_S = 120.0
 #: Points of the segment reduce's padded-tick case: 2 emissions per
 #: kept point fill a little over half of the pow2 bucket, so 40-50% of
 #: the sorted lanes are the sentinel tail.
@@ -1477,6 +1510,29 @@ def check_delta_sequence(seq, n_levels):
             assert rec["launches"] == n_levels, (name, rec["launches"])
 
 
+def assert_levels_equal(got, want, what):
+    """Merged level arrays equal, level by level and column by column."""
+    from heatmap_tpu_torch.io.sinks import LevelArraysSink
+
+    assert [int(l["zoom"]) for l in got] == [int(l["zoom"]) for l in want], \
+        what
+    for g, w in zip(got, want):
+        for k in (*LevelArraysSink.COLUMNS, "user_names", "timespan_names"):
+            assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), \
+                f"{what}: z{g['zoom']} {k}"
+
+
+def write_parquet(path, cols):
+    """Point columns as a Parquet file."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table({
+        "latitude": cols["latitude"], "longitude": cols["longitude"],
+        "user_id": cols["user_id"], "source": cols["source"],
+        "timestamp": np.asarray(cols["timestamp"], np.int64)}), path)
+
+
 def survivors(n_base, n_inc):
     """The points a clean recompute keeps: the base and seeds 1, 2 and
     4 (seed 3 was retracted) without DELTA_USER's rows, as columns."""
@@ -1498,7 +1554,7 @@ def survivors(n_base, n_inc):
 def phase_delta(dev, root):
     """The delta store on the card through the ``update`` and ``retract``
     commands, as DELTA_* describe, into ``root`` (left for the ingest
-    phase: a compacted base of about 4M points), with checks: (a) the compacted base
+    phase: a compacted base of about 2M points), with checks: (a) the compacted base
     equals one ``run --output arrays:`` over the surviving points; (b)
     the same sequence at 200k base and 16,384-point increments writes
     equal stores on the card (with telemetry on one increment) and on
@@ -1507,15 +1563,11 @@ def phase_delta(dev, root):
     validate against EVENT_SCHEMA, metrics.prom and the report exist,
     and its delta artifact equals the same batch applied without
     telemetry. Returns the launches of the main sequence."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
     from heatmap_tpu_torch import delta, obs
     from heatmap_tpu_torch.delta.compact import drop_zero_rows
     from heatmap_tpu_torch.devices import StageTimer
     from heatmap_tpu_torch.io import SyntheticSource
     from heatmap_tpu_torch.io.merge import merge_level_dirs
-    from heatmap_tpu_torch.io.sinks import LevelArraysSink
     from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
 
     n_levels = BatchJobConfig().cascade_config().n_levels + 1
@@ -1529,24 +1581,15 @@ def phase_delta(dev, root):
         # (a) the compacted base against one run over the survivors.
         cols = survivors(N_DELTA_BASE, N_DELTA_INC)
         pq_path = os.path.join(tmp, "survivors.parquet")
-        pq.write_table(pa.table({
-            "latitude": cols["latitude"], "longitude": cols["longitude"],
-            "user_id": cols["user_id"], "source": cols["source"],
-            "timestamp": cols["timestamp"].astype(np.int64)}), pq_path)
+        write_parquet(pq_path, cols)
         run_dir = os.path.join(tmp, "recompute")
         _, run_s = cli_call(["run", "--input", f"parquet:{pq_path}",
                              "--output", f"arrays:{run_dir}",
                              "--device", "cuda"])
         base = delta.read_current(root)["base"]
         got = drop_zero_rows(merge_level_dirs([os.path.join(root, base)]))
-        want = merge_level_dirs([run_dir])
-        assert [int(l["zoom"]) for l in got] == [int(l["zoom"]) for l in want]
-        for g, w in zip(got, want):
-            for k in (*LevelArraysSink.COLUMNS, "user_names",
-                      "timespan_names"):
-                assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), \
-                    f"compacted base differs from the recompute at " \
-                    f"z{g['zoom']} {k}"
+        assert_levels_equal(got, merge_level_dirs([run_dir]),
+                            "compacted base differs from the recompute")
         assert DELTA_USER not in set(np.asarray(got[0]["user_names"]))
         # (d) telemetry: valid events, metrics, report; the increment's
         # artifact equals the same batch applied without telemetry.
@@ -1616,9 +1659,10 @@ def phase_delta(dev, root):
 
 
 def tree_digest(root):
-    """{relative path: sha256} of every file of a delta store; journal
-    entries as their meta without the wall-clock ``ts`` and the sha256 of
-    their arrays."""
+    """{relative path: sha256} of every file under ``root`` (a delta
+    store, or a plane's ranges); journal entries (``journal/`` files) as
+    their meta without the wall-clock ``ts`` and the sha256 of their
+    arrays."""
     import hashlib
 
     from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
@@ -1629,7 +1673,7 @@ def tree_digest(root):
             path = os.path.join(d, f)
             rel = os.path.relpath(path, root)
             h = hashlib.sha256()
-            if rel.startswith("journal" + os.sep):
+            if os.path.basename(d) == "journal":
                 arrays, meta = load_checkpoint(path)
                 meta.pop("ts")
                 h.update(json.dumps(meta, sort_keys=True).encode())
@@ -1785,18 +1829,12 @@ def compare_base(root, run_dir):
     from heatmap_tpu_torch import delta
     from heatmap_tpu_torch.delta.compact import drop_zero_rows
     from heatmap_tpu_torch.io.merge import merge_level_dirs
-    from heatmap_tpu_torch.io.sinks import LevelArraysSink
 
     assert not delta.live_entries(root), "deltas left live"
     base = delta.read_current(root)["base"]
     got = drop_zero_rows(merge_level_dirs([os.path.join(root, base)]))
-    want = merge_level_dirs([run_dir])
-    assert [int(l["zoom"]) for l in got] == [int(l["zoom"]) for l in want]
-    for g, w in zip(got, want):
-        for k in (*LevelArraysSink.COLUMNS, "user_names", "timespan_names"):
-            assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), \
-                f"{root}: base differs from the one-shot run at " \
-                f"z{g['zoom']} {k}"
+    assert_levels_equal(got, merge_level_dirs([run_dir]),
+                        f"{root}: base differs from the one-shot run")
     return sum(len(l["row"]) for l in got)
 
 
@@ -1816,7 +1854,7 @@ def phase_ingest(dev, big_root):
     """The ``ingest`` command on the card, as the N_INGEST* constants
     describe: (a) a drain into a fresh journal at the command's defaults;
     (b) INGEST_B_TICKS ticks onto ``big_root`` (the delta phase's store,
-    a compacted 4M-point base); (c) the replay of (a)'s first ticks onto
+    a compacted 2M-point base); (c) the replay of (a)'s first ticks onto
     a store that holds them, every tick a duplicate; (d) ``--retract``
     of (a)'s first N_INGEST_RETRACT points; (e) (a)'s first
     INGEST_CUT_TICKS ticks with every telemetry flag on, into a fresh
@@ -1960,7 +1998,7 @@ def phase_ingest(dev, big_root):
         assert any(x.startswith("snap-") for x in os.listdir(spill))
         pads_counted = [float(line.split()[-1]) for line in prom.splitlines()
                         if line.startswith("cascade_pad_emissions_total")]
-        # (b) ticks onto the delta phase's store (4M-point base).
+        # (b) ticks onto the delta phase's store (2M-point base).
         b = ingest_drain(argv(big_root, f"synthetic:"
                               f"{INGEST_B_TICKS * INGEST_MICRO}:8",
                               "--max-ticks", str(INGEST_B_TICKS),
@@ -2435,6 +2473,511 @@ def phase_serve(dev, big_root, plain_ticks_s):
     return launches, hist
 
 
+def plane_digest(root):
+    """What a drain determines under a write-plane root: the range
+    stores' ``tree_digest``, the ledger's batches as a sorted list, and
+    the pointed manifest's plan, order and ranges. An earlier manifest
+    records whichever sub-applies had landed when a batch finished, and
+    ledger epochs follow completion order: both vary with the pumps'
+    timing."""
+    from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
+    from heatmap_tpu_torch.writeplane import read_manifest
+
+    out = tree_digest(os.path.join(root, "ranges"))
+    ledger = set()
+    ldir = os.path.join(root, "ledger")
+    for f in os.listdir(ldir):
+        if f.startswith("ckpt-"):
+            meta = load_checkpoint(os.path.join(ldir, f))[1]
+            ledger.add((meta["content_hash"], meta["points"], meta["sign"]))
+    out["ledger"] = sorted(ledger)
+    snap = read_manifest(root)
+    out["manifest"] = {k: snap[k] for k in ("plan", "order", "ranges")}
+    return out
+
+
+def plane_levels(root):
+    """The merged level arrays a ``writeplane:`` reader of the newest
+    manifest serves (zero rows dropped, as the store drops them)."""
+    from heatmap_tpu_torch.delta.compact import drop_zero_rows
+    from heatmap_tpu_torch.io.merge import merge_level_dirs
+    from heatmap_tpu_torch.writeplane import overlay_dirs, read_manifest
+
+    return drop_zero_rows(merge_level_dirs(
+        overlay_dirs(root, read_manifest(root))))
+
+
+def one_shot_levels(tmp, name, spec, device):
+    """One ``run --output arrays:`` of ``spec``: its level arrays and
+    seconds."""
+    from heatmap_tpu_torch.io.merge import merge_level_dirs
+
+    run_dir = os.path.join(tmp, name)
+    _, seconds = cli_call(["run", "--input", spec, "--output",
+                           f"arrays:{run_dir}", "--device", device])
+    return merge_level_dirs([run_dir]), seconds
+
+
+def plane_drain(argv):
+    """One ``writeplane`` command through ``cli.main``: its summary and
+    seconds, the segment-reduce launches (set to 0 just before), each
+    sub-apply's range, seconds and duplicate flag, each compaction's
+    seconds, and the sub-batches the ranges' journals record as applied
+    (each range journal's newest epoch; pruning keeps the numbering)."""
+    import threading
+
+    from heatmap_tpu_torch.delta import DeltaJournal
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.writeplane import WritePlane, range_root, \
+        read_manifest
+
+    root = argv[argv.index("--root") + 1]
+    applies, compactions = [], []
+    lock = threading.Lock()
+    real_apply, real_compact = WritePlane.apply_range, WritePlane.compact_range
+
+    def apply_range(self, name, *a, **kw):
+        t0 = time.perf_counter()
+        res = real_apply(self, name, *a, **kw)
+        with lock:
+            applies.append({"range": name, "s": time.perf_counter() - t0,
+                            "duplicate": res.duplicate})
+        return res
+
+    def compact_range(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_compact(self, *a, **kw)
+        with lock:
+            compactions.append(time.perf_counter() - t0)
+        return out
+
+    WritePlane.apply_range, WritePlane.compact_range = apply_range, \
+        compact_range
+    sp.aggregate_sorted_keys_partitioned.launches = 0
+    try:
+        summary, seconds = cli_call(argv)
+    finally:
+        WritePlane.apply_range, WritePlane.compact_range = real_apply, \
+            real_compact
+    launches = sp.aggregate_sorted_keys_partitioned.launches
+    snap = read_manifest(root)
+    journaled = {name: DeltaJournal(os.path.join(range_root(root, name),
+                                                 "journal")).latest_epoch()
+                 for name in snap["order"]}
+    return {"summary": summary, "seconds": seconds, "launches": launches,
+            "applies": applies, "compactions_s": compactions,
+            "journaled": journaled}
+
+
+def plane_numbers(rec):
+    """points/s, the lag median, sub-apply seconds and compactions of one
+    drain's first run."""
+    run = rec["summary"]["runs"][0]
+    applied = [a["s"] for a in rec["applies"] if not a["duplicate"]]
+    by_range = {}
+    for a in rec["applies"]:
+        if not a["duplicate"]:
+            by_range.setdefault(a["range"], []).append(a["s"])
+    return {"batches": run["batches"], "points": run["points"],
+            "seconds": rec["seconds"],
+            "points_per_s": run["points"] / rec["seconds"],
+            "lag_p50_s": run["lag_p50_s"],
+            "sub_applies": len(applied),
+            "sub_apply_median_s": (statistics.median(applied)
+                                   if applied else None),
+            "sub_apply_median_s_by_range": {
+                k: statistics.median(v) for k, v in sorted(by_range.items())},
+            "compaction_s": rec["compactions_s"],
+            "launches": rec["launches"], "ranges": rec["summary"]["ranges"]}
+
+
+def phase_writeplane(dev, tmp):
+    """The ``writeplane`` command on the card (pump threads launching the
+    cascade concurrently), as the N_WRITEPLANE* constants describe, with
+    checks: (a) a ``writeplane:`` store over the drain serves levels
+    byte-equal to one ``run`` over the same points, and the same drain
+    with ``--pad-bucketing exact`` serves the same; 16 segment reduces
+    per sub-batch the ranges' journals record as applied, counted over
+    both pump threads; (b) a replay of (a): every batch a ledger
+    duplicate, no launch, the range trees unchanged; (c) 4 writers, a
+    retraction of the first N_WRITEPLANE_RETRACT points and a rebalance
+    serve a one-shot run over the surviving points; (d) (a)'s first
+    WRITEPLANE_CUT_TICKS batches on the card and on the CPU give equal
+    range trees. Then (a)'s first WRITEPLANE_CURVE_TICKS batches at each
+    writer count of WRITEPLANE_WRITERS. Returns (a)'s root (the fleet
+    phase serves it) and the launches of the card's drains."""
+    from heatmap_tpu_torch import serve as serve_mod
+    from heatmap_tpu_torch.delta import read_columns
+    from heatmap_tpu_torch.io import SyntheticSource
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    t_phase = time.perf_counter()
+    n_levels = BatchJobConfig().cascade_config().n_levels + 1
+    spec = f"synthetic:{N_WRITEPLANE}:7"
+    batches = N_WRITEPLANE // INGEST_MICRO
+
+    def wp(root, *extra, device="cuda"):
+        # INGEST_MICRO is the command's default --micro-batch.
+        return ["writeplane", "--root", root, "--device", device,
+                "--micro-batch", str(INGEST_MICRO), *extra]
+
+    def check_launches(rec, what):
+        applied = sum(not a["duplicate"] for a in rec["applies"])
+        assert applied == sum(rec["journaled"].values()), \
+            (what, applied, rec["journaled"])
+        assert rec["launches"] == n_levels * applied, \
+            (what, rec["launches"], applied)
+        assert len({a["range"] for a in rec["applies"]}) == len(
+            rec["summary"]["ranges"]), what
+        return applied
+
+    out = {"phase": "writeplane", "micro_batch": INGEST_MICRO,
+           "launches_per_applied_sub_batch": n_levels}
+    launches = 0
+    # (a) the default drain, its one-shot run and the exact-padded drain.
+    root_a = os.path.join(tmp, "plane_a")
+    a = plane_drain(wp(root_a, "--input", spec))
+    run = a["summary"]["runs"][0]
+    assert run["batches"] == run["completed"] == batches, run
+    assert run["failed"] == 0 and run["points"] == N_WRITEPLANE, run
+    applied_a = check_launches(a, "a")
+    assert a["compactions_s"], "no range compacted"
+    launches += a["launches"]
+    want, run_s = one_shot_levels(tmp, "oneshot_a", spec, "cuda")
+    got = plane_levels(root_a)
+    assert_levels_equal(got, want, "plane (a) against the one-shot run")
+    store = serve_mod.TileStore(f"writeplane:{root_a}")
+    assert store.kind == "writeplane"
+    assert store.delta_epoch == a["summary"]["epoch"]
+    del store
+    exact = plane_drain(wp(os.path.join(tmp, "plane_exact"), "--input",
+                           spec, "--pad-bucketing", "exact"))
+    check_launches(exact, "exact")
+    launches += exact["launches"]
+    assert_levels_equal(plane_levels(os.path.join(tmp, "plane_exact")), got,
+                        "exact-padded plane against the pow2 plane")
+    shutil.rmtree(os.path.join(tmp, "plane_exact"))
+    out["a"] = {**plane_numbers(a), "applied_sub_batches": applied_a,
+                "journaled": a["journaled"], "one_shot_run_s": run_s,
+                "equal_one_shot": True, "equal_exact_padding": True,
+                "exact_points_per_s": N_WRITEPLANE / exact["seconds"],
+                "exact_sub_apply_median_s": plane_numbers(exact)[
+                    "sub_apply_median_s"]}
+    # (b) the replay: all ledger duplicates, nothing launched or written.
+    before = plane_digest(root_a)
+    b = plane_drain(wp(root_a, "--input", spec))
+    run = b["summary"]["runs"][0]
+    assert run["duplicates"] == run["batches"] == batches, run
+    assert b["launches"] == 0 and not b["applies"], b["launches"]
+    assert plane_digest(root_a) == before, "the replay changed the plane"
+    out["b"] = {"batches": run["batches"], "duplicates": run["duplicates"],
+                "seconds": b["seconds"], "launches": 0,
+                "tree_unchanged": True}
+    # (c) 4 writers, a retraction of the first points, a rebalance.
+    cols = read_columns(SyntheticSource(n=N_WRITEPLANE_C, seed=11))
+    head = {k: v[:N_WRITEPLANE_RETRACT] for k, v in cols.items()}
+    tail = {k: v[N_WRITEPLANE_RETRACT:] for k, v in cols.items()}
+    retract_pq = os.path.join(tmp, "retract.parquet")
+    survivors_pq = os.path.join(tmp, "survivors.parquet")
+    write_parquet(retract_pq, head)
+    write_parquet(survivors_pq, tail)
+    root_c = os.path.join(tmp, "plane_c")
+    c = plane_drain(wp(root_c, "--writers", "4", "--input",
+                       f"synthetic:{N_WRITEPLANE_C}:11", "--retractions",
+                       f"parquet:{retract_pq}", "--rebalance"))
+    for run in c["summary"]["runs"]:
+        assert run["failed"] == 0 and run["completed"] == run["batches"], run
+    check_launches(c, "c")
+    launches += c["launches"]
+    want_c, _ = one_shot_levels(tmp, "oneshot_c", f"parquet:{survivors_pq}",
+                                "cuda")
+    assert_levels_equal(plane_levels(root_c), want_c,
+                        "plane (c) against the one-shot run of survivors")
+    shutil.rmtree(root_c)
+    out["c"] = {**plane_numbers(c), "writers": 4,
+                "retracted_points": N_WRITEPLANE_RETRACT,
+                "retract_run": c["summary"]["runs"][1],
+                "rebalance": c["summary"].get("rebalance"),
+                "ranges": c["summary"]["ranges"],
+                "equal_one_shot_survivors": True}
+    # (d) the first batches on the card and on the CPU.
+    cut = ["--input", spec, "--max-ticks", str(WRITEPLANE_CUT_TICKS)]
+    digests = {}
+    for device in ("cuda", "cpu"):
+        root_d = os.path.join(tmp, f"plane_d_{device}")
+        d = plane_drain(wp(root_d, *cut, device=device))
+        if device == "cuda":
+            check_launches(d, "d")
+            launches += d["launches"]
+        digests[device] = plane_digest(root_d)
+        out.setdefault("d", {})[f"{device}_s"] = d["seconds"]
+        shutil.rmtree(root_d)
+    assert digests["cuda"] == digests["cpu"], \
+        "card and CPU write planes differ"
+    out["d"]["equal_cpu"] = True
+    # The writer curve: the same batches at 1, 2 and 4 writers.
+    curve = {}
+    for writers in WRITEPLANE_WRITERS:
+        root_w = os.path.join(tmp, f"plane_w{writers}")
+        w = plane_drain(wp(root_w, "--writers", str(writers), "--input",
+                           spec, "--max-ticks",
+                           str(WRITEPLANE_CURVE_TICKS)))
+        check_launches(w, f"writers {writers}")
+        launches += w["launches"]
+        curve[writers] = plane_numbers(w)
+        shutil.rmtree(root_w)
+    out["writers"] = curve
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return root_a, launches
+
+
+def child_pids(pid):
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return sorted(out)
+
+
+def start_seconds(pid):
+    """A process's start, in seconds since boot (/proc/PID/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return int(fields[19]) / os.sysconf("SC_CLK_TCK")
+
+
+def uptime_s():
+    with open("/proc/uptime") as f:
+        return float(f.read().split()[0])
+
+
+def holds_card(pid):
+    """True when ``pid`` has a CUDA device file open (/dev/nvidia*): the
+    driver opens them when the process creates a context."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                    "/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def compute_app_pids():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return {int(x) for x in res.stdout.split() if x.strip().isdigit()}
+
+
+def phase_fleet(dev, root):
+    """``serve --store writeplane:ROOT --fleet FLEET_BACKENDS --port 0``
+    in process mode over the write-plane phase's (a) root, with checks:
+    the serve phase's tile list for this store, png and json, fetched
+    cold then warm through the router equals a single-process ServeApp
+    over the same store (status, bytes, ETag), which is also fetched
+    cold and warm over HTTP for the latencies; /healthz names every
+    backend; a child SIGKILLed while the list is fetched costs no 500
+    (every answer a 200 equal to the app's or a typed 503), the
+    supervisor restarts it, it is back on the ring within
+    FLEET_RESTART_WAIT_S and the router's /metrics reads one restart for
+    it; no fleet process holds a CUDA context (nvidia-smi's compute
+    apps, and no /dev/nvidia* file open)."""
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from heatmap_tpu_torch.serve import (ServeApp, TileCache, TileStore,
+                                         serve_in_thread)
+
+    t_phase = time.perf_counter()
+    spec = f"writeplane:{root}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t_spawn = uptime_s()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "heatmap_tpu_torch", "serve", "--store", spec,
+         "--fleet", str(FLEET_BACKENDS), "--port", "0"],
+        cwd=here, env=env, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    out = {"phase": "fleet", "backends": FLEET_BACKENDS, "store": "a"}
+    app_server = None
+    try:
+        banner = json.loads(proc.stderr.readline())
+        t_banner = uptime_s()
+        base = banner["serving"]
+        assert sorted(banner["fleet"]) == [f"b{i}" for i in
+                                           range(FLEET_BACKENDS)], banner
+        # In spawn order: b0 first.
+        children = sorted(child_pids(proc.pid), key=start_seconds)
+        assert len(children) == FLEET_BACKENDS, children
+        # The supervisor spawns one child after the previous one wrote
+        # its port file, so each child's start marks its predecessor's
+        # port file; the banner follows the last one.
+        starts = [start_seconds(c) for c in children] + [t_banner]
+        out["spawn_to_port_file_s"] = [starts[i + 1] - starts[i]
+                                       for i in range(FLEET_BACKENDS)]
+        out["command_to_banner_s"] = t_banner - t_spawn
+        # Where a child's start goes: its imports (a fresh interpreter,
+        # as the child's), then the store's mount (``mount_s`` below).
+        out["child_import_s"] = float(subprocess.run(
+            [sys.executable, "-c", "import time; t = time.perf_counter(); "
+             "import heatmap_tpu_torch.serve.fleet; "
+             "print(time.perf_counter() - t)"],
+            cwd=here, env=env, capture_output=True, text=True, check=True,
+            timeout=300).stdout.split()[-1])
+
+        def get(path):
+            try:
+                with urllib.request.urlopen(base + path, timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        health = json.loads(get("/healthz")[1])
+        assert sorted(health["fleet"]["eligible"]) == sorted(
+            banner["fleet"]), health
+        # The single-process reference, over HTTP for its latencies.
+        t0 = time.perf_counter()
+        app = ServeApp(TileStore(spec), TileCache())
+        out["mount_s"] = time.perf_counter() - t0
+        tiles = serve_tile_list(app.store, SERVE_TILES, SERVE_EMPTY,
+                                SERVE_ZOOMS, 1)
+        paths = tile_paths(tiles)
+        app_server, app_base = serve_in_thread(app)
+        lat = {}
+        for who, url in (("single", app_base), ("fleet", base)):
+            for temp in ("cold", "warm"):
+                t0 = time.perf_counter()
+                lat[(who, temp)], got = fetch(url, paths)
+                s = time.perf_counter() - t0
+                out.setdefault(who, {})[temp] = {
+                    **pct_ms(lat[(who, temp)]),
+                    "requests_per_s": len(paths) / s}
+                if who == "single" and temp == "cold":
+                    check_tiles(tiles, got)
+                    want = got
+                else:
+                    for p in paths:
+                        assert got[p] == want[p], f"{who} {temp} {p}"
+        app_server.shutdown()
+        app_server.server_close()
+        app_server = None
+        out["requests"] = len(paths)
+        # H-c: nothing of the fleet holds the card; this process does.
+        visible = compute_app_pids()
+        fleet_pids = [proc.pid, *children]
+        assert not any(holds_card(p) for p in fleet_pids), fleet_pids
+        assert not visible & set(fleet_pids), (visible, fleet_pids)
+        out["cuda_context_pids"] = {
+            "smoke_visible_to_nvidia_smi": os.getpid() in visible,
+            "smoke_holds_card": holds_card(os.getpid()),
+            "fleet_holding_card": []}
+        # Kill one child while the list is fetched: no 500, a restart.
+        victim_id, victim = "b0", children[0]
+        answers = {"got": {}, "lat": []}
+        started, done = threading.Event(), threading.Event()
+
+        def client():
+            # The list over one keep-alive connection, as ``fetch``; the
+            # kill comes once a quarter of it is answered.
+            import http.client
+            import urllib.parse
+
+            u = urllib.parse.urlsplit(base)
+            conn = http.client.HTTPConnection(u.hostname, u.port,
+                                              timeout=600)
+            try:
+                for i, p in enumerate(paths):
+                    if i == len(paths) // 4:
+                        started.set()
+                    t0 = time.perf_counter()
+                    conn.request("GET", p)
+                    r = conn.getresponse()
+                    body = r.read()
+                    answers["lat"].append(time.perf_counter() - t0)
+                    answers["got"][p] = (r.status, r.getheader("ETag"), body)
+            finally:
+                conn.close()
+                started.set()
+                done.set()
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        assert started.wait(300), "the client did not start"
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+        th.join(300)
+        assert done.is_set(), "the client hung through the kill"
+        assert len(answers["got"]) == len(paths), "requests went missing"
+        codes = {}
+        for p in paths:
+            status, _, body = answers["got"][p]
+            codes[status] = codes.get(status, 0) + 1
+            if status == 503:
+                assert "cause" in json.loads(body), (p, body)
+            else:
+                assert (status, body) == (want[p][0], want[p][2]), p
+        assert set(codes) <= {200, 404, 503}, codes
+        back = None
+        while time.perf_counter() - t_kill < FLEET_RESTART_WAIT_S:
+            health = json.loads(get("/healthz")[1])
+            now = child_pids(proc.pid)
+            if victim_id in health["fleet"]["eligible"] and victim not in now:
+                back = time.perf_counter() - t_kill
+                break
+            time.sleep(0.05)
+        assert back is not None, "the killed backend did not return"
+        metrics = get("/metrics")[1].decode()
+        assert (f'fleet_backend_restarts_total{{backend="{victim_id}"}} 1'
+                in metrics), "no restart counted"
+        children_after = child_pids(proc.pid)
+        assert len(children_after) == FLEET_BACKENDS, children_after
+        _, got = fetch(base, paths)
+        for p in paths:
+            assert got[p] == want[p], f"after restart {p}"
+        fleet_pids = [proc.pid, *children_after]
+        assert not any(holds_card(p) for p in fleet_pids), fleet_pids
+        assert not compute_app_pids() & set(fleet_pids)
+        out["kill"] = {"statuses": {str(k): v for k, v in codes.items()},
+                       "during_kill": pct_ms(answers["lat"]),
+                       "back_on_ring_s": back, "restarts": 1,
+                       "equal_after_restart": True}
+    finally:
+        if app_server is not None:
+            app_server.shutdown()
+            app_server.server_close()
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            pass
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(30)
+    out["equal_single_process"] = True
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+
 class ReplaySource:
     """Columnar batches made once and replayed on every ``batches`` call
     (at the batch size they were cut to), so the stream's cases and
@@ -2801,6 +3344,9 @@ def main() -> int:
         serve_launches, follow_launches = phase_serve(dev, delta_root,
                                                       plain_ticks)
         shutil.rmtree(delta_root)
+        plane_root, writeplane_launches = phase_writeplane(dev, tmp)
+        phase_fleet(dev, plane_root)
+        shutil.rmtree(plane_root)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
     phase_stream_bench(dev)
@@ -2813,7 +3359,8 @@ def main() -> int:
     segment_reduce["launches_by_path"] = {"bounded": bounded_launches,
                                           "delta": delta_launches,
                                           "ingest": ingest_launches,
-                                          "serve": serve_launches}
+                                          "serve": serve_launches,
+                                          "writeplane": writeplane_launches}
     window_histogram = kernel_entry(
         "window_histogram", "window_histogram.cu",
         "heatmap_tpu/ops/pallas_kernels.py:49",

@@ -13,7 +13,11 @@ C++ runtime (``native/``, bound in ``native.py``), built with ``make``
 at first use. The delta store (``delta``: journaled incremental
 updates, retractions and compaction, each batch one cascade on the
 card), continuous ingest (``ingest``: micro-batches fed to the card and
-applied as deltas) and telemetry (``obs``) sit on that job.
+applied as deltas), the write plane (``writeplane``: pump threads
+applying Morton-routed sub-batches to per-range delta stores) and
+telemetry (``obs``) sit on that job; ``serve`` answers tile requests
+from one process or from a fleet of them behind a router, none of them
+touching the card.
 
 It imports torch and numpy only: nothing of JAX and nothing of
 ``heatmap_tpu``. Entry points run on the card (``device="cuda"``)

@@ -22,6 +22,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
@@ -29,6 +30,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+#: Serialises first loads: two threads that miss ``load``'s cache at once
+#: (the write plane's pumps) would otherwise both start ``nvcc``.
+_LOAD_LOCK = threading.Lock()
+#: Guards the wrappers' launch counts (``count_launch``).
+_COUNT_LOCK = threading.Lock()
 
 
 def sources() -> list[str]:
@@ -95,12 +101,22 @@ def load(name: str, signatures: tuple) -> ctypes.CDLL:
     ``signatures`` is a tuple of ``(function, argtypes)`` pairs; every
     function returns the ``cudaError_t`` of its launch as an int.
     """
-    started = _start(name)
-    if started is not None:
-        _finish(name, started)
+    with _LOAD_LOCK:
+        started = _start(name)
+        if started is not None:
+            _finish(name, started)
     lib = ctypes.CDLL(str(_library_path(name)))
     for fn, argtypes in signatures:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to the launch count ``wrapper.<attr>``. Under a lock:
+    pump threads launch concurrently, and ``+=`` on a function attribute
+    is a read-modify-write that could lose a count when the ctypes call
+    just before it released the GIL."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

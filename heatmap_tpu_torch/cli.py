@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m heatmap_tpu_torch
-run|tiles|stream|serve|render|convert|merge|info|update|retract|ingest
-...``.
+run|tiles|stream|serve|render|convert|merge|info|update|retract|ingest|
+writeplane ...``, the JAX CLI's twelve commands.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
 to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
@@ -18,12 +18,17 @@ removes every journaled row matching a predicate (heatmap_tpu_torch.
 delta); ``ingest`` drains a source as micro-batches through the
 continuous-ingest loop, each journaled and applied as its own delta
 (heatmap_tpu_torch.ingest), publishing to an in-process tile server
-with ``--serve-port``. ``serve`` answers tile, query and health requests
-over a stored artifact (heatmap_tpu_torch.serve), with a live stream
-layer under ``--follow-stream``; ``render`` draws a stored slice as a
-PNG tile tree. Stores are interchangeable with the JAX package's.
+with ``--serve-port``. ``writeplane`` drains sources through N pump
+threads into per-Morton-range delta stores under one epoch-flipped
+manifest (heatmap_tpu_torch.writeplane). ``serve`` answers tile, query
+and health requests over a stored artifact (heatmap_tpu_torch.serve),
+with a live stream layer under ``--follow-stream``, or from N child
+processes behind a router under ``--fleet N``; ``render`` draws a
+stored slice as a PNG tile tree. Stores are interchangeable with the
+JAX package's.
 
-``run``, ``update`` and ``ingest`` carry the telemetry envelope:
+``run``, ``update``, ``ingest`` and ``writeplane`` carry the telemetry
+envelope:
 ``--metrics-dir``, ``--events``, ``--report``, ``--trace-out``,
 ``--trace-sample``, ``--slo``, ``--flight-recorder-spans``,
 ``--incident-dir``, ``--tail-latency-ms``,
@@ -33,10 +38,10 @@ bytes. The JAX flags whose modules the port lacks exit 2 at parse time
 with "not ported yet" and their ROADMAP item.
 
 Every command keeps the flag names of ``heatmap_tpu``'s. ``serve``
-(without ``--follow-stream``) and ``render`` do no device work, as in
-the JAX package; ``writeplane`` and ``serve --fleet`` exit 2 (not
-ported yet). The device commands (``run``, ``tiles``, ``stream``, and
-``ingest`` and ``serve --follow-stream``) run on the CUDA card unless
+(without ``--follow-stream``, and every fleet backend) and ``render``
+do no device work, as in the JAX package. The device commands (``run``,
+``tiles``, ``stream``, ``update``, ``retract``, ``ingest``,
+``writeplane`` and ``serve --follow-stream``) run on the CUDA card unless
 ``--backend cpu`` (or its alias ``--device cpu``) asks for the plain
 PyTorch versions of the kernels; ``--chaos``/``$HEATMAP_TPU_CHAOS`` arm
 the fault plane (heatmap_tpu_torch.faults).
@@ -644,34 +649,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pixel-delta", type=int, default=8)
     p.set_defaults(fn=cmd_render)
 
-    # ``writeplane`` (writeplane/ and parallel/partition.py): any
-    # invocation exits 2 at parse time.
-    parser_class, sub._parser_class = sub._parser_class, _NotPortedParser
-    sub.add_parser("writeplane",
-                   help="not ported yet (ROADMAP Queue 1 item 6)")
-    sub._parser_class = parser_class
+    p = sub.add_parser(
+        "writeplane",
+        help="partitioned multi-writer ingest: Morton-range-sharded "
+        "journals + epoch-unified manifest (serve mounts the root as "
+        "writeplane:ROOT — docs/write-plane.md)")
+    _add_backend_flags(p)
+    _add_writeplane_flags(p)
+    p.set_defaults(fn=cmd_writeplane)
     return ap
 
 
-class _NotPortedParser(argparse.ArgumentParser):
-    """A subcommand of the JAX CLI whose modules the port lacks: parsing
-    it, with any flags, exits 2 naming its ROADMAP item."""
-
-    def parse_known_args(self, args=None, namespace=None):
-        self.error("not ported yet (ROADMAP Queue 1 item 6)")
-
-
 def _add_serve_flags(p):
-    """The JAX ``serve``'s flags. ``--fleet`` and the flags only the
-    fleet router reads (``--max-inflight``, ``--queue-deadline``,
-    ``--hedge-quantile``, ``--probe-interval``) exit 2 at parse time:
-    ``serve/router.py`` and ``serve/fleet.py`` are ROADMAP Queue 1
-    item 6's next slice."""
-    item6 = _not_ported(6)
+    """The JAX ``serve``'s flags."""
     p.add_argument("--store", required=True,
                    help="arrays:DIR (incl. multihost host*/ shard dirs) | "
-                   "jsonl:PATH | dir:PATH | delta:ROOT | tilefs:ROOT — "
-                   "any stored heatmap artifact")
+                   "jsonl:PATH | dir:PATH | delta:ROOT | tilefs:ROOT | "
+                   "writeplane:ROOT — any stored heatmap artifact")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000,
                    help="listen port (0 = ephemeral; the bound address is "
@@ -696,14 +690,27 @@ def _add_serve_flags(p):
                    help="per-tile render deadline in seconds; a render "
                    "past it serves the last-good cached bytes (stale-200) "
                    "or a typed 503, never a hung request")
-    p.add_argument("--fleet", type=item6, default=None, metavar="N",
-                   help="not ported yet (serve/fleet.py): N backend "
-                   "processes behind a consistent-hash router")
-    for flag in ("--max-inflight", "--queue-deadline", "--hedge-quantile",
-                 "--probe-interval"):
-        p.add_argument(flag, type=item6, default=None,
-                       help="not ported yet (serve/router.py; read only "
-                       "by --fleet)")
+    p.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="run N shared-nothing backend processes behind a "
+                   "consistent-hash router on --port (rendezvous ring, "
+                   "circuit breakers, hedged reads, admission control; "
+                   "docs/serving.md). Incompatible with --follow-stream")
+    p.add_argument("--max-inflight", type=int, default=None, metavar="N",
+                   help="admission bound: concurrent tile requests per "
+                   "process (router: per backend); past it requests shed "
+                   "with 503 + Retry-After. Fleet default: 32")
+    p.add_argument("--queue-deadline", type=float, default=0.25,
+                   metavar="S",
+                   help="fleet router: how long a request may wait for a "
+                   "backend slot before shedding")
+    p.add_argument("--hedge-quantile", type=float, default=0.95,
+                   help="fleet router: hedge a request to the next replica "
+                   "once it outlives this latency quantile (first answer "
+                   "wins)")
+    p.add_argument("--probe-interval", type=float, default=1.0,
+                   metavar="S",
+                   help="fleet router: active health-probe period "
+                   "(half-open probes re-admit recovered backends)")
     p.add_argument("--degrade", action="store_true",
                    help="arm the brownout controller: SLO burn (--slo) "
                    "steps a rung ladder that trades tile fidelity for "
@@ -1145,6 +1152,168 @@ def cmd_ingest(args) -> int:
     return 0
 
 
+def _add_writeplane_flags(p):
+    p.add_argument("--root", required=True, metavar="ROOT",
+                   help="write-plane root (created on first use; serve "
+                   "mounts it as writeplane:ROOT — docs/write-plane.md)")
+    p.add_argument("--input", default=None,
+                   help="insert source spec, drained as micro-batches "
+                   "routed by Morton range")
+    p.add_argument("--retractions", default=None,
+                   help="retraction source spec (sign=-1 batches, "
+                   "applied after --input)")
+    p.add_argument("--writers", type=int, default=2,
+                   help="ingest pumps = initial Morton ranges "
+                   "(rebalance can add more)")
+    p.add_argument("--micro-batch", type=int, default=1 << 14,
+                   help="points per routed batch (the ledger/dedup "
+                   "granularity — replays must use the same batching)")
+    p.add_argument("--queue-depth", type=int, default=4,
+                   help="bounded per-range queue depth between the "
+                   "router and each pump")
+    p.add_argument("--publish-every", type=int, default=1, metavar="N",
+                   help="flip a manifest epoch every N finished batches")
+    p.add_argument("--compact-every", type=int, default=16, metavar="N",
+                   help="fold a range whenever N live deltas accumulate "
+                   "(0 = never)")
+    p.add_argument("--retention", type=int, default=2,
+                   help="per-range journal entries kept after "
+                   "compaction (refused below the retention floor or "
+                   "the in-flight queue depth)")
+    p.add_argument("--retention-floor", type=int, default=2,
+                   help="hard floor under --retention (docs/"
+                   "write-plane.md)")
+    p.add_argument("--ledger-keep", type=int, default=64,
+                   help="full-batch ledger entries retained (the "
+                   "cross-rebalance dedup window)")
+    p.add_argument("--max-ticks", type=int, default=None,
+                   help="stop after N micro-batches (default: drain)")
+    p.add_argument("--rebalance", action="store_true",
+                   help="run one skew-triggered hot-range re-split "
+                   "after the drain (docs/write-plane.md runbook)")
+    p.add_argument("--pad-bucketing", default="pow2",
+                   choices=("pow2", "geometric", "exact"),
+                   help="bucketed padding of each routed sub-batch "
+                   "(pipeline/bucketing.py): pow2/geometric pad to a "
+                   "size bucket with masked-invalid lanes; exact follows "
+                   "the sub-batch (the same bytes either way)")
+    p.add_argument("--pad-bucket-min", type=int, default=1 << 12,
+                   help="bucket floor: sub-batches below this many "
+                   "emissions pad up to it")
+    p.add_argument("--detail-zoom", type=int, default=21)
+    p.add_argument("--min-detail-zoom", type=int, default=5)
+    p.add_argument("--result-delta", type=int, default=5)
+    p.add_argument("--timespans", default="alltime")
+    p.add_argument("--weighted", action="store_true")
+    p.add_argument("--cascade-backend", default="auto",
+                   choices=("auto", "scatter", "partitioned"))
+    _add_parallel_flags(p)
+    p.add_argument("--metrics-dir", default=None, metavar="DIR",
+                   help="enable the metrics registry and write "
+                   "DIR/metrics.prom at command end")
+    p.add_argument("--events", default=None, metavar="PATH",
+                   help="append structured events to PATH "
+                   "(writeplane_append/publish/rebalance — "
+                   "docs/observability.md)")
+    p.add_argument("--report", nargs="?", const="run_report.json",
+                   default=None, metavar="PATH")
+    _add_trace_flags(p)
+
+
+def cmd_writeplane(args) -> int:
+    """Partitioned multi-writer ingest (heatmap_tpu_torch.writeplane):
+    batches route by Morton range to independent per-range delta stores,
+    one pump thread each, every routed sub-batch's cascade on the card
+    (the CPU with ``--backend cpu``), unified for readers by an
+    epoch-flipped manifest. Serve mounts the root as ``writeplane:ROOT``.
+    Prints the JAX ``writeplane``'s summary, then ``device``."""
+    import statistics
+
+    from heatmap_tpu_torch import writeplane as wp_mod
+    from heatmap_tpu_torch.io import open_source
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    requested = tuple(t.strip() for t in args.timespans.split(",")
+                      if t.strip())
+    bad = [t for t in requested if t not in VALID_TYPES]
+    if bad:
+        raise SystemExit(f"--timespans: unknown type(s) {bad}; valid: "
+                         f"{', '.join(VALID_TYPES)}")
+    if args.no_x64:
+        raise SystemExit("--no-x64: the composite-key cascade needs int64 "
+                         "keys; drop --no-x64")
+    device = _init_backend(args)
+    try:
+        config = BatchJobConfig(
+            detail_zoom=args.detail_zoom,
+            min_detail_zoom=args.min_detail_zoom,
+            result_delta=args.result_delta,
+            timespans=requested,
+            weighted=args.weighted,
+            cascade_backend=args.cascade_backend,
+            pad_bucketing=args.pad_bucketing,
+            pad_bucket_min=args.pad_bucket_min,
+        )
+        plane_cfg = wp_mod.PlaneConfig(
+            n_writers=args.writers,
+            retention=args.retention,
+            retention_floor=args.retention_floor,
+            compact_every=args.compact_every,
+            ledger_keep=args.ledger_keep,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    tel = _Telemetry(args, "writeplane", config, device, providers={
+        "writeplane": lambda: {"root": args.root,
+                               "epoch": wp_mod.read_pointer(args.root)}})
+    summary = {"root": args.root}
+    try:
+        plane = wp_mod.WritePlane(args.root, config, plane_cfg,
+                                  device=device)
+        runs = []
+        jobs = [(args.input, 1)] if args.input else []
+        if args.retractions:
+            jobs.append((args.retractions, -1))
+        for spec, sign in jobs:
+            stats = wp_mod.run_plane_ingest(
+                plane, open_source(spec, read_value=args.weighted),
+                micro_batch=args.micro_batch, sign=sign,
+                queue_depth=args.queue_depth,
+                publish_every=args.publish_every,
+                max_ticks=args.max_ticks)
+            runs.append({
+                "input": spec, "sign": sign, "batches": stats.batches,
+                "completed": stats.completed,
+                "duplicates": stats.duplicates, "failed": stats.failed,
+                "points": stats.points, "publishes": stats.publishes,
+                "publish_errors": stats.publish_errors,
+                "lag_p50_s": (round(statistics.median(stats.lags_s), 6)
+                              if stats.lags_s else None),
+            })
+        if runs:
+            summary["runs"] = runs
+        if args.rebalance:
+            rb = plane.rebalance()
+            summary["rebalance"] = (
+                None if rb is None else
+                {k: rb[k] for k in ("range", "new_range", "split",
+                                    "epoch")})
+        summary["epoch"] = plane.publish()
+        summary["ranges"] = plane.order
+    except ValueError as e:
+        tel.finish(error=e)
+        raise SystemExit(str(e)) from e
+    except BaseException as e:  # run_end must record it
+        tel.finish(error=e)
+        raise
+    seconds = tel.finish(rows=int(sum(r["points"] for r in
+                                      summary.get("runs", []))))
+    summary["seconds"] = round(seconds, 3)
+    summary["device"] = device
+    print(json.dumps(summary))
+    return 0
+
+
 def _parse_layers(arg: str | None):
     """``--layers name=user|timespan,...`` -> {name: selector} or None
     (= expose every slice + the 'default' alias)."""
@@ -1220,9 +1389,10 @@ class LivePump:
 @dataclasses.dataclass
 class ServeHandle:
     """What ``serve`` has set up before it blocks: the bound (not yet
-    serving) server, its app, the live pump (None without
-    --follow-stream), the stderr banner and the resolved device (None
-    when the command does no device work)."""
+    serving) server, its app (the fleet's router under --fleet), the
+    live pump (None without --follow-stream), the stderr banner, the
+    resolved device (None when the command does no device work) and the
+    fleet's supervisor (None without --fleet)."""
 
     server: object
     app: object
@@ -1232,15 +1402,18 @@ class ServeHandle:
     args: argparse.Namespace
     collector: object = None
     ev_log: object = None
+    fleet: object = None
 
     def close(self):
-        """Stop the pump, close the socket, export the trace and close
-        the event log: ``serve``'s exit path."""
+        """Stop the pump, close the socket, stop the fleet, export the
+        trace and close the event log: ``serve``'s exit path."""
         from heatmap_tpu_torch import obs
 
         if self.live is not None:
             self.live.stop()
         self.server.server_close()
+        if self.fleet is not None:
+            self.fleet.stop()
         obs.timeseries.shutdown()
         if self.collector is not None:
             n = self.collector.export_chrome(self.args.trace_out)
@@ -1257,9 +1430,11 @@ def start_serve(args) -> ServeHandle:
     """Everything ``serve`` does before ``serve_forever``: the store, the
     cache, the brownout ladder, the disk tier and pre-warm, the app and
     (with --follow-stream) the live pump, then the bound server and the
-    startup pre-warm. Without --follow-stream nothing here touches
-    torch.cuda, as the JAX package never starts a backend for ``serve``:
-    a tile server stays up beside a busy or dead card."""
+    startup pre-warm; under --fleet the supervisor with its backends and
+    the router instead (``_start_fleet``). Without --follow-stream
+    nothing here touches torch.cuda, as the JAX package never starts a
+    backend for ``serve``: a tile server stays up beside a busy or dead
+    card."""
     from heatmap_tpu_torch import faults, obs
     from heatmap_tpu_torch.serve import (ServeApp, TileCache, TileStore,
                                          make_server)
@@ -1274,6 +1449,11 @@ def start_serve(args) -> ServeHandle:
         ev_log = obs.EventLog(args.events)
         obs.set_event_log(ev_log)
     collector = _setup_tracing(args)
+    if args.fleet:
+        if args.follow_stream:
+            raise SystemExit("--fleet is incompatible with --follow-stream "
+                             "(live layers are per-process state)")
+        return _start_fleet(args, collector, ev_log)
     ttl = args.ttl
     if args.follow_stream and not (ttl and ttl > 0):
         # Targeted invalidation only drops tiles a batch touched; decay
@@ -1336,6 +1516,77 @@ def start_serve(args) -> ServeHandle:
     }
     return ServeHandle(server, app, live, banner, device, args,
                        collector=collector, ev_log=ev_log)
+
+
+def _start_fleet(args, collector, ev_log) -> ServeHandle:
+    """``serve --fleet N``: the supervisor (N child serve processes over
+    the same store, each with its own LRU) and the router on
+    --host/--port, fronting them with the rendezvous ring, breakers,
+    hedging and admission control (docs/serving.md)."""
+    from heatmap_tpu_torch.obs import incident as incident_mod
+    from heatmap_tpu_torch.serve import degrade as degrade_mod
+    from heatmap_tpu_torch.serve import make_server
+    from heatmap_tpu_torch.serve.fleet import FleetSupervisor
+
+    degrade_opts = None
+    if args.degrade:
+        degrade_opts = {"dwell_s": args.degrade_dwell,
+                        "hold_s": args.degrade_hold,
+                        "ladder_spec": args.degrade_ladder}
+        try:
+            # Fail fast in the supervisor, not in every backend child.
+            degrade_mod.parse_ladder_spec(degrade_opts["ladder_spec"])
+        except ValueError as e:
+            raise SystemExit(f"--degrade-ladder: {e}") from e
+    supervisor = FleetSupervisor(
+        args.store, args.fleet,
+        host=args.host, cache_bytes=args.cache_bytes,
+        backend_max_inflight=args.max_inflight,
+        render_timeout_s=args.render_timeout,
+        chaos=args.chaos,
+        max_inflight=args.max_inflight or 32,
+        queue_deadline_s=args.queue_deadline,
+        hedge_quantile=args.hedge_quantile,
+        probe_interval_s=args.probe_interval,
+        degrade_opts=degrade_opts,
+        slo_specs=list(args.slo or []),
+        telemetry_opts=(
+            {"interval": args.telemetry_sample_interval,
+             "watches": list(args.watch or [])}
+            if args.telemetry_sample_interval else None),
+        disk_cache_opts=({"root": args.disk_cache,
+                          "max_bytes": args.disk_cache_bytes}
+                         if args.disk_cache else None),
+        prewarm_opts=({"events": list(args.prewarm_events),
+                       "top_k": args.prewarm_top_k,
+                       "budget_s": args.prewarm_budget_s,
+                       "budget_bytes": args.prewarm_bytes}
+                      if args.prewarm_events else None))
+    # Lazy: supervisor.router is None until supervisor.start() below.
+    incident_mod.add_state_provider(
+        "healthz",
+        lambda: supervisor.router._health() if supervisor.router else {})
+    incident_mod.add_state_provider("config", lambda: {
+        "store": args.store, "fleet": args.fleet,
+        "backends": {bid: c.address for bid, c
+                     in supervisor.router.backends.items()}})
+    supervisor.start()
+    try:
+        server = make_server(supervisor.router, host=args.host,
+                             port=args.port)
+    except BaseException:
+        supervisor.stop()
+        raise
+    host, port = server.server_address[:2]
+    banner = {
+        "serving": f"http://{host}:{port}",
+        "store": args.store,
+        "fleet": {bid: client.address for bid, client
+                  in supervisor.router.backends.items()},
+        "device": None,
+    }
+    return ServeHandle(server, supervisor.router, None, banner, None, args,
+                       collector=collector, ev_log=ev_log, fleet=supervisor)
 
 
 def cmd_serve(args) -> int:

@@ -178,6 +178,29 @@ class TileKeySet(collections.abc.Set):
         i = int(np.searchsorted(codes, code))
         return i < len(codes) and int(codes[i]) == code
 
+    @classmethod
+    def _from_iterable(cls, it):
+        # The result of a set operation with another kind of set: the
+        # plain set of tuples the JAX package holds.
+        return set(it)
+
+    def __or__(self, other):
+        """The union; two ``TileKeySet``s merge group by group (the
+        write plane unions its ranges' keys, whose coarse tiles
+        straddling a split appear in both; a range that deduplicated
+        its sub-batch adds an empty set)."""
+        if not other:
+            return self
+        if not isinstance(other, TileKeySet):
+            return super().__or__(other)
+        merged: dict = {}
+        for names, z, codes in (*self._groups, *other._groups):
+            prev = merged.get((names, z))
+            merged[(names, z)] = (codes if prev is None
+                                  else np.union1d(prev, codes))
+        return TileKeySet((names, z, codes)
+                          for (names, z), codes in merged.items())
+
     def __repr__(self) -> str:
         return f"TileKeySet({len(self)} keys)"
 

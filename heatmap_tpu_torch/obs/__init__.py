@@ -30,9 +30,11 @@ log installed, so with telemetry off the pipeline pays a global read or
 two per site and writes the same bytes.
 
 The serve tier's process gauges (``refresh_process_gauges``, stamped at
-every ``/metrics`` scrape) are here too; the multihost recorders (heartbeats, shard retries, elastic shards,
-partition plans, speculative launches) wait for ``parallel/`` (item 7):
-the port has one process, index 0 of 1.
+every ``/metrics`` scrape) and the partition planner's recorder
+(``record_partition_planned``, which the write plane's planning reaches)
+are here too; the multihost recorders (heartbeats, shard retries,
+elastic shards, speculative launches) wait for the rest of
+``parallel/`` (item 7): the port has one process, index 0 of 1.
 """
 
 from __future__ import annotations
@@ -119,6 +121,14 @@ ANOMALIES_TOTAL = _registry.counter(
     "anomalies_total",
     "Anomaly-detector rising edges, by watch spec",
     labelnames=("watch",))
+PARTITION_SKEW = _registry.gauge(
+    "partition_skew_ratio",
+    "Max/mean sampled shard mass of the last Morton partition plan "
+    "(parallel/partition; the load-imbalance signal the planner bounds)")
+BOUNDARY_TILES = _registry.counter(
+    "cascade_boundary_tiles_total",
+    "Straddling parent tiles cross-merged by range-sharded cascades "
+    "(the entire cross-shard merge volume of the Morton path)")
 PROCESS_UPTIME = _registry.gauge(
     "process_uptime_seconds", "Seconds since this process imported obs")
 BUILD_INFO = _registry.gauge(
@@ -236,8 +246,37 @@ def record_io_retry(site: str):
     IO_RETRIES.inc(site=site)
 
 
+def record_partition_planned(plan, boundary_tiles=None):
+    """A Morton partition plan was built (the write plane's first batch).
+
+    Sets partition_skew_ratio to the plan's max/mean sampled shard mass
+    and, when the caller passes the per-pyramid boundary-tile count,
+    folds it into cascade_boundary_tiles_total.
+    """
+    if not telemetry_enabled():
+        return
+    PARTITION_SKEW.set(plan.skew_ratio)
+    fields = {}
+    if boundary_tiles is not None:
+        BOUNDARY_TILES.inc(int(boundary_tiles))
+        fields["boundary_tiles"] = int(boundary_tiles)
+    emit("partition_planned",
+         n_shards=plan.n_shards,
+         splits=[int(s) for s in plan.splits],
+         sampled_points=plan.sampled_points,
+         balance_factor=plan.balance_factor,
+         max_shard_mass=max(plan.shard_mass) if plan.shard_mass else 0.0,
+         mean_shard_mass=(sum(plan.shard_mass) / len(plan.shard_mass)
+                          if plan.shard_mass else 0.0),
+         skew_ratio=plan.skew_ratio,
+         resplits=plan.resplits,
+         degenerate=plan.degenerate,
+         fingerprint=plan.fingerprint,
+         **fields)
+
+
 __all__ = [
-    "ANOMALIES_TOTAL", "AnomalyEngine", "BUILD_INFO", "EVENT_SCHEMA",
+    "ANOMALIES_TOTAL", "BOUNDARY_TILES", "PARTITION_SKEW", "AnomalyEngine", "BUILD_INFO", "EVENT_SCHEMA",
     "EventLog", "PROCESS_UPTIME", "refresh_process_gauges",
     "FEEDER_DEPTH", "FlightRecorder", "INCIDENTS_TOTAL", "IncidentManager",
     "MetricsRegistry", "RECORDER_DROPPED", "SLOEngine", "SLOSpec",
@@ -248,7 +287,7 @@ __all__ = [
     "get_collector", "get_event_log", "get_registry", "incident",
     "install_specs", "metrics", "metrics_enabled", "parse_slo_spec",
     "parse_traceparent", "parse_watch_spec", "read_events", "record_fault",
-    "record_io_retry", "record_stage", "recorder", "sample_device_memory",
+    "record_io_retry", "record_partition_planned", "record_stage", "recorder", "sample_device_memory",
     "set_event_log", "slo", "slo_status", "telemetry_enabled",
     "timeseries", "tracing", "tracing_enabled", "validate_event",
     "write_run_report",

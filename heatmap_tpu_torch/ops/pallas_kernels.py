@@ -218,7 +218,7 @@ def _launch(row, col, window, weights, valid):
         check_launch(lib.hm_window_histogram_weighted(
             row.data_ptr(), col.data_ptr(), valid_ptr, weights.data_ptr(), n,
             *geometry, out.data_ptr(), stream), "hm_window_histogram_weighted")
-    bin_rowcol_window_pallas.launches += 1
+    _build.count_launch(bin_rowcol_window_pallas)
     return out
 
 

@@ -281,12 +281,13 @@ def _launch(row, col, window, weights, valid):
         check_launch(lib.hm_window_bucketed_counts(
             row.data_ptr(), col.data_ptr(), valid_ptr, n, *geometry,
             out.data_ptr(), stream), "hm_window_bucketed_counts")
-        bin_rowcol_window_partitioned.launches += 1
+        _build.count_launch(bin_rowcol_window_partitioned)
     else:
         wcells = bucket_count + 4 * plan.weights_offset(n)
         check_launch(lib.hm_window_bucketed_weighted(
             row.data_ptr(), col.data_ptr(), valid_ptr, weights.data_ptr(), n,
             *geometry, wcells, out.data_ptr(), stream),
             "hm_window_bucketed_weighted")
-        bin_rowcol_window_partitioned.weighted_launches += 1
+        _build.count_launch(bin_rowcol_window_partitioned,
+                                    "weighted_launches")
     return out

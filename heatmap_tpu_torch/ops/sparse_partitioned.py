@@ -199,7 +199,7 @@ def _launch(keys, capacity, sentinel, shift, weights, weight_bound):
             keys.data_ptr(), n, shift, sentinel, capacity, TILE_KEYS,
             status.data_ptr(), unique.data_ptr(), counts.data_ptr(),
             n_unique.data_ptr(), stream), "hm_segment_reduce_counts")
-        aggregate_sorted_keys_partitioned.launches += 1
+        _build.count_launch(aggregate_sorted_keys_partitioned)
         return unique, counts, n_unique
     wsums = torch.zeros(capacity, dtype=torch.int64, device=dev)
     bad = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -208,7 +208,7 @@ def _launch(keys, capacity, sentinel, shift, weights, weight_bound):
         float(weight_bound), TILE_KEYS, status.data_ptr(), unique.data_ptr(),
         wsums.data_ptr(), bad.data_ptr(), n_unique.data_ptr(), stream),
         "hm_segment_reduce_weighted")
-    aggregate_sorted_keys_partitioned.launches += 1
+    _build.count_launch(aggregate_sorted_keys_partitioned)
     # Integer sums stay below 2^53, so the float64 cast is exact.
     sums = wsums.to(torch.float64)
     n_unique = torch.where(

@@ -306,7 +306,8 @@ def project_codes(lat, lon, detail_zoom: int, device):
     lat_t = torch.as_tensor(lat, dtype=torch.float64, device=device)
     lon_t = torch.as_tensor(lon, dtype=torch.float64, device=device)
     row, col, valid = mercator.project_points(lat_t, lon_t, detail_zoom)
-    return morton.morton_encode(row, col, zoom=detail_zoom), valid
+    return morton.morton_encode(row, col, dtype=torch.int64,
+                                zoom=detail_zoom), valid
 
 
 def build_emissions(codes, valid, group_ids, timestamps,

@@ -21,12 +21,17 @@ package is that service:
 - ``http``   — stdlib ThreadingHTTPServer frontend with ETag/304,
   ``/healthz``, ``/query`` and a Prometheus ``/metrics`` endpoint;
 - ``degrade`` and ``dashboard`` — the brownout ladder and the
-  operational page.
+  operational page;
+- ``router`` — stateless fleet frontend: rendezvous hashing with
+  bounded-load spill, circuit breakers, hedged reads, admission
+  control (typed 503 + Retry-After, never a 500);
+- ``fleet``  — supervisor spawning N shared-nothing backend processes
+  behind one router, restarting crashers with backoff and re-admitting
+  them via half-open health probes.
 
 Everything except ``live`` reads numpy only: serving a finished store
 never touches the card, so a tile server stays up beside a busy or dead
-one. The fleet (``router``, ``fleet``) is not ported yet (ROADMAP
-Queue 1 item 6).
+one.
 """
 
 from heatmap_tpu_torch.serve.cache import TileCache  # noqa: F401
@@ -38,3 +43,7 @@ from heatmap_tpu_torch.serve.http import (  # noqa: F401
     ServeApp, make_server, serve_in_thread,
 )
 from heatmap_tpu_torch.serve.live import LiveLayer  # noqa: F401
+from heatmap_tpu_torch.serve.router import (  # noqa: F401
+    BackendClient, CircuitBreaker, RouterApp, rendezvous_order, route_key,
+)
+from heatmap_tpu_torch.serve.fleet import FleetSupervisor  # noqa: F401

@@ -2,10 +2,8 @@
 
 The port's copy of heatmap_tpu/serve/store.py: for the same artifact it
 builds the same index (same Morton levels, same float summation order),
-so every served byte matches the JAX package's. Two kinds wait for their
-modules: a write-plane root (``writeplane/``, ROADMAP Queue 1 item 6)
-and temporal fold views (``temporal/``, item 5): the first raises, and
-the serve tier refuses the second.
+so every served byte matches the JAX package's. Temporal fold views wait
+for ``temporal/`` (ROADMAP Queue 1 item 5): the serve tier refuses them.
 
 Loads any batch egress artifact the job side writes —
 
@@ -25,6 +23,8 @@ Loads any batch egress artifact the job side writes —
                    roots (mmap'd base ⊕ in-heap live deltas), falling
                    back to the sibling npz level per zoom when a tilefs
                    file is torn — served bytes are identical either way;
+- ``writeplane:ROOT`` a write-plane root (heatmap_tpu_torch.writeplane):
+                   the per-range stores one manifest epoch names, merged;
 
 — into per-layer, per-detail-zoom **Morton-keyed sorted arrays**
 (tilemath/morton.py): a tile request at coarse tile (z, row, col) is a
@@ -201,7 +201,7 @@ def _parse_store_spec(spec: str) -> tuple[str, str]:
                 "ranges" in names and any(
                     n.startswith("manifest-") for n in names)):
             # A write-plane root (epoch-unified manifest over per-range
-            # delta stores — writeplane/, not ported yet).
+            # delta stores — heatmap_tpu_torch/writeplane/).
             return "writeplane", spec
         if "CURRENT" in names or "journal" in names:
             # A converted delta store (tilefs files in the CURRENT
@@ -425,9 +425,25 @@ class TileStore:
                 by_pair = self._build_from_levels(
                     _finalized_to_loaded(load_overlay_levels(self.path)))
         elif self.kind == "writeplane":
-            raise ValueError(
-                f"store {self.spec}: write-plane roots are not ported yet "
-                "(writeplane/, ROADMAP Queue 1 item 6)")
+            from heatmap_tpu_torch.delta.compact import drop_zero_rows
+            from heatmap_tpu_torch.io.merge import merge_level_dirs
+            from heatmap_tpu_torch.writeplane import manifest as wp_manifest
+
+            # One manifest read pins the whole cross-range overlay:
+            # the snapshot names immutable artifact dirs, so the merge
+            # below can never mix two epochs' views even while writers
+            # advance. The manifest epoch is the disk-cache token (the
+            # writeplane analog of _live_delta_epoch — it bumps on
+            # every publish, i.e. exactly when visible bytes can
+            # change). A torn newest manifest falls back to the last
+            # good epoch inside read_manifest.
+            snap = wp_manifest.read_manifest(self.path)
+            dirs = ([] if snap is None
+                    else wp_manifest.overlay_dirs(self.path, snap))
+            delta_epoch = 0 if snap is None else int(snap["epoch"])
+            merged = (drop_zero_rows(merge_level_dirs(dirs))
+                      if dirs else [])
+            by_pair = self._build_from_levels(_finalized_to_loaded(merged))
         elif self.kind == "tilefs":
             names = (os.listdir(self.path)
                      if os.path.isdir(self.path) else [])

@@ -242,7 +242,10 @@ def test_import_hygiene():
          "heatmap_tpu_torch.synopsis, heatmap_tpu_torch.analytics, "
          "heatmap_tpu_torch.tilefs, heatmap_tpu_torch.ingest.metrics, "
          "heatmap_tpu_torch.serve, heatmap_tpu_torch.tilemath.keys, "
-         "heatmap_tpu_torch.analytics.query, heatmap_tpu_torch.cli, sys; "
+         "heatmap_tpu_torch.analytics.query, heatmap_tpu_torch.cli, "
+         "heatmap_tpu_torch.parallel.partition, heatmap_tpu_torch.writeplane, "
+         "heatmap_tpu_torch.serve.router, heatmap_tpu_torch.serve.fleet, "
+         "sys; "
          "assert 'jax' not in sys.modules, 'jax imported'; "
          "assert 'heatmap_tpu' not in sys.modules, 'heatmap_tpu imported'"],
         cwd=REPO, capture_output=True, text=True, timeout=120)

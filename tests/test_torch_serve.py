@@ -242,8 +242,11 @@ def test_store_spec_errors_and_sniffing(stores, tmp_path):
     wp = tmp_path / "wp"
     wp.mkdir()
     (wp / "MANIFEST").write_text("{}")
-    with pytest.raises(ValueError, match="not ported yet"):
-        TStore(str(wp))
+    # A write-plane root with no valid manifest mounts empty in both.
+    jstore, tstore = JStore(str(wp)), TStore(str(wp))
+    assert jstore.kind == tstore.kind == "writeplane"
+    assert jstore.delta_epoch == tstore.delta_epoch == 0
+    assert sorted(jstore.layers) == sorted(tstore.layers)
 
 
 @pytest.mark.parametrize("kind", ["arrays", "delta"])

@@ -4,7 +4,8 @@
 after every applied tick equal to a cold mount's), ``serve`` (banner
 keys, the same bytes over HTTP, no CUDA touched) and ``serve
 --follow-stream`` (the live layer the JAX pump builds), and the
-parse-time refusals of ``serve --fleet`` and ``writeplane``."""
+parsing of ``serve --fleet`` with the router's flags and of
+``writeplane`` against the JAX parser."""
 
 import json
 import os
@@ -327,22 +328,38 @@ def test_serve_follow_stream_builds_the_jax_live_layer(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
+    ["writeplane"], ["writeplane", "--journal", "j", "--planes", "2"]])
+def test_writeplane_argv_exits_2_as_jax(capsys, argv):
+    """A missing ``--root`` or an unknown flag: both parsers exit 2 with
+    the same complaint."""
+    errs = []
+    for main in (tcli.main, jcli.main):
+        with pytest.raises(SystemExit) as err:
+            main(argv)
+        assert err.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0].split(": ", 1)[1] == errs[1].split(": ", 1)[1]
+
+
+@pytest.mark.parametrize("argv", [
     ["serve", "--store", "x", "--fleet", "2"],
     ["serve", "--store", "x", "--max-inflight", "8"],
     ["serve", "--store", "x", "--queue-deadline", "0.5"],
     ["serve", "--store", "x", "--hedge-quantile", "0.9"],
-    ["serve", "--store", "x", "--probe-interval", "2"],
-    ["writeplane"], ["writeplane", "--journal", "j", "--planes", "2"]])
-def test_unported_serving_exits_2(capsys, argv):
-    with pytest.raises(SystemExit) as err:
-        tcli.main(argv)
-    assert err.value.code == 2
-    msg = capsys.readouterr().err
-    assert "not ported yet" in msg and "ROADMAP Queue 1 item 6" in msg
+    ["serve", "--store", "x", "--probe-interval", "2"]])
+def test_fleet_flags_parse_as_jax(argv):
+    """``serve --fleet`` and the router's flags parse to the JAX
+    parser's values (and defaults)."""
+    got = vars(tcli.build_parser().parse_args(argv))
+    want = vars(jcli.build_parser().parse_args(argv))
+    for k in ("fleet", "max_inflight", "queue_deadline", "hedge_quantile",
+              "probe_interval"):
+        assert got[k] == want[k], k
 
 
 def test_serve_flags_match_jax():
-    """Every flag of the JAX ``serve`` parses in the port."""
+    """Every flag of the JAX ``serve`` (and ``render``, ``ingest``,
+    ``writeplane``) parses in the port."""
     jp = jcli.build_parser()
     tp = tcli.build_parser()
 
@@ -352,6 +369,6 @@ def test_serve_flags_match_jax():
         return {o for a in sub.choices[cmd]._actions
                 for o in a.option_strings}
 
-    for cmd in ("serve", "render", "ingest"):
+    for cmd in ("serve", "render", "ingest", "writeplane"):
         missing = flags(jp, cmd) - flags(tp, cmd)
         assert not missing, (cmd, missing)

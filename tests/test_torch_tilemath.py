@@ -99,7 +99,7 @@ def test_morton_encode_decode_match_jax(zoom):
         jnp.asarray(row, jnp.int32), jnp.asarray(col, jnp.int32),
         dtype=jnp.int64, zoom=zoom))
     got = tmorton.morton_encode(torch.as_tensor(row), torch.as_tensor(col),
-                                zoom=zoom)
+                                dtype=torch.int64, zoom=zoom)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(tmorton.morton_encode_np(row, col),
@@ -115,7 +115,8 @@ def test_morton_encode_decode_match_jax(zoom):
 def test_morton_zoom_limit_refused():
     with pytest.raises(ValueError, match="zooms <= 29"):
         tmorton.morton_encode(torch.zeros(1, dtype=torch.int64),
-                              torch.zeros(1, dtype=torch.int64), zoom=30)
+                              torch.zeros(1, dtype=torch.int64),
+                              dtype=torch.int64, zoom=30)
 
 
 def _near_edge_latitudes():
