@@ -39,7 +39,7 @@ just before it and read just after:
   through a CSV (bit-equal to the uninterrupted run); each against the
   same run on the CPU (bit-equal without decay, within STREAM_RTOL with
   it), and a twin of ``tools/bench_stream.py`` per binning backend;
-- the delta store through ``update`` and ``retract`` (a 2M-point base,
+- the delta store through ``update`` and ``retract`` (a 1M-point base,
   262,144-point increments, a duplicate, retractions, a compaction),
   checked against a one-shot run over the surviving points and against
   the same sequence on the CPU (16 segment-reduce launches per applied
@@ -68,6 +68,17 @@ just before it and read just after:
   process, tiles through the router equal to a single-process app's, a
   child SIGKILLed mid-list (no 500; restarted and back on the ring), and
   no process of the fleet holding a CUDA context;
+- the temporal plane: ``update --bucket-width 3600`` over a 1M-point
+  base and four 131,072-point increments stamped into separate hours, two
+  bucketed compactions (the manifest against the bucket ladder), ``retract
+  --where`` landing one counter-batch per bucket, ``serve`` as a process
+  answering ``?as_of=`` (against a recompute over the batches inside the
+  cut), ``?window=`` (1d: against the all-time bytes) and ``?decay=``
+  tiles and ``op=topk_growth`` (within its stamped bound), the same
+  sequence scaled down on the card and the CPU (equal buckets) and
+  without buckets (equal base), and ``ingest --bucket-width
+  --serve-port`` whose bucket roll drops exactly the retiring window
+  tiles (16 segment-reduce launches per applied batch);
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 
@@ -140,15 +151,17 @@ N_TILES = 4_000_000
 #: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
 #: tests, at their sizes, hold 1e-5.
 FRACTIONAL_RTOL = 1e-4
-#: The delta phase: a base of 2M points, increments of 262,144 points
+#: The delta phase: a base of 1M points, increments of 262,144 points
 #: (seeds 1-4), the user a predicate retraction removes; and the small
-#: sequence run on the card and on the CPU. The base is also the ingest
+#: sequence (a 100k base, 200k until the temporal phase came) run on the
+#: card and on the CPU. The base is also the ingest
 #: phase's (b) store and the serve phase's large store. (The default
-#: job's 4M points until the write-plane and fleet phases came; halved
-#: to keep the smoke within its time.)
-N_DELTA_BASE = 2_000_000
+#: job's 4M points until the write-plane and fleet phases came, then
+#: 2M until the temporal phase came; halved each time to keep the
+#: smoke within its time.)
+N_DELTA_BASE = 1_000_000
 N_DELTA_INC = 1 << 18
-N_DELTA_SMALL_BASE = 200_000
+N_DELTA_SMALL_BASE = 100_000
 N_DELTA_SMALL_INC = 1 << 14
 DELTA_USER = "user-3"
 #: The ingest phase: the ``ingest`` command's defaults (16,384-point
@@ -187,12 +200,13 @@ N_INGEST_WEIGHTED = 1 << 16
 #: stale check after the last mounts the store cold, each about a
 #: minute on an H100 host; with (0, 50) the smoke took 968 s of its
 #: 1,200, so (b) runs the one tick that shows the refresh's own cost.
-#: (c) SERVE_TICKS follow-stream ticks of STREAM_BATCH.
+#: The curve ran (0, 50, 200, None) until the temporal phase came; its
+#: two ends stay. (c) SERVE_TICKS follow-stream ticks of STREAM_BATCH.
 SERVE_TILES = 1000
 SERVE_EMPTY = 100
 SERVE_ZOOMS = tuple(range(8, 17))
 SERVE_CLIENT_RPS = (0,)
-SERVE_CURVE_RPS = (0, 50, 200, None)
+SERVE_CURVE_RPS = (0, None)
 SERVE_TICKS = 16
 N_SERVE_BASE = 1 << 16
 #: The write-plane phase: the ``writeplane`` command at its defaults (2
@@ -203,18 +217,65 @@ N_SERVE_BASE = 1 << 16
 #: writers over synthetic:N_WRITEPLANE_C:11 with its first
 #: N_WRITEPLANE_RETRACT points retracted, then a rebalance; (d) and the
 #: writer curve run (a)'s first WRITEPLANE_CUT_TICKS and
-#: WRITEPLANE_CURVE_TICKS batches.
+#: WRITEPLANE_CURVE_TICKS batches (8 for the curve until the temporal
+#: phase came).
 N_WRITEPLANE = 1 << 18
 N_WRITEPLANE_C = 1 << 17
 N_WRITEPLANE_RETRACT = 1 << 15
 WRITEPLANE_CUT_TICKS = 4
-WRITEPLANE_CURVE_TICKS = 8
+WRITEPLANE_CURVE_TICKS = 4
 WRITEPLANE_WRITERS = (1, 2, 4)
 #: The fleet phase: ``serve --fleet FLEET_BACKENDS`` over (a)'s root, in
 #: process mode; FLEET_RESTART_WAIT_S bounds the wait for a killed
 #: child's return to the ring.
 FLEET_BACKENDS = 2
 FLEET_RESTART_WAIT_S = 120.0
+#: The temporal phase: ``update --bucket-width 3600`` (the JAX package's
+#: other defaults: fanout 4, keep 8, tiers 4, unit 1 s) on a store fed
+#: SyntheticSource's clustered metro points with their stamps rewritten
+#: into whole hours from TEMPORAL_T0 (the synthetic stamps span a year
+#: and a batch lands in the bucket of its largest stamp, so unmodified
+#: batches would share one bucket): N_TEMPORAL_BASE points in hour 0,
+#: one N_TEMPORAL_INC-point increment in each hour of TEMPORAL_HOURS, a
+#: bucketed compaction, one more increment in each of
+#: TEMPORAL_LATE_HOURS, ``retract --where user=TEMPORAL_USER`` and a
+#: second compaction, at the command's retention (2: the retraction
+#: scans the two newest folded entries and the live ones, its horizon;
+#: a retention that kept every entry would make every apply and every
+#: ``as_of``/``decay`` request read every entry's point payload, the 1M
+#: base's among them). Four increments (one an hour over hours 1-15
+#: until the smoke's time forced the cut), placed so that the compactions
+#: still coarsen hours 0 and 2 into one tier-1 bucket. TEMPORAL_T0 is a
+#: multiple of
+#: 3600 * 4^3, so every tier's edges fall on whole hours from it.
+#: Served: the
+#: TEMPORAL_TILES most populated tiles plus TEMPORAL_EMPTY empty ones in
+#: each cut, and TEMPORAL_GROWTH_QUERIES ``op=topk_growth`` requests.
+#: The card-against-CPU sequence is the same at N_TEMPORAL_SMALL_BASE
+#: and N_TEMPORAL_SMALL_INC points with increments in
+#: TEMPORAL_SMALL_HOURS (far enough apart for its oldest hours to
+#: coarsen); the ``ingest`` case drains TEMPORAL_INGEST_TICKS ticks of
+#: INGEST_MICRO points, two per hour across an hour edge, onto a store
+#: of one such batch (each served tick rebuilds the whole index, so the
+#: roll is shown on the smallest store that has one), with
+#: TEMPORAL_ROLL_TILES populated tiles (and a sixth of that empty) served
+#: in ``?window=1h``.
+TEMPORAL_T0 = 1_700_121_600
+N_TEMPORAL_BASE = 1 << 20
+N_TEMPORAL_INC = 1 << 17
+TEMPORAL_HOURS = (2, 4, 9)
+TEMPORAL_LATE_HOURS = (11,)
+TEMPORAL_USER = "user-3"
+TEMPORAL_AS_OF_HOUR = 8
+TEMPORAL_TILES = 150
+TEMPORAL_EMPTY = 15
+TEMPORAL_ROLL_TILES = 60
+TEMPORAL_GROWTH_QUERIES = 50
+N_TEMPORAL_SMALL_BASE = 1 << 17
+N_TEMPORAL_SMALL_INC = 1 << 15
+TEMPORAL_SMALL_HOURS = (3, 6, 9, 12)
+TEMPORAL_SMALL_LATE_HOURS = ()
+TEMPORAL_INGEST_TICKS = 4
 #: Points of the segment reduce's padded-tick case: 2 emissions per
 #: kept point fill a little over half of the pow2 bucket, so 40-50% of
 #: the sorted lanes are the sentinel tail.
@@ -231,8 +292,15 @@ _T0 = time.perf_counter()
 
 
 def emit(obj):
+    """Print one result line; phase lines also go to
+    chiprun_out/chip_smoke_phases.jsonl, whole, beyond what the end of
+    the output keeps."""
     if "phase" in obj:
         obj = {**obj, "at_s": time.perf_counter() - _T0}
+        os.makedirs("chiprun_out", exist_ok=True)
+        with open(os.path.join("chiprun_out", "chip_smoke_phases.jsonl"),
+                  "a") as f:
+            f.write(json.dumps(obj) + "\n")
     print(json.dumps(obj), flush=True)
 
 
@@ -1554,9 +1622,9 @@ def survivors(n_base, n_inc):
 def phase_delta(dev, root):
     """The delta store on the card through the ``update`` and ``retract``
     commands, as DELTA_* describe, into ``root`` (left for the ingest
-    phase: a compacted base of about 2M points), with checks: (a) the compacted base
+    phase: a compacted base of about 1M points), with checks: (a) the compacted base
     equals one ``run --output arrays:`` over the surviving points; (b)
-    the same sequence at 200k base and 16,384-point increments writes
+    the same sequence at a 100k base and 16,384-point increments writes
     equal stores on the card (with telemetry on one increment) and on
     the CPU (without); (c) 16 segment-reduce launches per applied
     batch, none for the duplicate; (d) the telemetry increment's events
@@ -1854,7 +1922,7 @@ def phase_ingest(dev, big_root):
     """The ``ingest`` command on the card, as the N_INGEST* constants
     describe: (a) a drain into a fresh journal at the command's defaults;
     (b) INGEST_B_TICKS ticks onto ``big_root`` (the delta phase's store,
-    a compacted 2M-point base); (c) the replay of (a)'s first ticks onto
+    a compacted 1M-point base); (c) the replay of (a)'s first ticks onto
     a store that holds them, every tick a duplicate; (d) ``--retract``
     of (a)'s first N_INGEST_RETRACT points; (e) (a)'s first
     INGEST_CUT_TICKS ticks with every telemetry flag on, into a fresh
@@ -1998,7 +2066,7 @@ def phase_ingest(dev, big_root):
         assert any(x.startswith("snap-") for x in os.listdir(spill))
         pads_counted = [float(line.split()[-1]) for line in prom.splitlines()
                         if line.startswith("cascade_pad_emissions_total")]
-        # (b) ticks onto the delta phase's store (2M-point base).
+        # (b) ticks onto the delta phase's store (1M-point base).
         b = ingest_drain(argv(big_root, f"synthetic:"
                               f"{INGEST_B_TICKS * INGEST_MICRO}:8",
                               "--max-ticks", str(INGEST_B_TICKS),
@@ -2994,6 +3062,552 @@ class ReplaySource:
         yield from self._batches
 
 
+def hour_parquet(tmp, n, seed, hour):
+    """SyntheticSource(n, seed)'s points as a Parquet file with their
+    stamps rewritten into hour ``hour`` from TEMPORAL_T0 (spread over
+    the hour in row order); the path is reused once written."""
+    from heatmap_tpu_torch.delta import read_columns
+    from heatmap_tpu_torch.io import SyntheticSource
+
+    path = os.path.join(tmp, f"h{hour:02d}_{n}_{seed}.parquet")
+    if not os.path.exists(path):
+        cols = read_columns(SyntheticSource(n=n, seed=seed))
+        cols["timestamp"] = (TEMPORAL_T0 + 3600 * hour
+                             + np.arange(n, dtype=np.int64) * 3600 // n)
+        write_parquet(path, cols)
+    return path
+
+
+def hour_survivors(tmp, n_base, n_inc, hours, seed0, retracted):
+    """The points of hour 0 (the base) and ``hours``, without
+    TEMPORAL_USER's rows in the hours of ``retracted``, as a Parquet
+    file: a clean recompute's input."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    tables = []
+    for h in (0, *hours):
+        t = pq.read_table(hour_parquet(tmp, n_inc if h else n_base,
+                                       seed0 + h, h))
+        if h in retracted:
+            users = np.asarray(t.column("user_id").to_pylist())
+            t = t.filter(pa.array(users != TEMPORAL_USER))
+        tables.append(t)
+    path = os.path.join(tmp, f"survivors_{len(hours)}_{seed0}.parquet")
+    pq.write_table(pa.concat_tables(tables), path)
+    return path
+
+
+def temporal_sequence(root, device, tmp, n_base, n_inc, hours, late_hours,
+                      seed0, bucketed=True):
+    """The temporal phase's sequence through ``cli.main`` on ``device``:
+    ``update --bucket-width 3600`` (without it when not ``bucketed``)
+    with the hour-0 base, one increment per hour of ``hours`` (seed
+    ``seed0 + hour``), a compaction, the ``late_hours`` increments,
+    ``retract --where user=TEMPORAL_USER`` and a compaction (both at the
+    command's retention). Each step's summary, seconds, segment-reduce
+    launches and tracer spans, and after each compaction the base's
+    TEMPORAL.json."""
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.temporal import buckets as tb
+    from heatmap_tpu_torch.utils.trace import get_tracer
+
+    upd = ["update", "--journal", root, "--device", device]
+    steps = [("base", [*upd, *(["--bucket-width", "3600"] if bucketed
+                                else []),
+                       "--input", "parquet:" + hour_parquet(
+                           tmp, n_base, seed0, 0)])]
+    steps += [(f"hour_{h}", [*upd, "--input", "parquet:" + hour_parquet(
+        tmp, n_inc, seed0 + h, h)]) for h in hours]
+    steps.append(("compaction_1", [*upd, "--compact-after", "0"]))
+    steps += [(f"hour_{h}", [*upd, "--input", "parquet:" + hour_parquet(
+        tmp, n_inc, seed0 + h, h)]) for h in late_hours]
+    steps.append(("retract", ["retract", "--journal", root, "--device",
+                              device, "--where", f"user={TEMPORAL_USER}"]))
+    steps.append(("compaction_2", [*upd, "--compact-after", "0"]))
+    tracer = get_tracer()
+    out = {}
+    for name, argv in steps:
+        tracer.reset()
+        sp.aggregate_sorted_keys_partitioned.launches = 0
+        summary, seconds = cli_call(argv)
+        out[name] = {"summary": summary, "seconds": seconds,
+                     "launches": sp.aggregate_sorted_keys_partitioned.launches,
+                     "spans_s": {k: v["total_s"]
+                                 for k, v in tracer.report().items()}}
+        if name.startswith("compaction"):
+            base = os.path.join(root, summary["compaction"]["base"])
+            out[name]["manifest"] = tb.read_manifest(base)
+    return out
+
+
+def expected_buckets(hour_epochs, max_hour):
+    """{bucket name: (tier, epochs)} of the JAX package's bucket ladder
+    at width 3600, fanout 4, keep 8, for journal entries by hour
+    (``hour_epochs``: hour -> epochs) when the newest edge is hour
+    ``max_hour``: an hour whose end is under 8 hours old stays a tier-0
+    bucket, an older one joins its aligned 4-hour tier-1 bucket (under
+    40 hours of age, tier 1 is the top this phase reaches), and so does
+    a young hour inside a 4-hour block that holds an old one."""
+    old_blocks = {h // 4 for h in hour_epochs if max_hour - (h + 1) >= 8}
+    assert all(max_hour - (h + 1) < 40 for h in hour_epochs)
+    out = {}
+    for h, epochs in sorted(hour_epochs.items()):
+        start, span, tier = ((h // 4 * 4, 4, 1) if h // 4 in old_blocks
+                             else (h, 1, 0))
+        name = (f"bucket-{TEMPORAL_T0 + 3600 * start}-"
+                f"{TEMPORAL_T0 + 3600 * (start + span)}")
+        eps = out.get(name, (tier, []))[1]
+        out[name] = (tier, sorted(eps + list(epochs)))
+    return out
+
+
+def check_temporal_sequence(seq, n_levels, hours, late_hours):
+    """Launches, manifests and the retraction of one bucketed sequence:
+    n_levels segment reduces per applied batch and per counter-batch,
+    none per compaction; each compaction's TEMPORAL.json lists the
+    buckets ``expected_buckets`` names, with their tiers and epochs;
+    the retraction lands one counter-batch per hour of its horizon (the
+    two newest folded entries, retention 2, and the live ones). Returns
+    the counter-batch epochs by hour."""
+    epochs = {0: [seq["base"]["summary"]["applied"][0]["epoch"]]}
+    for h in (*hours, *late_hours):
+        (a,) = seq[f"hour_{h}"]["summary"]["applied"]
+        assert not a["duplicate"] and a["rows"] > 0, a
+        assert seq[f"hour_{h}"]["launches"] == n_levels, h
+        epochs[h] = [a["epoch"]]
+    assert seq["base"]["launches"] == n_levels
+    assert seq["base"]["summary"]["temporal"] == {
+        "width": 3600.0, "fanout": 4, "keep": 8, "tiers": 4,
+        "unit_s": 1.0}, seq["base"]["summary"]
+    ret = seq["retract"]["summary"]
+    all_hours = sorted(epochs)
+    horizon = [*sorted((0, *hours))[-2:], *late_hours]
+    assert ret["entries"] == len(horizon) and ret["rows"] > 0, ret
+    assert ret["batches"] == len(horizon), ret
+    assert seq["retract"]["launches"] == n_levels * len(horizon)
+    counter = dict(zip(horizon, ret["epochs"]))
+    for step, hs, last in (("compaction_1", [0, *hours], max(hours)),
+                           ("compaction_2", all_hours, max(all_hours))):
+        rec = seq[step]
+        assert rec["launches"] == 0 and rec["summary"]["live_deltas"] == 0
+        man = rec["manifest"]
+        assert man["none"] is None and man["max_edge"] == float(
+            TEMPORAL_T0 + 3600 * (last + 1)), man["max_edge"]
+        by_hour = {h: epochs[h] + ([counter[h]] if step == "compaction_2"
+                                   and h in counter else []) for h in hs}
+        want = expected_buckets(by_hour, last + 1)
+        got = {b["name"]: (b["tier"], b["epochs"]) for b in man["buckets"]}
+        assert got == want, (step, got, want)
+    return counter
+
+
+def base_files(root):
+    """{name: bytes} of the top-level files of CURRENT's base (the
+    all-time artifact; buckets/ and TEMPORAL.json are temporal-only)."""
+    from heatmap_tpu_torch.delta.compact import read_current
+
+    base = os.path.join(root, read_current(root)["base"])
+    return {n: open(os.path.join(base, n), "rb").read()
+            for n in sorted(os.listdir(base))
+            if os.path.isfile(os.path.join(base, n))
+            and n != "TEMPORAL.json"}
+
+
+def temporal_tree(root):
+    """CURRENT's base's TEMPORAL.json and bucket files."""
+    from heatmap_tpu_torch.delta.compact import read_current
+
+    base = os.path.join(root, read_current(root)["base"])
+    return {k: v for k, v in read_tree(base).items()
+            if k == "TEMPORAL.json" or k.startswith("buckets" + os.sep)}
+
+
+def fold_seconds(base_url):
+    """(sum, count) of ``temporal_fold_seconds`` on a server's
+    /metrics."""
+    import urllib.request
+
+    with urllib.request.urlopen(base_url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    got = {}
+    for line in text.splitlines():
+        for key in ("temporal_fold_seconds_sum",
+                    "temporal_fold_seconds_count"):
+            if line.startswith(key + " ") or line.startswith(key + "{"):
+                got[key] = got.get(key, 0.0) + float(line.split()[-1])
+    return (got.get("temporal_fold_seconds_sum", 0.0),
+            got.get("temporal_fold_seconds_count", 0.0))
+
+
+def brute_growth(root, sel, zoom, window, layer=("all", "alltime")):
+    """Exact growth per cell of a window selection: the newer half's
+    sum less the older half's over the selected units' level rows at
+    ``zoom`` (no wavelets; each unit's one level file is read)."""
+    from heatmap_tpu_torch.delta.compact import read_current
+
+    base = read_current(root).get("base")
+    units = [(os.path.join(root, base, "buckets", b["name"]), float(b["t1"]))
+             for b in sel.buckets]
+    units += [(os.path.join(root, u["artifact"]), u["t1"]) for u in sel.live]
+    mid = sel.ref - window / 2.0
+    acc = {}
+    for d, t1 in units:
+        path = os.path.join(d, f"level_z{zoom:02d}.npz")
+        if not os.path.exists(path):
+            continue
+        with np.load(path) as z:
+            lvl = {k: z[k] for k in z.files}
+        keep = ((lvl["user_names"][lvl["user_idx"]] == layer[0])
+                & (lvl["timespan_names"][lvl["timespan_idx"]] == layer[1]))
+        sign = 1.0 if t1 > mid else -1.0
+        for r, c, v in zip(np.asarray(lvl["row"])[keep].tolist(),
+                           np.asarray(lvl["col"])[keep].tolist(),
+                           np.asarray(lvl["value"])[keep].tolist()):
+            acc[(r, c)] = acc.get((r, c), 0.0) + sign * v
+    return acc
+
+
+def check_growth(doc, exact):
+    """Every reported cell's growth within its stamped bound of the
+    exact growth, and max_err the largest bound."""
+    assert doc["cells"], doc
+    for cell in doc["cells"]:
+        want = exact.get((cell["row"], cell["col"]), 0.0)
+        assert abs(cell["growth"] - want) <= cell["bound"] + 1e-9, \
+            (cell, want)
+    assert doc["max_err"] == max(c["bound"] for c in doc["cells"])
+
+
+def start_serve_process(spec):
+    """``python -m heatmap_tpu_torch serve --store SPEC --port 0`` as a
+    process in its own session: (process, its start on the perf
+    clock)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "heatmap_tpu_torch", "serve", "--store",
+         spec, "--port", "0"],
+        cwd=here, env=env, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, t0
+
+
+def serve_temporal(root, tmp, retracted, proc, t0):
+    """Over ``serve --store delta:ROOT --port 0`` (``proc``, started at
+    ``t0`` by ``start_serve_process``) on the big temporal store, with
+    the hours in ``retracted`` retracted: a ``run --output arrays:`` over
+    the batches inside the as_of cut, mounted as ``arrays:``, whose most
+    populated tiles (``serve_tile_list``) are fetched in each cut
+    (all-time, as_of at hour TEMPORAL_AS_OF_HOUR's edge, window 1d and
+    1h, decay 1h) cold then warm, with each cut's fold seconds from the
+    server's /metrics; the as_of tiles equal the recompute's, the
+    window-1d tiles (a fold over every bucket) the all-time tiles;
+    TEMPORAL_GROWTH_QUERIES ``op=topk_growth`` requests over window 1h
+    and one over 1d, each within its stamped bound of the exact
+    growth."""
+    from heatmap_tpu_torch.serve import ServeApp, TileCache, TileStore
+    from heatmap_tpu_torch.temporal import fold as tfold
+
+    out = {}
+    banner = json.loads(proc.stderr.readline())
+    out["command_to_banner_s"] = time.perf_counter() - t0
+    base_url = banner["serving"]
+    # The as_of oracle: one run over the batches inside the cut, less
+    # the rows the retraction removed from them, mounted as arrays:.
+    # The tile list is its most populated tiles (populated in every cut
+    # that holds the cut's batches).
+    hours = [h for h in TEMPORAL_HOURS if h < TEMPORAL_AS_OF_HOUR]
+    oracle_dir = os.path.join(tmp, "as_of_oracle")
+    _, out["oracle_run_s"] = cli_call([
+        "run", "--input", "parquet:" + hour_survivors(
+            tmp, N_TEMPORAL_BASE, N_TEMPORAL_INC, hours, 0,
+            retracted),
+        "--output", f"arrays:{oracle_dir}", "--device", "cuda"])
+    t1 = time.perf_counter()
+    oracle = ServeApp(TileStore(f"arrays:{oracle_dir}"), TileCache())
+    out["oracle_mount_s"] = time.perf_counter() - t1
+    tiles = serve_tile_list(oracle.store, TEMPORAL_TILES, TEMPORAL_EMPTY,
+                            SERVE_ZOOMS, 5)
+    as_of = TEMPORAL_T0 + 3600 * TEMPORAL_AS_OF_HOUR
+    cuts = {"all_time": "", "as_of": f"as_of={as_of}",
+            "window_1d": "window=1d", "window_1h": "window=1h",
+            "decay_1h": "decay=1h"}
+    plain = tile_paths(tiles)
+    answers = {}
+    for name, q in cuts.items():
+        paths = [p + ("?" + q if q else "") for p in plain]
+        f0 = fold_seconds(base_url)
+        t1 = time.perf_counter()
+        cold_lat, cold = fetch(base_url, paths)
+        cold_s = time.perf_counter() - t1
+        f1 = fold_seconds(base_url)
+        warm_lat, warm = fetch(base_url, paths)
+        assert warm == cold, name
+        assert fold_seconds(base_url) == f1, name
+        statuses = [cold[p][0] for p in paths]
+        assert set(statuses) <= {200, 404}, (name, set(statuses))
+        if q:
+            assert all(cold[p][1].startswith('"t-') for p in paths
+                       if cold[p][0] == 200), name
+        answers[name] = [cold[p] for p in paths]
+        out[name] = {"cold": {**pct_ms(cold_lat),
+                              "requests_per_s": len(paths) / cold_s},
+                     "warm": pct_ms(warm_lat),
+                     "fold_s": f1[0] - f0[0],
+                     "folds": f1[1] - f0[1],
+                     "tiles_200": statuses.count(200)}
+    check_tiles(tiles, dict(zip(plain, answers["as_of"])))
+    # A fold over every bucket serves the all-time bytes.
+    everything = tfold.select_fold(root, window=86400.0)
+    assert len(everything.buckets) == len(tfold.select_fold(
+        root).buckets) and not everything.live
+    for a, b in zip(answers["window_1d"], answers["all_time"]):
+        assert (a[0], a[2]) == (b[0], b[2])
+    # The as_of cut serves the recompute's bytes.
+    for p, got in zip(plain, answers["as_of"]):
+        want = oracle.handle("GET", p)
+        assert got[0] == want[0], p
+        if got[0] == 200:
+            assert got[2] == want[2], p
+    assert out["as_of"]["tiles_200"] > 0
+    # topk_growth: window 1h is one slot, so every answer is exact;
+    # window 1d spans every bucket and is bounded.
+    sel_1h = tfold.select_fold(root, window=3600.0)
+    exact = {}
+    lat = []
+    zooms = (12, 14, 16, 18, 20)
+    for i in range(TEMPORAL_GROWTH_QUERIES):
+        z, k = zooms[i % len(zooms)], 1 + i // len(zooms)
+        url = (f"/query?op=topk_growth&layer=all%7Calltime&z={z}"
+               f"&window=1h&k={k}")
+        t1 = time.perf_counter()
+        (status, _, body), = fetch(base_url, [url])[1].values()
+        lat.append(time.perf_counter() - t1)
+        assert status == 200, (url, body)
+        if z not in exact:
+            exact[z] = brute_growth(root, sel_1h, z, 3600.0)
+        doc = json.loads(body)
+        assert doc["slots"] == 1 and len(doc["cells"]) == k, doc
+        check_growth(doc, exact[z])
+        assert doc["max_err"] == 0.0
+    out["topk_growth_1h"] = pct_ms(lat)
+    t1 = time.perf_counter()
+    (status, _, body), = fetch(base_url, [
+        "/query?op=topk_growth&layer=all%7Calltime&z=14&window=1d"
+        "&k=20"])[1].values()
+    out["topk_growth_1d_s"] = time.perf_counter() - t1
+    assert status == 200, body
+    doc = json.loads(body)
+    check_growth(doc, brute_growth(
+        root, tfold.select_fold(root, window=86400.0), 14, 86400.0))
+    out["topk_growth_1d"] = {"slots": doc["slots"],
+                             "max_err": doc["max_err"]}
+    return out
+
+
+def temporal_ingest(root, tmp, n_levels):
+    """``ingest --bucket-width 3600 --serve-port 0`` onto a store at
+    ``root`` of one compacted INGEST_MICRO-point batch in hour 0:
+    TEMPORAL_INGEST_TICKS ticks of INGEST_MICRO points, two an hour from
+    the store's newest edge on (the second hour's
+    points 5 degrees east, so its ticks touch other tiles than the
+    first's), with the tile list served in ``?window=1h`` before the
+    first tick and again after each tick's roll. Each roll must drop
+    exactly the cached window-1h entries of the retiring units' tiles
+    and no other entry, and the edge must move once. Returns the drain
+    record with each roll's counts."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from heatmap_tpu_torch.delta.compute import affected_tile_keys
+    from heatmap_tpu_torch.ingest import loop as loop_mod
+    from heatmap_tpu_torch.io.sinks import LevelArraysSink
+    from heatmap_tpu_torch.temporal import fold as tfold
+
+    cli_call(["update", "--journal", root, "--device", "cuda",
+              "--bucket-width", "3600", "--compact-after", "0", "--input",
+              "parquet:" + hour_parquet(tmp, INGEST_MICRO, 399, 0)])
+    hour0 = int((tfold.newest_edge(root) - TEMPORAL_T0) // 3600)
+    parts = []
+    for i in range(TEMPORAL_INGEST_TICKS):
+        t = pq.read_table(hour_parquet(tmp, INGEST_MICRO, 400 + i,
+                                       hour0 + i // 2))
+        if i // 2 % 2:
+            lon = t.column("longitude")
+            t = t.set_column(t.schema.get_field_index("longitude"),
+                             "longitude", pc.add(lon, 5.0))
+        parts.append(t)
+    spec = os.path.join(tmp, "ingest_ticks.parquet")
+    pq.write_table(pa.concat_tables(parts), spec)
+    rolls, state = [], {}
+    real_roll = loop_mod._roll_windows
+
+    def refetch():
+        _, got = fetch(state["base"], state["paths"])
+        assert {v[0] for v in got.values()} <= {200, 404}
+
+    def roll(r, cache, holder):
+        before = set(cache._entries)
+        prev = holder[0] if holder else None
+        n = real_roll(r, cache, holder)
+        after = set(cache._entries)
+        ref = holder[0]
+        want = set()
+        if prev is not None and ref > prev:
+            keys = None
+            for d in tfold.retiring_dirs(r, prev, ref, [3600.0]):
+                got = affected_tile_keys(LevelArraysSink.load(d))
+                keys = got if keys is None else keys | got
+            want = {k for k in before if len(k) == 7
+                    and k[5:] == ("w", "1h") and keys is not None
+                    and k[:5] in keys}
+        assert before - after == want and n == len(want), (
+            len(before - after), len(want), n)
+        rolls.append({"prev": prev, "ref": ref, "invalidated": n,
+                      "cached": len(before)})
+        refetch()
+        return n
+
+    def on_serve(app, base_url):
+        tiles = serve_tile_list(app.store, TEMPORAL_ROLL_TILES,
+                                TEMPORAL_ROLL_TILES // 6, SERVE_ZOOMS, 6)
+        state["base"] = base_url
+        state["paths"] = [p + "?window=1h" for p in tile_paths(tiles)]
+        refetch()
+
+    loop_mod._roll_windows = roll
+    try:
+        rec = ingest_drain(["ingest", "--journal", root, "--input",
+                            f"parquet:{spec}", "--device", "cuda",
+                            "--serve-port", "0", "--bucket-width", "3600",
+                            "--micro-batch", str(INGEST_MICRO),
+                            "--compact-every", "0"], on_serve=on_serve)
+    finally:
+        loop_mod._roll_windows = real_roll
+    check_ticks(rec, n_levels)
+    assert rec["stats"].ticks == TEMPORAL_INGEST_TICKS
+    assert rec["summary"]["temporal"]["width"] == 3600.0
+    moved = [r for r in rolls if r["prev"] is not None
+             and r["ref"] > r["prev"]]
+    assert len(moved) == TEMPORAL_INGEST_TICKS // 2 - 1, rolls
+    assert all(r["invalidated"] > 0 for r in moved), rolls
+    rec["rolls"] = rolls
+    return rec
+
+
+def temporal_small(tmp, n_levels):
+    """(c) and (d) of ``phase_temporal`` under ``tmp``: the small
+    sequence on the card, on the CPU and on the card without buckets
+    (bucket dirs, TEMPORAL.json and the whole store equal card and CPU;
+    the top-level base equal with and without buckets), then
+    ``temporal_ingest``. Returns (the sequences, the drain record)."""
+    small = {}
+    roots = {}
+    for name, device, bucketed in (("cuda", "cuda", True),
+                                   ("cpu", "cpu", True),
+                                   ("cuda_plain", "cuda", False)):
+        roots[name] = os.path.join(tmp, f"temporal_small_{name}")
+        small[name] = temporal_sequence(
+            roots[name], device, tmp, N_TEMPORAL_SMALL_BASE,
+            N_TEMPORAL_SMALL_INC, TEMPORAL_SMALL_HOURS,
+            TEMPORAL_SMALL_LATE_HOURS, 200, bucketed=bucketed)
+    check_temporal_sequence(small["cuda"], n_levels, TEMPORAL_SMALL_HOURS,
+                            TEMPORAL_SMALL_LATE_HOURS)
+    assert temporal_tree(roots["cuda"]) == temporal_tree(roots["cpu"]), \
+        "card and CPU buckets differ"
+    assert (store_tree(roots["cuda"]) == store_tree(roots["cpu"])), \
+        "card and CPU temporal stores differ"
+    assert base_files(roots["cuda"]) == base_files(roots["cuda_plain"]), \
+        "bucketing changed the all-time base"
+    for r in roots.values():
+        shutil.rmtree(r)
+    return small, temporal_ingest(os.path.join(tmp, "temporal_ingest"),
+                                  tmp, n_levels)
+
+
+def phase_temporal(dev, tmp):
+    """The temporal plane on the card, as TEMPORAL_* describe, with
+    checks: (a) n_levels segment-reduce launches per applied batch and
+    counter-batch, none per compaction; each compaction's TEMPORAL.json
+    lists the bucket ladder's buckets with their tiers and epochs (the
+    oldest hours coarsened into tier 1), and the retraction lands one
+    counter-batch per hour of its horizon; (b) served over HTTP by a
+    ``serve`` process (``serve_temporal``), which mounts the big store
+    while (c) the small sequence writes byte-equal bucket dirs and
+    TEMPORAL.json on the card and the CPU, and the same top-level base
+    with and without ``--bucket-width``, and (d) ``ingest --bucket-width
+    --serve-port`` drains onto a one-batch store, each roll dropping
+    exactly the retiring window entries (``temporal_small``). Returns
+    the big sequence's launches."""
+    import signal
+
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+
+    t_phase = time.perf_counter()
+    n_levels = BatchJobConfig().cascade_config().n_levels + 1
+    pq_dir = os.path.join(tmp, "temporal_inputs")
+    os.makedirs(pq_dir)
+    t0 = time.perf_counter()
+    for h in (0, *TEMPORAL_HOURS, *TEMPORAL_LATE_HOURS):
+        hour_parquet(pq_dir, N_TEMPORAL_BASE if h == 0 else N_TEMPORAL_INC,
+                     h, h)
+    inputs_s = time.perf_counter() - t0
+    root = os.path.join(tmp, "temporal_store")
+    seq = temporal_sequence(root, "cuda", pq_dir, N_TEMPORAL_BASE,
+                            N_TEMPORAL_INC, TEMPORAL_HOURS,
+                            TEMPORAL_LATE_HOURS, 0)
+    counter = check_temporal_sequence(seq, n_levels, TEMPORAL_HOURS,
+                                      TEMPORAL_LATE_HOURS)
+    launches = sum(rec["launches"] for rec in seq.values())
+    # The server mounts the big store while (c) and (d) run.
+    proc, t_spawn = start_serve_process(f"delta:{root}")
+    try:
+        small, ingest_rec = temporal_small(pq_dir, n_levels)
+        served = serve_temporal(root, pq_dir, set(counter), proc, t_spawn)
+    finally:
+        os.killpg(proc.pid, signal.SIGTERM)
+        proc.wait(60)
+    shutil.rmtree(root)
+    steps = {k: {"seconds": v["seconds"], "launches": v["launches"]}
+             for k, v in seq.items()}
+    applied = [v for k, v in seq.items() if k.startswith("hour_")]
+    emit({"phase": "temporal", "base_points": N_TEMPORAL_BASE,
+          "increment_points": N_TEMPORAL_INC,
+          "increments": len(TEMPORAL_HOURS) + len(TEMPORAL_LATE_HOURS),
+          "inputs_s": inputs_s, "launches": launches,
+          "steps": steps,
+          "apply": {k: apply_split(v, v["summary"]["applied"][0]["points"])
+                    for k, v in seq.items()
+                    if k == "base" or k.startswith("hour_")},
+          "increment_median_s": statistics.median(
+              v["seconds"] for v in applied),
+          "compactions": {k: {"seconds": seq[k]["seconds"],
+                              "buckets": len(seq[k]["manifest"]["buckets"]),
+                              "tiers": sorted(b["tier"] for b in
+                                              seq[k]["manifest"]["buckets"])}
+                          for k in ("compaction_1", "compaction_2")},
+          "retraction": {"rows": seq["retract"]["summary"]["rows"],
+                         "batches": seq["retract"]["summary"]["batches"],
+                         "scanned": seq["retract"]["summary"]["scanned"],
+                         "seconds": seq["retract"]["seconds"],
+                         "counter_epochs": len(counter)},
+          "serve": served,
+          "small_seconds": {k: sum(r["seconds"] for r in v.values())
+                            for k, v in small.items()},
+          "small_equal_cpu": True, "base_equal_unbucketed": True,
+          "ingest": {"ticks_s": ingest_rec["ticks_s"],
+                     "seconds": ingest_rec["seconds"],
+                     "launches": [a["launches"]
+                                  for a in ingest_rec["applies"]],
+                     "rolls": ingest_rec["rolls"]},
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def stream_sources():
     """``synthetic:N_TILES`` (seed 0) cut to the stream's default batch;
     the same points in 1M-point batches (16 default batches each); and
@@ -3347,6 +3961,7 @@ def main() -> int:
         plane_root, writeplane_launches = phase_writeplane(dev, tmp)
         phase_fleet(dev, plane_root)
         shutil.rmtree(plane_root)
+        temporal_launches = phase_temporal(dev, tmp)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
     phase_stream_bench(dev)
@@ -3360,7 +3975,8 @@ def main() -> int:
                                           "delta": delta_launches,
                                           "ingest": ingest_launches,
                                           "serve": serve_launches,
-                                          "writeplane": writeplane_launches}
+                                          "writeplane": writeplane_launches,
+                                          "temporal": temporal_launches}
     window_histogram = kernel_entry(
         "window_histogram", "window_histogram.cu",
         "heatmap_tpu/ops/pallas_kernels.py:49",

@@ -2,10 +2,10 @@
 
 The port's copy of the numpy half of heatmap_tpu/analytics/integral.py:
 for the same level arrays it writes the same ``integral-z*.npz`` bytes.
-The jit'd scan ``integral2d_jax`` waits for ROADMAP Queue 1 item 5;
-compaction builds integrals on the host in both packages. The read side
-(``IntegralPair``, ``load_integrals``) serves ``/query``; the
-Morton-shard merge waits with ``parallel/`` (item 7).
+``integral2d_torch`` is the device twin of the JAX package's jit'd
+scan ``integral2d_jax``; compaction builds integrals on the host in both
+packages. The read side (``IntegralPair``, ``load_integrals``) serves
+``/query``; ``merge_shard_sats`` sums per-shard tables.
 
 ``write_integrals`` turns every ``level_z*.npz`` below ``max_z`` in a
 level directory into an ``integral-z{zoom:02d}.npz`` sitting alongside
@@ -50,8 +50,9 @@ from heatmap_tpu_torch.synopsis.transform import grid_from_rows_np
 
 __all__ = [
     "DEFAULT_MAX_Z", "HARD_MAX_Z", "SCHEMA", "IntegralPair", "build_pair",
-    "grid_from_sat", "integral2d_np", "integral_path", "load_integrals",
-    "verify_integral", "write_integrals",
+    "grid_from_sat", "integral2d_np", "integral2d_torch", "integral_path",
+    "load_integrals", "merge_shard_sats", "verify_integral",
+    "write_integrals",
 ]
 
 SCHEMA = "heatmap-tpu.integral.v1"
@@ -74,6 +75,36 @@ def integral2d_np(grid: np.ndarray) -> np.ndarray:
     if grid.ndim != 2:
         raise ValueError(f"integral2d wants a 2D grid, got {grid.shape}")
     return np.cumsum(np.cumsum(grid, axis=0), axis=1)
+
+
+def integral2d_torch(grid, device=None):
+    """Device twin of :func:`integral2d_np`: two cumsums of a float64
+    tensor on ``device`` (the grid's device when None). No kernel is
+    warranted: O(n^2) adds with trivial arithmetic intensity."""
+    import torch
+
+    grid = torch.as_tensor(grid, device=device).to(torch.float64)
+    if grid.ndim != 2:
+        raise ValueError(
+            f"integral2d wants a 2D grid, got {tuple(grid.shape)}")
+    return torch.cumsum(torch.cumsum(grid, dim=0), dim=1)
+
+
+def merge_shard_sats(parts) -> np.ndarray:
+    """SAT of a Morton-sharded level from per-shard SATs. The prefix scan
+    is linear: ``SAT(sum of shard grids) == sum(SAT(shard grid))``
+    exactly, because each shard's grid is zero outside its Z-order
+    range, so the elementwise sum is the whole merge."""
+    parts = [np.asarray(p, np.float64) for p in parts]
+    if not parts:
+        raise ValueError("merge_shard_sats needs at least one shard SAT")
+    out = parts[0].copy()
+    for p in parts[1:]:
+        if p.shape != out.shape:
+            raise ValueError(
+                f"shard SAT shapes differ: {p.shape} != {out.shape}")
+        out += p
+    return out
 
 
 def grid_from_sat(sat: np.ndarray) -> np.ndarray:

@@ -313,6 +313,125 @@ def _add_parallel_flags(p):
                    "ported yet")
 
 
+def _add_run_parallel_flags(p):
+    """The rest of the JAX ``run``'s mesh and multihost flags, with its
+    choices and defaults. On one process and one card the JAX job
+    ignores them, so they parse and run the plain job here too;
+    :func:`_check_run_parallel_flags` keeps the JAX refusals and exits 2
+    for what needs ``parallel/`` (ROADMAP Queue 1 item 7)."""
+    p.add_argument("--dp-merge", choices=("replicated", "prefix"),
+                   default="replicated",
+                   help="data-parallel cascade merge (one card: no mesh, "
+                   "the plain cascade either way)")
+    p.add_argument("--dp-min-emissions", type=int, default=None,
+                   metavar="N",
+                   help="auto-DP engagement threshold (one card: no "
+                   "mesh engages); auto mode only")
+    p.add_argument("--spatial-partition", choices=("auto", "morton", "off"),
+                   default="auto",
+                   help="Morton-range sharding of the data-parallel "
+                   "cascade (one card: no mesh, the plain cascade)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host job; a single process falls through "
+                   "to the plain job (a configured cluster is not "
+                   "ported yet)")
+    p.add_argument("--multihost-egress",
+                   choices=("auto", "gather", "sharded"), default="auto",
+                   help="gather (the auto default) or sharded (this "
+                   "process writes its own sink shard: a .p000 file, "
+                   "or host000/ directory)")
+    p.add_argument("--heartbeat-deadline", type=float, default=None,
+                   metavar="S",
+                   help="straggler detection deadline (a single process "
+                   "has no stragglers)")
+    p.add_argument("--on-straggler", choices=("raise", "reassign"),
+                   default="raise",
+                   help="raise (default); reassign (elastic execution) "
+                   "is not ported yet")
+    p.add_argument("--elastic-dir", default=None, metavar="DIR",
+                   help="shard-lineage manifest root for --on-straggler "
+                   "reassign")
+    p.add_argument("--elastic-hosts", type=int, default=None, metavar="K",
+                   help="simulated host count for elastic execution")
+
+
+#: The cluster a multihost job joins: the variables the JAX package's
+#: ``parallel.initialize`` reads.
+_CLUSTER_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                "JAX_PROCESS_ID")
+
+
+def _refuse_parallel(what: str):
+    """Exit 2, as a parse-time refusal does, for a ``run`` flag value
+    whose meaning needs ``parallel/``."""
+    print(f"heatmap-tpu-torch run: error: {what}: not ported yet (ROADMAP "
+          "Queue 1 item 7)", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def _check_run_parallel_flags(args, columnar: bool) -> str:
+    """The JAX ``run``'s refusals of its mesh and multihost flags, with
+    its messages (config-time ones exit 1 through SystemExit, the
+    job-time ones raise its ValueError), then exit 2 for a value that
+    needs ``parallel/``. Returns the output spec the job writes: with
+    ``--multihost-egress sharded`` this process's shard of it."""
+    if args.dp_min_emissions is not None:
+        if args.data_parallel != "auto":
+            raise SystemExit(
+                "dp_min_emissions tunes AUTO data-parallel routing "
+                "only; data_parallel=True/False ignore the "
+                "threshold — rejected at config time so a "
+                "calibration flag that silently does nothing "
+                "cannot ship")
+        if args.dp_min_emissions < 0:
+            raise SystemExit(f"dp_min_emissions must be >= 0, got "
+                             f"{args.dp_min_emissions}")
+    if args.spatial_partition == "morton" and args.data_parallel == "off":
+        raise SystemExit(
+            "spatial_partition='morton' range-shards the "
+            "data-parallel cascade; data_parallel=False pins "
+            "the single-device path — rejected at config time "
+            "so a silently ignored partition cannot ship")
+    if args.multihost_egress != "auto" and not args.multihost:
+        raise SystemExit("--multihost-egress requires --multihost")
+    if not args.multihost and (args.on_straggler != "raise"
+                               or args.elastic_dir or args.elastic_hosts
+                               or args.heartbeat_deadline is not None):
+        raise SystemExit("--heartbeat-deadline / --on-straggler / "
+                         "--elastic-dir / --elastic-hosts require "
+                         "--multihost")
+    if args.on_straggler == "reassign" and not args.elastic_dir:
+        raise SystemExit("--on-straggler reassign needs --elastic-dir "
+                         "(the shard-lineage manifest is what makes "
+                         "failover re-execution exactly-once)")
+    if args.multihost and (args.fast or args.checkpoint_dir):
+        raise SystemExit("--multihost runs the standard job path only "
+                         "(not --fast / --checkpoint-dir); "
+                         "--max-points-in-flight composes (each process "
+                         "streams its slice through the bounded path)")
+    if not args.multihost:
+        return args.output
+    if any(os.environ.get(v) for v in _CLUSTER_ENV):
+        _refuse_parallel("--multihost over a configured cluster")
+    if args.on_straggler == "reassign":
+        _refuse_parallel("--on-straggler reassign")
+    if args.elastic_dir is not None or args.elastic_hosts is not None:
+        raise ValueError(
+            "elastic_dir/elastic_hosts/elastic_opts only apply with "
+            "on_straggler='reassign'")
+    if columnar and args.multihost_egress == "gather":
+        raise ValueError(
+            "gather egress is blob-based; columnar sinks "
+            "(arrays:/LevelArraysSink) need egress='sharded' with "
+            "per-host sink paths (each process writes its own "
+            "level-array shard)")
+    if args.multihost_egress == "sharded":
+        from heatmap_tpu_torch.io.sinks import per_process_sink_spec
+
+        return per_process_sink_spec(args.output, 0)
+    return args.output
+
+
 class _Telemetry:
     """The telemetry envelope of ``run``, ``update`` and ``ingest``, as
     the JAX CLI wires it: ``--metrics-dir``/``--events``/``--report``
@@ -444,7 +563,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="jsonl:heatmaps.jsonl",
                    type=_sink_spec,
                    help="memory: | jsonl:PATH | dir:PATH | arrays:DIR "
-                   "(columnar per-level npz) | arrays-parquet:DIR")
+                   "(columnar per-level npz) | arrays-parquet:DIR | "
+                   "arrays-synopsis:DIR | arrays-integral:DIR | "
+                   "arrays-tilefs:DIR")
     p.add_argument("--detail-zoom", type=int, default=21,
                    help="finest zoom of the cascade")
     p.add_argument("--min-detail-zoom", type=int, default=5,
@@ -494,6 +615,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weighted partitioned contract: every 'value' "
                    "is an integer in [0, W]")
     _add_parallel_flags(p)
+    _add_run_parallel_flags(p)
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="capture a torch.profiler trace into "
                    "LOGDIR/trace.json and print the span/throughput "
@@ -773,14 +895,51 @@ def _add_serve_flags(p):
     p.add_argument("--lon-max", type=float, default=-119.0)
 
 
-def _add_temporal_refusals(p):
-    """The JAX ``--bucket-*`` flags (temporal/, ROADMAP Queue 1 item 5):
-    any value exits 2 at parse time."""
-    item5 = _not_ported(5)
-    for flag in ("--bucket-width", "--bucket-fanout", "--bucket-keep",
-                 "--bucket-tiers", "--bucket-unit-s"):
-        p.add_argument(flag, type=item5, default=None,
-                       help="not ported yet (temporal/)")
+def _add_temporal_flags(p):
+    g = p.add_argument_group(
+        "temporal buckets",
+        "pin the epoch-bucketed partial-pyramid config "
+        "(docs/temporal.md). Byte-affecting for temporal folds, so it "
+        "follows the config-fingerprint discipline: the first writer "
+        "sets it, later runs must match. Compactions then fold history "
+        "into buckets/ and serve answers ?as_of=/?window=/?decay= "
+        "tiles and op=topk_growth queries.")
+    g.add_argument("--bucket-width", type=float, default=None,
+                   metavar="UNITS",
+                   help="tier-0 bucket width in watermark units "
+                   "(setting any --bucket-* flag enables the temporal "
+                   "plane; default width 3600)")
+    g.add_argument("--bucket-fanout", type=int, default=None,
+                   help="geometric ladder fanout: tier-j buckets are "
+                   "width * fanout**j wide (default 4)")
+    g.add_argument("--bucket-keep", type=int, default=None,
+                   help="newest intervals kept per tier before history "
+                   "coarsens into the next tier (default 8)")
+    g.add_argument("--bucket-tiers", type=int, default=None,
+                   help="ladder height; the top tier is unbounded "
+                   "(default 4)")
+    g.add_argument("--bucket-unit-s", type=float, default=None,
+                   metavar="S",
+                   help="seconds per watermark unit — scales the named "
+                   "?window= values (1h/1d/1w); ms timestamps use "
+                   "0.001 (default 1)")
+
+
+def _ensure_temporal(args, root: str):
+    """Pin the temporal config when any --bucket-* flag was passed;
+    returns the active config (None = temporal plane not enabled)."""
+    overrides = {"width": args.bucket_width, "fanout": args.bucket_fanout,
+                 "keep": args.bucket_keep, "tiers": args.bucket_tiers,
+                 "unit_s": args.bucket_unit_s}
+    if all(v is None for v in overrides.values()):
+        return None
+    from heatmap_tpu_torch.temporal import ensure_config
+
+    os.makedirs(root, exist_ok=True)
+    try:
+        return ensure_config(root, **overrides)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
 
 
 def _add_update_flags(p):
@@ -818,7 +977,7 @@ def _add_update_flags(p):
                    choices=("auto", "scatter", "partitioned"))
     _add_parallel_flags(p)
     _add_telemetry_flags(p)
-    _add_temporal_refusals(p)
+    _add_temporal_flags(p)
     _add_trace_flags(p)
 
 
@@ -875,6 +1034,9 @@ def cmd_update(args) -> int:
         if base_dir is not None:
             delta_mod.init_store(args.journal, base_dir)
             summary["base_adopted"] = args.base
+        tcfg = _ensure_temporal(args, args.journal)
+        if tcfg is not None:
+            summary["temporal"] = tcfg
         applied = []
         jobs = [(args.input, 1)] if args.input else []
         if args.retractions:
@@ -1037,7 +1199,7 @@ def _add_ingest_flags(p):
                    default=None, metavar="PATH",
                    help="fold tracer + metrics + events into a run report "
                    "at PATH and print the span table to stderr")
-    _add_temporal_refusals(p)
+    _add_temporal_flags(p)
     _add_trace_flags(p)
 
 
@@ -1103,6 +1265,9 @@ def run_ingest_command(args, on_serve=None):
     server = None
     try:
         delta_mod.init_store(args.journal)
+        tcfg = _ensure_temporal(args, args.journal)
+        if tcfg is not None:
+            summary["temporal"] = tcfg
         store = cache = None
         if args.serve_port is not None:
             from heatmap_tpu_torch.serve import (ServeApp, TileCache,
@@ -1751,6 +1916,8 @@ def cmd_run(args) -> int:
         )
     except ValueError as e:
         raise SystemExit(str(e)) from e
+    output_spec = _check_run_parallel_flags(
+        args, args.output.partition(":")[0].startswith("arrays"))
     if args.merge_spill_dir and args.checkpoint_dir:
         raise SystemExit("--merge-spill-dir applies to the bounded "
                          "(chunked) path only; it cannot combine with "
@@ -1763,12 +1930,12 @@ def cmd_run(args) -> int:
     if args.fast and args.no_fast:
         raise SystemExit("--fast and --no-fast are mutually exclusive")
     _init_backend(args)
-    fast_source = _fast_source(args)
+    fast_source = None if args.multihost else _fast_source(args)
     tel = _Telemetry(args, "run", config, args.device)
     prof = (torch_profile(args.profile) if args.profile
             else contextlib.nullcontext())
     try:
-        with prof, open_sink(args.output) as sink:
+        with prof, open_sink(output_spec) as sink:
             if fast_source is not None:
                 blobs = run_job_fast(
                     fast_source, sink, config, batch_size=args.batch_size,
@@ -1804,7 +1971,7 @@ def cmd_run(args) -> int:
     seconds = tel.finish(sample_memory=True, **end)
     if args.profile:
         print(get_tracer().format_report(), file=sys.stderr)
-    summary = {"seconds": round(seconds, 3), "output": args.output,
+    summary = {"seconds": round(seconds, 3), "output": output_spec,
                "ingest": "fast" if fast_source is not None else "standard"}
     if levels:
         summary["levels"] = blobs["levels"]

@@ -4,9 +4,8 @@ The port's copy of heatmap_tpu/delta/compact.py: the same store layout,
 CURRENT pointer and config fingerprint, so a store written by either
 package continues in the other, and compaction writes the same base
 (levels, synopses, integrals, and tilefs mirrors when the old base
-carried them). A store with a temporal config raises
-NotImplementedError until ``temporal/`` is ported (ROADMAP Queue 1
-item 5).
+carried them), with the temporal bucket partition and its
+``TEMPORAL.json`` manifest on a store that pins a temporal config.
 
 Store layout (one directory, self-describing):
 
@@ -243,6 +242,103 @@ def load_overlay_levels(root: str) -> list:
     return drop_zero_rows(merge_level_dirs(dirs))
 
 
+def _write_buckets(root: str, cur: dict, live: list, tmp_path: str,
+                   tcfg: dict) -> dict:
+    """Stage the temporal bucket partition inside the compaction tmp
+    dir (heatmap_tpu_torch.temporal): carry the previous base's buckets
+    forward, fold each live delta into the tier-0 bucket containing
+    its watermark, coarsen old buckets up the geometric ladder, and
+    write TEMPORAL.json — all under ``tmp_path`` so buckets and
+    manifest publish atomically with the base itself.
+
+    The top-level merged artifact is untouched: the all-time read path
+    never sees buckets, which is what keeps it byte-identical to an
+    un-bucketed store (the tier-1 identity gate); buckets are an
+    additional, derived partition of the same journal entries.
+    """
+    from heatmap_tpu_torch.temporal import buckets as tb
+
+    base_name = cur.get("base")
+    prev = (tb.read_manifest(os.path.join(root, base_name))
+            if base_name else None)
+    timed: list[dict] = []
+    none_dirs: list[str] = []
+    none_epochs: list[int] = []
+    none_points = 0
+    if prev is not None:
+        bdir = os.path.join(root, base_name, tb.BUCKETS_DIRNAME)
+        for b in prev.get("buckets") or []:
+            d = os.path.join(bdir, b["name"])
+            if os.path.isdir(d):
+                timed.append({"t0": float(b["t0"]), "t1": float(b["t1"]),
+                              "tier": int(b.get("tier", 0)), "dirs": [d],
+                              "epochs": list(b.get("epochs") or []),
+                              "points": int(b.get("points", 0))})
+        pn = prev.get("none")
+        if pn is not None:
+            d = os.path.join(bdir, tb.NONE_NAME)
+            if os.path.isdir(d):
+                none_dirs.append(d)
+                none_epochs += list(pn.get("epochs") or [])
+                none_points += int(pn.get("points", 0))
+    elif base_name and os.path.isdir(os.path.join(root, base_name)):
+        # Pre-temporal base: its history has no per-batch resolution
+        # left, so it folds into the timeless bucket — the all-time
+        # layer is preserved exactly; temporal cuts treat the legacy
+        # rows as always-present (docs/temporal.md).
+        none_dirs.append(os.path.join(root, base_name))
+    for e in live:
+        d = os.path.join(root, e["artifact"])
+        if not os.path.isdir(d):
+            continue
+        wm = e.get("watermark")
+        if wm is None:
+            none_dirs.append(d)
+            none_epochs.append(int(e["epoch"]))
+            none_points += int(e.get("points", 0))
+            continue
+        t0, t1 = tb.bucket_of(float(wm), tcfg)
+        timed.append({"t0": t0, "t1": t1, "tier": 0, "dirs": [d],
+                      "epochs": [int(e["epoch"])],
+                      "points": int(e.get("points", 0))})
+    entries = []
+    if timed:
+        max_edge = max(u["t1"] for u in timed)
+        plan = tb.plan_partition(timed, tcfg, max_edge)
+        for (t0, t1, tier), members in sorted(plan.items()):
+            dirs = [d for u in members for d in u["dirs"]]
+            levels = drop_zero_rows(merge_level_dirs(dirs))
+            if not any(len(lvl["row"]) for lvl in levels):
+                continue  # fully cancelled by retraction: no bucket
+            name = tb.bucket_name(t0, t1)
+            out = os.path.join(tmp_path, tb.BUCKETS_DIRNAME, name)
+            LevelArraysSink(out).write_levels(levels)
+            entries.append({
+                "name": name, "t0": t0, "t1": t1, "tier": int(tier),
+                "epochs": sorted({ep for u in members
+                                  for ep in u["epochs"]}),
+                "points": sum(u["points"] for u in members),
+                "digest": tb.bucket_digest(out),
+            })
+    else:
+        max_edge = None
+    none_entry = None
+    if none_dirs:
+        levels = drop_zero_rows(merge_level_dirs(none_dirs))
+        if any(len(lvl["row"]) for lvl in levels):
+            out = os.path.join(tmp_path, tb.BUCKETS_DIRNAME, tb.NONE_NAME)
+            LevelArraysSink(out).write_levels(levels)
+            none_entry = {"name": tb.NONE_NAME,
+                          "epochs": sorted(set(none_epochs)),
+                          "points": none_points,
+                          "digest": tb.bucket_digest(out)}
+    manifest = {"schema": tb.TEMPORAL_SCHEMA, "config": tcfg,
+                "max_edge": max_edge, "buckets": entries,
+                "none": none_entry}
+    tb.write_manifest(tmp_path, manifest)
+    return manifest
+
+
 def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
     """Fold the live delta stack into a new base and prune.
 
@@ -268,12 +364,6 @@ def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
             f"in-flight journal depth {inflight} — refusing to shrink "
             "the exactly-once dedup window under queued batches "
             "(docs/ingest.md)")
-    cur = read_current(root)
-    if cur.get("temporal") is not None:
-        raise NotImplementedError(
-            f"compact({root}): the store pins a temporal config, whose "
-            "bucketed compaction heatmap_tpu_torch does not port yet "
-            "(temporal/ is ROADMAP Queue 1 item 5); use heatmap_tpu")
     recover.sweep(root)
     cur = read_current(root)
     journal = DeltaJournal(journal_dir(root))
@@ -306,6 +396,9 @@ def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
             os.path.join(root, base_name))
         rows = LevelArraysSink(tmp_path, synopses=True, integrals=True,
                                tilefs=keep_tilefs).write_levels(merged)
+        tcfg = cur.get("temporal")
+        manifest = (_write_buckets(root, cur, live, tmp_path, tcfg)
+                    if tcfg is not None else None)
         faults.retry_call(publish_dir, tmp_path, new_path,
                           site="compact.publish", key="base")
         cur = dict(cur)
@@ -329,14 +422,17 @@ def compact(root: str, *, retention: int = 2, inflight: int = 0) -> dict:
                                  min_age_s=QUARANTINE_MIN_AGE_S)
         seconds = time.monotonic() - t0
         COMPACTION_SECONDS.observe(seconds)
+        buckets = (len(manifest["buckets"]) +
+                   (1 if manifest["none"] else 0)) if manifest else None
+        extra = {"buckets": buckets} if buckets is not None else {}
         obs.emit("compaction_end", root=root, seconds=round(seconds, 6),
                  status="ok", base=new_name, levels=len(merged),
-                 rows=int(rows), pruned_entries=len(pruned))
+                 rows=int(rows), pruned_entries=len(pruned), **extra)
         return {"status": "ok", "base": new_name,
                 "applied_through": int(new_epoch),
                 "deltas": len(live), "levels": len(merged),
                 "rows": int(rows), "pruned_entries": len(pruned),
-                "buckets": None, "seconds": seconds}
+                "buckets": buckets, "seconds": seconds}
     except BaseException as exc:
         obs.emit("compaction_end", root=root,
                  seconds=round(time.monotonic() - t0, 6),

@@ -1,9 +1,7 @@
 """Crash-recovery sweep for the delta store.
 
 The port's copy of heatmap_tpu/delta/recover.py: the same quarantine
-decisions, reasons and events. Stores with a temporal plane are refused
-(``NotImplementedError``) until ``temporal/`` is ported (ROADMAP Queue 1
-item 5).
+decisions, reasons and events, temporal buckets included.
 
 The store's write paths are atomic (save_checkpoint entries, tmp+rename
 artifact publishes, the CURRENT pointer flip), so a crash can only
@@ -71,9 +69,6 @@ from heatmap_tpu_torch.delta.journal import entry_digest
 from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
 
 QUARANTINE_DIRNAME = "quarantine"
-#: The temporal plane's names inside a base (heatmap_tpu/temporal).
-TEMPORAL_MANIFEST = "TEMPORAL.json"
-BUCKETS_DIRNAME = "buckets"
 
 _ENTRY_RE = re.compile(r"^ckpt-(\d+)\.npz$")
 _DELTA_RE = re.compile(r"^delta-\d{6}$")
@@ -313,7 +308,11 @@ def sweep(root: str, *, verify: bool = True) -> dict:
                     _quarantine(root, full, "torn_tilefs", "tilefs",
                                 items, detail)
 
-    # 6. Temporal buckets inside CURRENT's base (heatmap_tpu.temporal).
+    # 6. Temporal buckets inside CURRENT's base (heatmap_tpu_torch.temporal):
+    #    torn buckets quarantine; folds over a quarantined bucket raise
+    #    TornBucketError and the serve tier answers stale-if-error,
+    #    while the all-time path — which never reads buckets — is
+    #    untouched.
     if bdir and os.path.isdir(bdir):
         _sweep_buckets(root, bdir, items)
 
@@ -322,13 +321,51 @@ def sweep(root: str, *, verify: bool = True) -> dict:
 
 
 def _sweep_buckets(root: str, bdir: str, items: list):
-    """The temporal plane's bucket check. A base without temporal
-    buckets has nothing to verify; one with them is refused until
-    ``temporal/`` is ported (ROADMAP Queue 1 item 5)."""
-    if (os.path.exists(os.path.join(bdir, TEMPORAL_MANIFEST))
-            or os.path.isdir(os.path.join(bdir, BUCKETS_DIRNAME))):
-        raise NotImplementedError(
-            f"delta store {root}: base {os.path.basename(bdir)} carries "
-            "temporal buckets, which heatmap_tpu_torch does not sweep yet "
-            "(temporal/ is ROADMAP Queue 1 item 5); use heatmap_tpu "
-            "on this store")
+    """Verify the base's TEMPORAL.json manifest against its bucket
+    dirs: a bucket whose recomputed digest mismatches the manifest
+    (torn write, tampered levels) is quarantined, as is any bucket dir
+    the manifest does not list (a crashed pass's stray). Digest
+    results are memoised per (dir, recorded digest) — published
+    buckets are immutable by contract, same stance as journal entry
+    verification."""
+    from heatmap_tpu_torch.temporal import buckets as tb
+
+    subdir = os.path.join(bdir, tb.BUCKETS_DIRNAME)
+    manifest = tb.read_manifest(bdir)
+    if manifest is None:
+        mpath = os.path.join(bdir, tb.MANIFEST_NAME)
+        if os.path.isdir(subdir):
+            if os.path.exists(mpath):
+                # Unreadable manifest over existing buckets: temporal
+                # serving for this base is gone either way; make the
+                # corruption visible instead of re-parsing every read.
+                _quarantine(root, mpath, "torn_manifest",
+                            "temporal_manifest", items)
+            for name in sorted(os.listdir(subdir)):
+                _quarantine(root, os.path.join(subdir, name),
+                            "orphan_bucket", "temporal_bucket", items)
+        return
+    listed = {}
+    for b in manifest.get("buckets") or []:
+        listed[b["name"]] = b.get("digest")
+    if manifest.get("none"):
+        listed[tb.NONE_NAME] = manifest["none"].get("digest")
+    present = sorted(os.listdir(subdir)) if os.path.isdir(subdir) else []
+    for name in present:
+        full = os.path.join(subdir, name)
+        recorded = listed.get(name)
+        if recorded is None:
+            _quarantine(root, full, "orphan_bucket", "temporal_bucket",
+                        items)
+            continue
+        cache_key = (os.path.abspath(full), recorded)
+        if cache_key in _VERIFIED:
+            continue
+        actual = tb.bucket_digest(full)
+        if actual != recorded:
+            _quarantine(root, full, "torn_bucket", "temporal_bucket",
+                        items,
+                        f"recorded {recorded[:23]}..., "
+                        f"actual {actual[:23]}...")
+        else:
+            _VERIFIED[cache_key] = True

@@ -1,8 +1,8 @@
 """Predicate retraction: journal scan -> exact signed counter-batches.
 
 The port's copy of heatmap_tpu/delta/retract.py; the counter-batches run
-on the port's cascade (``device``). A store with a temporal config is
-refused until ``temporal/`` is ported (ROADMAP Queue 1 item 5).
+on the port's cascade (``device``), one per temporal bucket on a store
+that pins a temporal config.
 
 The per-batch mechanism has existed since the journal landed: submit
 the same points with ``sign=-1`` and linearity cancels them exactly.
@@ -16,7 +16,7 @@ batches. The journal does: every entry stores its point columns
    counter entries subtract — re-running a retraction, or retracting
    after a partial one, never double-cancels);
 3. group surviving rows by the temporal bucket of their entry's
-   watermark (heatmap_tpu.temporal) and by column signature;
+   watermark (heatmap_tpu_torch.temporal) and by column signature;
 4. apply one ``sign=-1`` counter-batch per group with the group's
    watermark as an explicit override, so each cancellation lands in
    the SAME bucket as the rows it removes — all-time AND every
@@ -119,16 +119,15 @@ def retract_predicate(root: str, where: dict, *, config=None,
     horizon)."""
     from heatmap_tpu_torch.delta import (ColumnsSource, apply_batch,
                                          init_store)
+    from heatmap_tpu_torch.temporal import buckets as tb
 
     t0 = time.monotonic()
     init_store(root)
     if config is None:
         config = _config_from_current(root)
-    if read_current(root).get("temporal") is not None:
-        raise NotImplementedError(
-            f"retract({root}): the store pins a temporal config; its "
-            "bucket-aligned counter-batches wait for temporal/ (ROADMAP "
-            "Queue 1 item 5); use heatmap_tpu")
+    tcfg = read_current(root).get("temporal")
+    if tcfg is not None:
+        tcfg = tb.normalize_config(tcfg)
     journal = DeltaJournal(journal_dir(root))
     entries = journal.entries()
     # Net signed multiset per (bucket, column-signature) group.
@@ -148,7 +147,10 @@ def retract_predicate(root: str, where: dict, *, config=None,
         if not mask.any():
             continue
         wm = e.get("watermark")
-        bucket = None  # the temporal bucket; no temporal plane here
+        if tcfg is not None and wm is not None:
+            bucket = tb.bucket_of(float(wm), tcfg)[0]
+        else:
+            bucket = None
         sig = tuple(k for k in _ROW_COLS if cols.get(k) is not None)
         key = (bucket, sig)
         g = groups.setdefault(key, {"counts": {}, "watermark": None})

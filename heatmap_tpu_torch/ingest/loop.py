@@ -300,17 +300,65 @@ def _provisional_rows(store, cols, config, sign: int) -> dict:
     return out
 
 
-def _roll_windows(root: str, cache) -> int:
-    """Sliding-window invalidation on a bucket roll: 0 on a store with
-    no temporal config, as in the JAX loop. On one that has it the roll
-    needs ``temporal/`` (ROADMAP Queue 1 item 5) and raises."""
-    from heatmap_tpu_torch.delta.compact import read_current
+def _roll_windows(root: str, cache, edge_holder: list) -> int:
+    """Targeted sliding-window invalidation on a bucket roll.
 
-    if read_current(root).get("temporal") is None:
+    A ``?window=`` tile's population changes for exactly two reasons:
+    new points inside the window (refresh_serving already invalidates
+    those keys, window variants included) and old buckets RETIRING off
+    the window's trailing edge when the newest bucket edge advances.
+    This handles the second: when the reference edge moves, invalidate
+    precisely the retiring buckets' tile keys x the served window
+    params — every other cached entry (all-time, as_of, untouched
+    windows) survives. The retiring keys stay ``TileKeySet``s, tested
+    against the cache's own keys (``TileCache.invalidate_matching`` with
+    ``windows_only``), so the count is the JAX package's without
+    enumerating a bucket's keys.
+
+    Best-effort by design: a torn bucket here means those keys go
+    un-invalidated until their TTL, never a failed tick."""
+    try:
+        from heatmap_tpu_torch.temporal import buckets as tb
+        from heatmap_tpu_torch.temporal import fold as tfold
+        cfg = tfold.temporal_config(root)
+        if cfg is None:
+            return 0
+        ref = tfold.newest_edge(root, cfg)
+    except Exception:
         return 0
-    raise NotImplementedError(
-        f"{root}: the store pins a temporal config, whose window roll "
-        "needs temporal/: not ported yet (ROADMAP Queue 1 item 5)")
+    if ref is None:
+        return 0
+    prev = edge_holder[0] if edge_holder else None
+    edge_holder[:] = [ref]
+    if prev is None or ref <= prev:
+        return 0
+    params = cache.window_params() if cache is not None else ()
+    n = 0
+    retired = 0
+    if params:
+        from heatmap_tpu_torch.delta.compute import affected_tile_keys
+        from heatmap_tpu_torch.io.sinks import LevelArraysSink
+        windows = []
+        for p in params:
+            try:
+                windows.append(tb.parse_window(p, cfg))
+            except ValueError:
+                continue
+        dirs = tfold.retiring_dirs(root, prev, ref, windows)
+        retired = len(dirs)
+        keys = None
+        for d in dirs:
+            try:
+                got = affected_tile_keys(LevelArraysSink.load(d))
+            except Exception:
+                continue
+            keys = got if keys is None else keys | got
+        if keys:
+            n = cache.invalidate_matching(keys, params, windows_only=True)
+    obs.emit("bucket_roll", root=root, prev_ref=prev, ref=ref,
+             retired=retired, keys_invalidated=n,
+             windows=list(params))
+    return n
 
 
 def _event_watermark(cols) -> float | None:
@@ -352,6 +400,9 @@ def run_ingest(root: str, source, config=None, *,
     t_loop = time.monotonic()
     # Monotonic clock of the oldest live delta, for the age trigger.
     oldest_live: list = []
+    # Last-seen newest bucket edge (temporal plane): a roll past it
+    # retires window tiles via _roll_windows' targeted invalidation.
+    bucket_edge: list = []
     metrics_on = obs.metrics_enabled()
 
     def _tick(item, ctx: TickContext):
@@ -394,7 +445,7 @@ def run_ingest(root: str, source, config=None, *,
                     delta_mod.refresh_serving, result, store, cache,
                     site="ingest.publish", key=ctx.index)
             if cache is not None and not result.duplicate:
-                invalidated += _roll_windows(root, cache)
+                invalidated += _roll_windows(root, cache, bucket_edge)
             compacted = False
             if not result.duplicate:
                 if not oldest_live:

@@ -193,7 +193,7 @@ class LevelArraysSink:
     compaction sets both). ``tilefs`` also publishes the zero-copy
     ``tilefs-z*.bin`` mirrors the serving tier mmaps (``arrays-tilefs:``
     spec; heatmap_tpu_torch.tilefs). The ``arrays-synopsis:`` and
-    ``arrays-integral:`` sink specs wait for ROADMAP Queue 1 item 5.
+    ``arrays-integral:`` specs set ``synopses`` and ``integrals``.
     """
 
     path: str
@@ -397,12 +397,30 @@ class PNGTileSink:
         return count
 
 
+def per_process_sink_spec(spec: str, process_index: int) -> str:
+    """This process's sink spec for sharded multi-host egress: file
+    sinks get a ``.pNNN`` suffix, directory sinks a ``hostNNN/``
+    subdirectory, and ``memory:`` and ``cassandra:`` stay as they are
+    (the JAX package's derivation)."""
+    kind, _, rest = spec.partition(":")
+    tag = f"p{process_index:03d}"
+    if kind == "jsonl" or (not rest and spec.endswith((".jsonl", ".ndjson"))):
+        path = rest or spec
+        return f"jsonl:{path}.{tag}"
+    if kind in ("arrays", "arrays-parquet", "arrays-synopsis",
+                "arrays-integral", "arrays-tilefs", "dir"):
+        return f"{kind}:{os.path.join(rest, 'host' + f'{process_index:03d}')}"
+    if kind in ("memory", "cassandra"):
+        return spec
+    raise ValueError(f"unrecognized sink spec {spec!r}")
+
+
 #: Sink spec kinds the port opens, in help order.
-SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "arrays-tilefs", "dir",
-              "memory")
+SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "arrays-synopsis",
+              "arrays-integral", "arrays-tilefs", "dir", "memory")
 
 #: Sink kinds of the JAX package that the port does not open yet.
-UNPORTED_SINK_KINDS = ("arrays-synopsis", "arrays-integral", "cassandra")
+UNPORTED_SINK_KINDS = ("cassandra",)
 
 
 def validate_sink_spec(spec: str) -> str:
@@ -427,7 +445,9 @@ def validate_sink_spec(spec: str) -> str:
 
 def open_sink(spec: str):
     """Sink spec: ``memory:``, ``jsonl:PATH``, ``dir:PATH``, ``arrays:DIR``
-    (columnar per-level npz), ``arrays-parquet:DIR``, ``arrays-tilefs:DIR``
+    (columnar per-level npz), ``arrays-parquet:DIR``,
+    ``arrays-synopsis:DIR`` and ``arrays-integral:DIR`` (the npz levels
+    plus their synopses or summed-area tables), ``arrays-tilefs:DIR``
     (the npz levels plus their tilefs mirrors) or a bare ``.jsonl``
     path."""
     validate_sink_spec(spec)
@@ -442,6 +462,10 @@ def open_sink(spec: str):
         return LevelArraysSink(rest)
     if kind == "arrays-parquet":
         return LevelArraysSink(rest, format="parquet")
+    if kind == "arrays-synopsis":
+        return LevelArraysSink(rest, synopses=True)
+    if kind == "arrays-integral":
+        return LevelArraysSink(rest, integrals=True)
     if kind == "arrays-tilefs":
         return LevelArraysSink(rest, tilefs=True)
     return JSONLBlobSink(spec)

@@ -288,10 +288,12 @@ class TileCache:
         is not cached either."""
         return self.invalidate_matching(frozenset(keys))
 
-    def invalidate_matching(self, keys, window_params=()) -> int:
+    def invalidate_matching(self, keys, window_params=(),
+                            windows_only: bool = False) -> int:
         """Drop the entries ``invalidate_keys`` would drop for ``keys``
         plus their window variants (``key + ("w", param)`` for each
-        served ``param`` in ``window_params``), and return the same
+        served ``param`` in ``window_params``), or with ``windows_only``
+        the window variants alone (a bucket roll), and return the same
         count, without iterating ``keys``: the cache's own keys (bounded
         by its byte cap) are tested against ``keys`` by membership, so a
         set far larger than the cache (a delta's ``TileKeySet``) is
@@ -302,8 +304,10 @@ class TileCache:
 
         def hit(key) -> bool:
             if isinstance(key, tuple) and len(key) == 7 and key[5] == "w":
-                return key in keys or (key[6] in params and key[:5] in keys)
-            return key in keys
+                if key[6] in params and key[:5] in keys:
+                    return True
+                return not windows_only and key in keys
+            return not windows_only and key in keys
 
         with self._lock:
             for key, flight in self._flights.items():

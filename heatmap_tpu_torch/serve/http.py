@@ -2,10 +2,8 @@
 
 The port's copy of heatmap_tpu/serve/http.py for one process: every
 route answers with the JAX package's status, body and ETag over the
-same store. Temporal parameters (``?as_of=/window=/decay=`` tiles and
-``/query?op=topk_growth``) get the JAX package's 400s on a store with
-no temporal config and a 501 "not ported yet" on one that has it
-(``temporal/``, ROADMAP Queue 1 item 5).
+same store, temporal folds (``?as_of=/window=/decay=`` tiles and
+``/query?op=topk_growth``) included.
 
 Routes:
 
@@ -121,6 +119,13 @@ def _query_etag(body: bytes) -> str:
     return f'"q-{zlib.crc32(body):08x}"'
 
 
+def _temporal_etag(body: bytes) -> str:
+    # Temporal folds are a fourth namespace: an as_of/window tile must
+    # never revalidate against the all-time tile's ETag (same bytes at
+    # one instant is a coincidence, not an identity).
+    return f'"t-{zlib.crc32(body):08x}"'
+
+
 def _temporal_opt(query: str) -> dict | None:
     """Raw ``?as_of=/window=/decay=`` values (last-wins), or None when
     the request has no temporal params. The query string still never
@@ -135,20 +140,6 @@ def _temporal_opt(query: str) -> dict | None:
         if vals:
             out[name] = vals[-1]
     return out or None
-
-
-#: ``m`` default of ``op=topk_growth`` (heatmap_tpu/temporal/timequery.py
-#: ``DEFAULT_COEFFS``).
-_GROWTH_DEFAULT_COEFFS = 8
-
-
-def _temporal_config(root: str):
-    """The store's pinned temporal config (None without one): what
-    heatmap_tpu's ``temporal.fold.temporal_config`` reads, before its
-    normalisation."""
-    from heatmap_tpu_torch.delta.compact import read_current
-
-    return read_current(root).get("temporal")
 
 
 def local_series_response(query: str):
@@ -666,35 +657,38 @@ class ServeApp:
         return Response(200, "application/json", body, etag, "query",
                         cache, headers=extra)
 
-    def _temporal_refusal(self, route: str):
-        """The answer to a temporal request on a store that HAS a
-        temporal config: folds over buckets are not ported yet."""
-        body = json.dumps({
-            "error": "not ported yet",
-            "detail": "temporal queries (as_of, window, decay, "
-                      "topk_growth) need temporal/: ROADMAP Queue 1 "
-                      "item 5"}).encode()
-        return 501, "application/json", body, None, route, None
-
     def _handle_growth_query(self, params, if_none_match):
-        """``GET /query?op=topk_growth&window=1w``: the JAX package's
-        parameter checks and 400s, then a 501 on a store with a
-        temporal config (the Haar growth evaluator is ``temporal/``,
-        not ported yet)."""
+        """``GET /query?op=topk_growth&window=1w``: top-k cells by
+        growth over the trailing window, from Haar wavelet histograms
+        over the per-bucket cell series (temporal/timequery.py). The
+        answer is approximate with a SOUND stamped bound: the achieved
+        error rides ``X-Heatmap-Query-Error`` exactly like the synopsis
+        /query path, and the oracle test pins ``|approx - exact| <=
+        bound`` cell by cell. Cached under the fold selection token, so
+        results survive until the underlying buckets actually change."""
+        from heatmap_tpu_torch.temporal import buckets as tb
+        from heatmap_tpu_torch.temporal import fold as tfold
+        from heatmap_tpu_torch.temporal import timequery
+        from heatmap_tpu_torch.temporal.metrics import TEMPORAL_REQUESTS
+
+        t0 = time.monotonic()
+
         def _param(name, default=None):
             vals = params.get(name)
             return vals[-1] if vals else default
 
         try:
+            layer_name = urllib.parse.unquote(_param("layer", "default"))
             z_raw = _param("z")
             if z_raw is None:
                 raise ValueError(
                     "missing required parameter z (source grid zoom)")
             try:
-                int(z_raw)
+                z = int(z_raw)
             except ValueError:
                 raise ValueError(f"z must be an integer zoom, got {z_raw!r}")
-            if _param("window") is None:
+            window_raw = _param("window")
+            if window_raw is None:
                 raise ValueError("op=topk_growth requires window= "
                                  "(1h|1d|1w or seconds)")
             try:
@@ -704,7 +698,7 @@ class ServeApp:
             if k < 1:
                 raise ValueError(f"k must be >= 1, got {k}")
             try:
-                coeffs = int(_param("m", str(_GROWTH_DEFAULT_COEFFS)))
+                coeffs = int(_param("m", str(timequery.DEFAULT_COEFFS)))
             except ValueError:
                 raise ValueError(
                     f"m must be an integer coefficient budget, "
@@ -716,21 +710,90 @@ class ServeApp:
                 raise ValueError(
                     "op=topk_growth needs a delta-shaped store "
                     f"(store spec is {self.store.spec!r})")
-            if _temporal_config(root) is None:
+            cfg = tfold.temporal_config(root)
+            if cfg is None:
                 raise ValueError(
                     "store has no temporal config — run a bucketed "
                     "compaction (docs/temporal.md) first")
+            window = tb.parse_window(window_raw, cfg)
         except ValueError as e:
             body = json.dumps({"error": "bad query",
                                "detail": str(e)}).encode()
             return 400, "application/json", body, None, "query", None
-        return self._temporal_refusal("query")
+        layer = self.layer(layer_name)
+        if layer is None:
+            body = json.dumps({"error": "unknown layer",
+                               "layers": self.layer_names()}).encode()
+            return 404, "application/json", body, None, "query", None
+        # select_fold is metadata-only and deterministic, so this token
+        # is the same one the evaluator will compute — a valid pre-
+        # render cache key that retires exactly when buckets change.
+        sel = tfold.select_fold(root, window=window)
+        key = ("query", layer_name, z, "growth", window_raw, k, coeffs,
+               sel.token)
+
+        def _evaluate() -> bytes:
+            doc = timequery.topk_growth(
+                root, user=layer.user, timespan=layer.timespan,
+                zoom=z, window=window, k=k, coeffs=coeffs)
+            doc["layer"] = layer_name
+            return json.dumps(doc).encode()
+
+        try:
+            body, hit = self.cache.get_or_render(
+                key, self.store.generation, _evaluate, fmt="query",
+                stale_if_error=True)
+        except Exception as e:
+            self._degrade("render", repr(e))
+            payload = json.dumps({"error": "query failed",
+                                  "detail": repr(e)}).encode()
+            return 503, "application/json", payload, None, "query", None
+        if hit == TileCache.STALE:
+            self._degrade("render", "serving stale query results")
+            cache = "stale"
+        else:
+            if hit is False:
+                self._recover("render")
+            cache = "hit" if hit else "miss"
+        doc = json.loads(body)
+        ms = round((time.monotonic() - t0) * 1e3, 3)
+        if obs.metrics_enabled():
+            analytics_metrics.QUERY_SECONDS.observe(
+                time.monotonic() - t0, op="topk_growth")
+            TEMPORAL_REQUESTS.inc(mode="growth")
+        obs.emit("query_served", op="topk_growth", zoom=int(z),
+                 path="temporal", layer=layer_name, k=k, ms=ms,
+                 window=window_raw, slots=int(doc.get("slots", 0)),
+                 max_err=float(doc.get("max_err", 0.0)),
+                 cells=len(doc.get("cells", [])))
+        extra = {"X-Heatmap-Query-Error":
+                 f"max_err={doc.get('max_err', 0.0):.6g}"}
+        etag = _query_etag(body)
+        if if_none_match is not None and etag in if_none_match:
+            return Response(304, "application/json", b"", etag, "query",
+                            cache, headers=extra)
+        return Response(200, "application/json", body, etag, "query",
+                        cache, headers=extra)
 
     def _handle_temporal_tile(self, m, if_none_match, temporal):
-        """``?as_of=/window=/decay=`` tiles: the JAX package's 404 and
-        400s, then a 501 on a store with a temporal config (partial-
-        pyramid folds are ``temporal/``, not ported yet)."""
+        """``?as_of=/window=/decay=`` tiles: render from a partial-
+        pyramid fold (heatmap_tpu_torch.temporal) instead of the all-time
+        index. Cache keys carry the bucket cut: undecayed window tiles
+        use the STABLE key ``(..., "w", param)`` so delta refreshes and
+        bucket rolls can invalidate exactly the dirtied entries, while
+        as_of/decay tiles fold the selection token into the key —
+        history below a cut is immutable, so those entries survive
+        unrelated ingest structurally. A torn bucket surfaces inside
+        the render and the stale-if-error cache serves last-good bytes;
+        the all-time path never reads buckets and is unaffected."""
+        from heatmap_tpu_torch.temporal import buckets as tb
+        from heatmap_tpu_torch.temporal import fold as tfold
+        from heatmap_tpu_torch.temporal.metrics import TEMPORAL_REQUESTS
+
+        t0 = time.monotonic()
+        layer_name = urllib.parse.unquote(m["layer"])
         z, x, y = int(m["z"]), int(m["x"]), int(m["y"])
+        fmt = m["fmt"]
         if not (0 <= x < (1 << z) and 0 <= y < (1 << z)):
             body = json.dumps({"error": "off-grid tile",
                                "layers": self.layer_names()}).encode()
@@ -741,16 +804,78 @@ class ServeApp:
                 raise ValueError(
                     "temporal params need a delta-shaped store "
                     f"(store spec is {self.store.spec!r})")
-            if _temporal_config(root) is None:
+            cfg = tfold.temporal_config(root)
+            if cfg is None:
                 raise ValueError(
                     "store has no temporal config — run a bucketed "
                     "compaction (docs/temporal.md) before temporal "
                     "queries")
+            as_of = (float(temporal["as_of"])
+                     if "as_of" in temporal else None)
+            window = (tb.parse_window(temporal["window"], cfg)
+                      if "window" in temporal else None)
+            decay = (tb.parse_window(temporal["decay"], cfg)
+                     if "decay" in temporal else None)
         except (ValueError, TypeError) as e:
             body = json.dumps({"error": "bad temporal query",
                                "detail": str(e)}).encode()
             return 400, "application/json", body, None, "tiles", None
-        return self._temporal_refusal("tiles")
+        mode = ("as_of" if as_of is not None
+                else "decay" if decay is not None else "window")
+        if mode == "window" and decay is None and as_of is None:
+            key = (layer_name, z, x, y, fmt, "w", temporal["window"])
+            self.cache.note_window_param(temporal["window"])
+        else:
+            # select_fold reads only CURRENT + manifest + journal meta
+            # (never bucket bytes), so keying cannot trip on a torn
+            # bucket — that surfaces inside the render below, where
+            # stale-if-error can absorb it.
+            sel = tfold.select_fold(root, as_of=as_of, window=window,
+                                    decay=decay)
+            key = (layer_name, z, x, y, fmt, "t", sel.token)
+        render = tile_png_bytes if fmt == "png" else tile_json_bytes
+
+        def render_fn():
+            layers, _token = self.store.temporal_view(
+                as_of=as_of, window=window, decay=decay)
+            layer = layers.get(layer_name)
+            if layer is None:
+                return None  # no data for this layer inside the cut
+            return self._render(render, layer, z, x, y, fmt)
+
+        try:
+            body, hit = self.cache.get_or_render(
+                key, self.store.generation, render_fn,
+                fmt=fmt, stale_if_error=True)
+        except Exception as e:
+            self._degrade("render", repr(e))
+            payload = json.dumps({"error": "render failed",
+                                  "detail": repr(e)}).encode()
+            return 503, "application/json", payload, None, "tiles", None
+        if hit == TileCache.STALE:
+            self._degrade("render", "serving stale tiles")
+            cache = "stale"
+        else:
+            if hit is False:
+                self._recover("render")
+            cache = "hit" if hit else "miss"
+        if body is None:
+            payload = json.dumps({"error": "empty tile"}).encode()
+            return 404, "application/json", payload, None, "tiles", cache
+        if obs.metrics_enabled():
+            TEMPORAL_REQUESTS.inc(mode=mode)
+        obs.emit("temporal_served", layer=layer_name, zoom=int(z),
+                 mode=mode, cache=cache,
+                 ms=round((time.monotonic() - t0) * 1e3, 3),
+                 **{k: temporal[k] for k in ("as_of", "window", "decay")
+                    if k in temporal})
+        extra = {"X-Heatmap-Temporal": mode}
+        etag = _temporal_etag(body)
+        if if_none_match is not None and etag in if_none_match:
+            return Response(304, _CONTENT_TYPES[fmt], b"", etag, "tiles",
+                            cache, headers=extra)
+        return Response(200, _CONTENT_TYPES[fmt], body, etag, "tiles",
+                        cache, headers=extra)
 
     def _handle_tile(self, m, if_none_match, synopsis=False,
                      temporal=None):

@@ -2,8 +2,8 @@
 
 The port's copy of heatmap_tpu/serve/store.py: for the same artifact it
 builds the same index (same Morton levels, same float summation order),
-so every served byte matches the JAX package's. Temporal fold views wait
-for ``temporal/`` (ROADMAP Queue 1 item 5): the serve tier refuses them.
+so every served byte matches the JAX package's, temporal fold views
+(``temporal_view``) included.
 
 Loads any batch egress artifact the job side writes —
 
@@ -326,6 +326,11 @@ class TileStore:
         # renders survive compaction but can never outlive an apply.
         self.delta_epoch = 0
         self._layers: dict[str, Layer] = {}
+        # Temporal fold views (heatmap_tpu_torch.temporal), keyed by fold
+        # token: tiny LRU — each view is a full layer index over the
+        # cut, and distinct live cuts are few (the active windows plus
+        # whatever as_of epochs clients are replaying).
+        self._temporal_views: dict = {}
         self.reload(_initial=True)
 
     # -- queries -----------------------------------------------------------
@@ -385,6 +390,9 @@ class TileStore:
             self.synopsis_epoch += 1
             return self.generation
 
+    #: Max distinct fold views kept per store (LRU).
+    TEMPORAL_VIEW_CAP = 8
+
     def temporal_root(self) -> str | None:
         """The delta-store root behind this store, if its spec has one
         (delta: always; tilefs: when the path is a delta-shaped root).
@@ -396,6 +404,50 @@ class TileStore:
                 os.path.join(self.path, "CURRENT")):
             return self.path
         return None
+
+    def temporal_view(self, *, as_of: float | None = None,
+                      window: float | None = None,
+                      decay: float | None = None):
+        """Layers for a temporal cut: fold the selected buckets + live
+        deltas (heatmap_tpu_torch.temporal.fold) and index them exactly like
+        the all-time build — same Morton levels, same naming — so the
+        render path is unchanged downstream of layer lookup.
+
+        Returns ``(layers, token)``; the token names the fold inputs
+        and is the cache-key component for as_of/decay tiles. Views are
+        memoised per (token, generation): history below a cut is
+        immutable under ingest, so a view keeps serving until the cut
+        itself changes (retraction/compaction below it, or a reload).
+        Raises ``ValueError`` for a store with no temporal config and
+        ``TornBucketError`` when a selected bucket is quarantined —
+        the serve tier's stale-if-error path takes it from there."""
+        root = self.temporal_root()
+        if root is None:
+            raise ValueError(
+                f"store {self.spec} has no delta root — temporal "
+                "queries need a delta-shaped store")
+        from heatmap_tpu_torch.temporal import fold as tfold
+        from heatmap_tpu_torch.temporal.metrics import TEMPORAL_FOLD_SECONDS
+
+        sel = tfold.select_fold(root, as_of=as_of, window=window,
+                                decay=decay)
+        key = (sel.token, self.generation)
+        with self._lock:
+            view = self._temporal_views.get(key)
+            if view is not None:
+                return view
+        t0 = time.monotonic()
+        levels = tfold.fold_levels(root, sel, decay_half_life=decay)
+        by_pair = self._build_from_levels(_finalized_to_loaded(levels))
+        named = self._name_layers(by_pair, strict=False)
+        TEMPORAL_FOLD_SECONDS.observe(time.monotonic() - t0)
+        view = (named, sel.token)
+        with self._lock:
+            self._temporal_views[key] = view
+            while len(self._temporal_views) > self.TEMPORAL_VIEW_CAP:
+                self._temporal_views.pop(
+                    next(iter(self._temporal_views)))
+        return view
 
     def _build(self) -> dict[str, Layer]:
         syn_dir: str | None = None

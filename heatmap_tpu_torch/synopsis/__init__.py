@@ -6,7 +6,8 @@ with the achieved L-inf error stamped into the artifact (arxiv
 1110.6649; docs/synopsis.md). Compaction of a delta store writes these
 artifacts beside the merged base.
 
-- transform.py  the 2D Haar transform and its inverse (numpy).
+- transform.py  the 2D and 1D Haar transforms and their inverses
+                (numpy), and the torch twins of the 2D forward.
 - build.py      top-B selection, error stamping, synopsis-z*.npz
                 artifact read/write/verify.
 - metrics.py    obs registry handles.
@@ -18,5 +19,6 @@ from heatmap_tpu_torch.synopsis.build import (  # noqa: F401
     write_synopses,
 )
 from heatmap_tpu_torch.synopsis.transform import (  # noqa: F401
-    grid_from_rows_np, haar2d_np, inv_haar2d_np,
+    grid_from_rows_np, grid_from_rows_torch, haar2d_np, haar2d_torch,
+    inv_haar2d_np,
 )

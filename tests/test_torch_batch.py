@@ -245,7 +245,8 @@ def test_import_hygiene():
          "heatmap_tpu_torch.analytics.query, heatmap_tpu_torch.cli, "
          "heatmap_tpu_torch.parallel.partition, heatmap_tpu_torch.writeplane, "
          "heatmap_tpu_torch.serve.router, heatmap_tpu_torch.serve.fleet, "
-         "sys; "
+         "heatmap_tpu_torch.temporal, heatmap_tpu_torch.temporal.timequery, "
+         "heatmap_tpu_torch.temporal.metrics, sys; "
          "assert 'jax' not in sys.modules, 'jax imported'; "
          "assert 'heatmap_tpu' not in sys.modules, 'heatmap_tpu imported'"],
         cwd=REPO, capture_output=True, text=True, timeout=120)

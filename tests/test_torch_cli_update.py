@@ -1,8 +1,9 @@
 """The port's ``update`` and ``retract`` commands on the CPU against the
 JAX CLI's: the same stdout summaries and the same store, with and
 without the telemetry flags; ``--base`` adoption; the operator errors;
-and the parse-time refusals (exit 2) of the JAX flags whose modules wait
-for a later slice."""
+the parse-time refusals (exit 2) of the JAX flags whose modules wait for
+a later slice; and the ``--bucket-*`` flags, which parse as the JAX
+CLI's."""
 
 import json
 import os
@@ -201,7 +202,16 @@ BASE_ARGV = {
 ])
 def test_unported_flags_refused_at_parse_time(capsys, cmd, flag, value,
                                               item):
+    """Values that need ``parallel/`` (item 7) exit 2 at parse time. The
+    ``--bucket-*`` flags (temporal/, ported) parse to
+    the JAX parser's values."""
     base = BASE_ARGV[cmd]
+    if item == 5:
+        args = tcli.build_parser().parse_args([*base, flag, value])
+        jargs = jcli.build_parser().parse_args([*base, flag, value])
+        dest = flag[2:].replace("-", "_")
+        assert getattr(args, dest) == getattr(jargs, dest) == float(value)
+        return
     with pytest.raises(SystemExit) as exc:
         tcli.build_parser().parse_args([*base, flag, value])
     assert exc.value.code == 2

@@ -33,6 +33,7 @@ from heatmap_tpu_torch.delta.compact import (config_fingerprint,
 from heatmap_tpu_torch.io import LevelArraysSink, SyntheticSource
 from heatmap_tpu_torch.pipeline import batch as tbatch
 from heatmap_tpu_torch.synopsis import build as synopsis
+from heatmap_tpu_torch.temporal import fold as tfold
 from heatmap_tpu_torch.utils.checkpoint import load_checkpoint
 
 CFG = dict(detail_zoom=12, timespans=("alltime", "month"))
@@ -380,21 +381,32 @@ def _store(tmp_path):
 
 
 def test_refusals_of_later_slices(tmp_path):
-    """A temporal store raises NotImplementedError naming its ROADMAP
-    item. A tilefs base and serving refresh, ported since, work: a torn
-    mirror is quarantined by the sweep, and a duplicate result publishes
+    """What earlier slices refused now works as in the JAX package. A
+    store that pins a temporal config compacts into buckets and retracts
+    per bucket, with the JAX store's bytes (temporal/); a stray buckets/
+    dir in a base without a manifest is quarantined as an orphan by the
+    sweep; a tilefs base and serving refresh work: a torn mirror is
+    quarantined by the sweep, and a duplicate result publishes
     nothing."""
     root = _store(tmp_path)
     dup = delta.DeltaResult(epoch=1, points=0, sign=1, duplicate=True,
                             artifact=None, rows=0, seconds=0.0)
     assert delta.refresh_serving(dup, None) == 0
+    jroot = str(tmp_path / "jstore")
+    jdelta.apply_batch(jroot, jdelta.ColumnsSource(_cols(0, 800)),
+                       _cfg("jax"))
+    for r in (root, jroot):
+        tfold.ensure_config(r, width=3600.0)
+    comps = [delta.compact(root), jdelta.compact(jroot)]
+    assert [c["buckets"] for c in comps] == [1, 1]
+    sums = [delta.retract_predicate(root, {"user_id": "user-1"},
+                                    device="cpu"),
+            jdelta.retract_predicate(jroot, {"user_id": "user-1"})]
+    assert sums[0]["rows"] == sums[1]["rows"] > 0
+    assert sums[0]["batches"] == sums[1]["batches"] == 1
+    assert _tree(root) == _tree(jroot)
     cur = read_current(root)
-    write_current(root, {**cur, "temporal": {"width": 3600.0}})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        delta.compact(root)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        delta.retract_predicate(root, {"user_id": "user-1"}, device="cpu")
-    write_current(root, cur)
+    write_current(root, {k: v for k, v in cur.items() if k != "temporal"})
     delta.compact(root)
     base = os.path.join(root, read_current(root)["base"])
     with open(os.path.join(base, "tilefs-z08.bin"), "wb") as f:
@@ -406,9 +418,13 @@ def test_refusals_of_later_slices(tmp_path):
                for n in os.listdir(os.path.join(root, "quarantine")))
     assert delta.compact(root)["status"] == "ok"
     base = os.path.join(root, read_current(root)["base"])
-    os.mkdir(os.path.join(base, "buckets"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        delta.sweep(root)
+    os.makedirs(os.path.join(base, "buckets", "bucket-0-3600"))
+    jbase = os.path.join(jroot, read_current(jroot)["base"])
+    os.makedirs(os.path.join(jbase, "buckets", "bucket-0-3600"))
+    for sweep, r in ((delta.sweep, root), (jrecover.sweep, jroot)):
+        items = sweep(r)["quarantined"]
+        assert [(i["reason"], i["kind"]) for i in items] == [
+            ("orphan_bucket", "temporal_bucket")]
 
 
 def test_apply_needs_the_card_unless_asked(tmp_path, monkeypatch):

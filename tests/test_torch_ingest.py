@@ -407,9 +407,13 @@ def test_age_triggered_compaction(tmp_path):
 
 
 def test_ingest_publishes_ticks_and_refuses_a_temporal_roll(tmp_path):
-    """A store and cache take every applied tick's publish. What stays
-    refused is the window roll of a store that pins a temporal config
-    (ROADMAP Queue 1 item 5)."""
+    """A store and cache take every applied tick's publish. On a store
+    that pins a temporal config (ported since: temporal/) each tick's
+    window roll drops exactly the retiring buckets' window tiles, the
+    count and the store of the JAX loop over the same ticks."""
+    from heatmap_tpu.serve import ServeApp as JServeApp
+    from heatmap_tpu.serve import TileCache as JTileCache
+    from heatmap_tpu.serve import TileStore as JTileStore
     from heatmap_tpu_torch.delta.compact import read_current, write_current
     from heatmap_tpu_torch.serve import ServeApp, TileCache, TileStore
 
@@ -431,11 +435,36 @@ def test_ingest_publishes_ticks_and_refuses_a_temporal_roll(tmp_path):
                                   micro_batch=300, queue_depth=None),
                               store=app.store, cache=app.cache)
     assert stats.ticks == 2 and stats.keys_invalidated == 10
-    write_current(root, {**read_current(root), "temporal": {"width": 60}})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ingest.run_ingest(root, ColumnsSource(_cols(50, seed=5)),
-                          _cfg("torch"), device="cpu",
-                          store=app.store, cache=app.cache)
+    jroot = str(tmp_path / "j")
+    jingest.run_ingest(jroot, JColumnsSource(_cols(300)), _cfg("jax"),
+                       ingest=jingest.IngestConfig(micro_batch=300,
+                                                   queue_depth=None))
+    jingest.run_ingest(jroot, JColumnsSource(_cols(600, seed=4)),
+                       _cfg("jax"), ingest=jingest.IngestConfig(
+                           micro_batch=300, queue_depth=None))
+    japp = JServeApp(JTileStore(f"delta:{jroot}"), JTileCache())
+    tiles = []
+    for z in range(5):
+        _, y, x = parse_tile_id(tile_id_from_lat_long(37.1, -122.1, z))
+        tiles.append(f"/tiles/default/{z}/{x}/{y}.json?window=60")
+    counts = []
+    for r, a, run, src in ((root, app, ingest.run_ingest, ColumnsSource),
+                           (jroot, japp, jingest.run_ingest,
+                            JColumnsSource)):
+        write_current(r, {**read_current(r), "temporal": {"width": 60}})
+        a.store.reload()
+        for t in tiles:
+            assert a.handle("GET", t)[0] == 200
+        kw = {"device": "cpu"} if a is app else {}
+        mod = ingest if a is app else jingest
+        st = run(r, src(_cols(300, seed=5, t0=1.5e9 + 700)),
+                 _cfg("torch" if a is app else "jax"),
+                 ingest=mod.IngestConfig(micro_batch=100, queue_depth=None),
+                 store=a.store, cache=a.cache, **kw)
+        counts.append((st.ticks, st.keys_invalidated))
+    assert counts[0] == counts[1]
+    assert counts[0][1] > 0
+    assert _tree(root) == _tree(jroot)
 
 
 def test_ingest_needs_the_card_unless_asked(tmp_path, monkeypatch):
@@ -614,6 +643,17 @@ def test_ingest_command_telemetry_keeps_the_store(tmp_path, capsys):
     ("--dispatch", "shard_map", 7),
 ])
 def test_ingest_unported_flags_refused(capsys, flag, value, item):
+    """Values that need ``parallel/`` (item 7) exit 2 at parse time; the
+    ``--bucket-*`` flags (temporal/, ported) parse to the JAX
+    parser's values."""
+    if item == 5:
+        argv = ["ingest", "--journal", "R", "--input", "synthetic:10", flag,
+                value]
+        dest = flag[2:].replace("-", "_")
+        assert (getattr(tcli.build_parser().parse_args(argv), dest)
+                == getattr(jcli.build_parser().parse_args(argv), dest)
+                == float(value))
+        return
     with pytest.raises(SystemExit) as exc:
         tcli.build_parser().parse_args(
             ["ingest", "--journal", "R", "--input", "synthetic:10", flag,

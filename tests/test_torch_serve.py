@@ -616,30 +616,37 @@ def test_level_contract_matches_jax():
 
 def test_temporal_params_on_a_temporal_store_are_refused(stores, tmp_path):
     """On a store that pins a temporal config, temporal tile and query
-    parameters answer 501 "not ported yet" naming the ROADMAP item; the
+    parameters (ported since: temporal/) answer with the JAX app's
+    status, body, ETag and headers over the same store, before and after
+    a bucketed compaction; malformed ones keep the JAX 400s, and the
     all-time tiles still answer as the JAX package's."""
     import shutil
 
-    from heatmap_tpu_torch.delta.compact import read_current, write_current
+    from heatmap_tpu_torch.temporal import fold as tfold
 
     jspec, tspec = stores["delta"]
     root = str(tmp_path / "temporal")
+    jroot = str(tmp_path / "jtemporal")
     shutil.copytree(tspec.partition(":")[2], root)
-    write_current(root, {**read_current(root), "temporal": {"width": 3600}})
-    tapp = TApp(TStore(f"delta:{root}"), TCache())
-    japp = JApp(JStore(jspec), JCache())
-    for path in ("/tiles/default/2/1/1.png?window=1h",
-                 "/tiles/default/2/1/1.json?as_of=5&decay=1d",
-                 "/query?op=topk_growth&z=6&window=1h"):
-        status, ctype, body, etag, route, cache = tapp.handle("GET", path)
-        assert (status, ctype, etag, cache) == (501, "application/json",
-                                                None, None)
-        assert "not ported yet" in json.loads(body)["error"]
-        assert "Queue 1 item 5" in json.loads(body)["detail"]
-    # Malformed temporal queries keep the JAX 400s before the refusal.
-    status = tapp.handle("GET", "/query?op=topk_growth&window=1h")[0]
-    assert status == japp.handle("GET", "/query?op=topk_growth&window=1h")[0]
-    assert status == 400
-    for path in _paths(japp)[:10]:
-        a, b = japp.handle("GET", path), tapp.handle("GET", path)
-        assert (a[0], a[2], a[3]) == (b[0], b[2], b[3]), path
+    shutil.copytree(jspec.partition(":")[2], jroot)
+    for r in (root, jroot):
+        tfold.ensure_config(r, width=3600)
+    paths = ["/tiles/default/2/1/1.png?window=1h",
+             "/tiles/default/2/1/1.json?as_of=5&decay=1d",
+             "/tiles/default/2/1/1.json?as_of=1e12",
+             "/query?op=topk_growth&z=6&window=1h",
+             "/query?op=topk_growth&window=1h",
+             "/tiles/default/2/1/1.json?window=bogus"]
+    for step in ("live", "compacted"):
+        if step == "compacted":
+            assert (tdelta.compact(root)["buckets"]
+                    == jdelta.compact(jroot)["buckets"])
+        tapp = TApp(TStore(f"delta:{root}"), TCache())
+        japp = JApp(JStore(f"delta:{jroot}"), JCache())
+        for path in paths + _paths(japp)[:10]:
+            a, b = japp.handle("GET", path), tapp.handle("GET", path)
+            assert (a[0], a[1], a[2], a[3], a[5]) == (
+                b[0], b[1], b[2], b[3], b[5]), (step, path)
+            assert getattr(a, "headers", None) == getattr(
+                b, "headers", None), (step, path)
+        assert tapp.handle("GET", paths[4])[0] == 400
