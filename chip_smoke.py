@@ -52,8 +52,8 @@ just before it and read just after:
   through a CSV (bit-equal to the uninterrupted run); each against the
   same run on the CPU (bit-equal without decay, within STREAM_RTOL with
   it), and a twin of ``tools/bench_stream.py`` per binning backend;
-- the delta store through ``update`` and ``retract`` (a 1M-point base,
-  262,144-point increments, a duplicate, retractions, a compaction),
+- the delta store through ``update`` and ``retract`` (a 524,288-point
+  base, 131,072-point increments, a duplicate, retractions, a compaction),
   checked against a one-shot run over the surviving points and against
   the same sequence on the CPU (16 segment-reduce launches per applied
   batch);
@@ -81,7 +81,7 @@ just before it and read just after:
   process, tiles through the router equal to a single-process app's, a
   child SIGKILLed mid-list (no 500; restarted and back on the ring), and
   no process of the fleet holding a CUDA context;
-- the temporal plane: ``update --bucket-width 3600`` over a 524,288-point
+- the temporal plane: ``update --bucket-width 3600`` over a 262,144-point
   base and four 65,536-point increments stamped into separate hours, two
   bucketed compactions (the manifest against the bucket ladder), ``retract
   --where`` landing one counter-batch per bucket, ``serve`` as a process
@@ -94,6 +94,20 @@ just before it and read just after:
   tiles (16 segment-reduce launches per applied batch);
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
+- the reference's own ends: ``CassandraSource`` over a stand-in
+  ``rhom.locations`` of 1,048,576 rows (64 token ranges), ``run_job`` at
+  the default z21 -> z6 cascade and ``CassandraBlobSink`` into the
+  stand-in's ``rhom.heatmaps``, byte-equal to the plain scatter
+  cascade over the same columns through ``memory:`` (16 segment-reduce
+  launches, each held to the plain version), its rows counted in
+  ``source_rows_read_total``, two hosts' shard views, a range re-read,
+  a CosmosDB stand-in of 8 partition-key ranges and a run retried past
+  a ``source.read`` fault, each equal;
+- the bench-tool twins (``heatmap_tpu_torch.tools``): ``bench_job`` as
+  a process (its blob count equal to the same job run here),
+  ``bench_delta`` and ``bench_ingest`` (exact and bucketed padding
+  applying the same points), each record with the JAX tool's keys and
+  each segment-reduce launch made here held to the plain version;
 
 and the Gaussian splat's convolutions on the card against the CPU.
 
@@ -165,17 +179,18 @@ N_TILES = 4_000_000
 #: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
 #: tests, at their sizes, hold 1e-5.
 FRACTIONAL_RTOL = 1e-4
-#: The delta phase: a base of 1M points, increments of 262,144 points
-#: (seeds 1-4), the user a predicate retraction removes; and the small
-#: sequence (a 50k base with 8,192-point increments: 200k until the
+#: The delta phase: a base of 524,288 points, increments of 131,072
+#: points (seeds 1-4), the user a predicate retraction removes; and the
+#: small sequence (a 50k base with 8,192-point increments: 200k until the
 #: temporal phase came, 100k with 16,384 until the parallel phase came)
 #: run on the card and on the CPU. The base is also the ingest
 #: phase's (b) store and the serve phase's large store. (The default
 #: job's 4M points until the write-plane and fleet phases came, then
-#: 2M until the temporal phase came; halved each time to keep the
-#: smoke within its time.)
-N_DELTA_BASE = 1_000_000
-N_DELTA_INC = 1 << 18
+#: 2M until the temporal phase came, then 1M with 262,144-point
+#: increments until the Cassandra and tools phases came; halved each
+#: time to keep the smoke within its time.)
+N_DELTA_BASE = 1 << 19
+N_DELTA_INC = 1 << 17
 N_DELTA_SMALL_BASE = 50_000
 N_DELTA_SMALL_INC = 1 << 13
 DELTA_USER = "user-3"
@@ -260,7 +275,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: ``as_of``/``decay`` request read every entry's point payload, the
 #: base's among them). Four increments (one an hour over hours 1-15
 #: until the smoke's time forced the cut; the base 1M points and the
-#: increments 131,072 until the parallel phase came), placed so that
+#: increments 131,072 until the parallel phase came, the base 524,288
+#: until the Cassandra and tools phases came), placed so that
 #: the compactions
 #: still coarsen hours 0 and 2 into one tier-1 bucket. TEMPORAL_T0 is a
 #: multiple of
@@ -278,7 +294,7 @@ FLEET_RESTART_WAIT_S = 120.0
 #: TEMPORAL_ROLL_TILES populated tiles (and a sixth of that empty) served
 #: in ``?window=1h``.
 TEMPORAL_T0 = 1_700_121_600
-N_TEMPORAL_BASE = 1 << 19
+N_TEMPORAL_BASE = 1 << 18
 N_TEMPORAL_INC = 1 << 16
 TEMPORAL_HOURS = (2, 4, 9)
 TEMPORAL_LATE_HOURS = (11,)
@@ -377,6 +393,43 @@ def assert_bit_equal(got, want, what):
         assert torch.equal(g, w), what
 
 
+@contextlib.contextmanager
+def segment_calls_held_to_plain(what):
+    """Hold every segment-reduce launch of the path run inside against
+    the plain version, bit for bit, at the shapes and on the inputs that
+    the path gives the kernel. Where the wrapper launches, each call's
+    keys, weights and outputs are kept (references: no copy, no sync,
+    no allocation on the path, no change to the launch count); after
+    the body, each goes through ``sparse_partitioned._plain``. The path
+    writes none of them in place; a write would show here as a
+    mismatch, never hide one. Returns the list of checked calls."""
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+
+    launch = sp._launch
+    calls, checked = [], []
+
+    def recorded(keys, capacity, sentinel, shift, weights, weight_bound):
+        got = launch(keys, capacity, sentinel, shift, weights, weight_bound)
+        calls.append((keys, capacity, sentinel, shift, weights,
+                      weight_bound, got))
+        return got
+
+    sp._launch = recorded
+    try:
+        yield checked
+    finally:
+        sp._launch = launch
+    torch.cuda.synchronize()
+    for i, (keys, capacity, sentinel, shift, weights, bound, got) in \
+            enumerate(calls):
+        want = sp._plain(keys, capacity, sentinel, shift, weights, bound)
+        assert_bit_equal(got, want, f"{what}: segment-reduce call {i} "
+                         f"(n={keys.shape[0]}, shift={shift})")
+        checked.append({"n": int(keys.shape[0]), "capacity": capacity,
+                        "shift": shift, "weighted": weights is not None})
+    del calls
+
+
 class ValuedSource:
     """The synthetic stream plus an integer ``value`` column in
     [0, WEIGHT_BOUND], made from the seed."""
@@ -395,17 +448,18 @@ class ValuedSource:
             yield b
 
 
-def main_path_keys(n, dev):
+def main_path_keys(n, dev, seed=0):
     """The sorted composite keys that the default job's cascade sorts
-    (the segment reduce's input at its main-path shape), and the
-    ingested columns."""
+    over ``SyntheticSource(n, seed)`` (the segment reduce's input at its
+    main-path shape), the ingested columns and the cascade's slots."""
     from heatmap_tpu_torch.io import SyntheticSource
     from heatmap_tpu_torch.pipeline import batch as B
     from heatmap_tpu_torch.pipeline.cascade import composite_keys
     from heatmap_tpu_torch.pipeline.groups import UserVocab
 
     cfg = B.BatchJobConfig()
-    data = B.ingest_columns(SyntheticSource(n=n, seed=0).batches(1 << 20), cfg)
+    data = B.ingest_columns(SyntheticSource(n=n, seed=seed).batches(1 << 20),
+                            cfg)
     group_ids = UserVocab().group_ids(data["user_id"])
     codes, valid = B.project_codes(data["latitude"], data["longitude"],
                                    cfg.detail_zoom, dev)
@@ -415,6 +469,12 @@ def main_path_keys(n, dev):
     ck = composite_keys(e_codes, e_slots, cfg.detail_zoom, n_slots)
     skeys = torch.sort(torch.where(e_valid, ck, SENTINEL)).values
     return skeys, data, n_slots
+
+
+def level_capacity(n, n_slots, lvl):
+    """Level ``lvl``'s output capacity in the default z21 cascade over
+    ``n`` emissions: the emissions, clamped to the cells of its zoom."""
+    return min(n, n_slots << (2 * (21 - lvl)))
 
 
 def ingest_tick_keys(points, dev):
@@ -469,7 +529,8 @@ def phase_device():
 
 def phase_kernel(dev):
     """The segment-reduce kernel against its plain version, on the card,
-    bit for bit, REPEATS times per case: at the main path's keys and at
+    bit for bit, REPEATS times per case: at the main path's keys, at the
+    Cassandra path's keys at every cascade level, and at
     the edge cases of ``kernel_cases`` (runs over tile edges, capacity
     cuts and sentinel tails at tile edges, one key, all sentinels, at the
     cascade's shifts; counts and bounded-integer weights, overflow and
@@ -564,6 +625,17 @@ def phase_kernel(dev):
                              "sentinel_share": tail,
                              "ms": median_ms(lambda: agg(tkeys, nt))})
 
+    # The Cassandra path's keys (its 1M rows through the default job's
+    # emissions) at every level of the default cascade: the level's
+    # shift, shifted sentinel and zoom-clamped capacity, as
+    # pipeline/cascade.py sets them.
+    ckeys, _, c_slots = main_path_keys(N_CASSANDRA, dev, CASSANDRA_SEED)
+    for lvl in range(16):
+        check(f"cassandra_level{lvl}", ckeys,
+              level_capacity(ckeys.shape[0], c_slots, lvl),
+              shift=2 * lvl, sentinel=SENTINEL >> (2 * lvl))
+    del ckeys
+
     # Timing at the main path's shape: level 0 of the default job.
     capacity = n
     err = max_abs_err(agg(skeys, capacity), sp._plain(
@@ -581,7 +653,7 @@ def phase_kernel(dev):
     # them), away from the job's host work.
     level_ms = [
         median_ms(lambda lvl=lvl: agg(
-            skeys, min(n, n_slots << (2 * (21 - lvl))),
+            skeys, level_capacity(n, n_slots, lvl),
             sentinel=SENTINEL >> (2 * lvl), shift=2 * lvl), iters=10)
         for lvl in range(16)
     ]
@@ -1946,7 +2018,7 @@ def phase_ingest(dev, big_root):
     """The ``ingest`` command on the card, as the N_INGEST* constants
     describe: (a) a drain into a fresh journal at the command's defaults;
     (b) INGEST_B_TICKS ticks onto ``big_root`` (the delta phase's store,
-    a compacted 1M-point base); (c) the replay of (a)'s first ticks onto
+    a compacted 524,288-point base); (c) the replay of (a)'s first ticks onto
     a store that holds them, every tick a duplicate; (d) ``--retract``
     of (a)'s first N_INGEST_RETRACT points; (e) (a)'s first
     INGEST_CUT_TICKS ticks with every telemetry flag on, into a fresh
@@ -2090,7 +2162,7 @@ def phase_ingest(dev, big_root):
         assert any(x.startswith("snap-") for x in os.listdir(spill))
         pads_counted = [float(line.split()[-1]) for line in prom.splitlines()
                         if line.startswith("cascade_pad_emissions_total")]
-        # (b) ticks onto the delta phase's store (1M-point base).
+        # (b) ticks onto the delta phase's store (524,288-point base).
         b = ingest_drain(argv(big_root, f"synthetic:"
                               f"{INGEST_B_TICKS * INGEST_MICRO}:8",
                               "--max-ticks", str(INGEST_B_TICKS),
@@ -4328,6 +4400,393 @@ def phase_parallel(dev, single, ref):
     return launches, window_launches
 
 
+# -- the reference's own ends: Cassandra and CosmosDB in, Cassandra out --
+
+#: Rows of the stand-in ``rhom.locations`` table (the reference scans a
+#: whole table; each row here passes through the source's per-row scan
+#: loop of Python dicts, so the phase reads 2^20 of them).
+N_CASSANDRA = 1 << 20
+CASSANDRA_SEED = 3
+#: Partition-key ranges of the CosmosDB stand-in.
+COSMOS_RANGES = 8
+#: The --chaos rule of the retried run: one source.read fault at the
+#: second batch pull, no backoff sleep.
+CASSANDRA_CHAOS = "seed=7,scale=0,source.read=1x2"
+#: Source batch of the phase's jobs: 16 batches of the stand-in table,
+#: so the chaos rule fires mid-stream.
+CASSANDRA_BATCH = 1 << 16
+
+
+def user_token(user) -> int:
+    """A fixed 64-bit Murmur3-ring token per user (the stand-in's
+    partitioner)."""
+    import hashlib
+
+    return int.from_bytes(hashlib.blake2b(str(user).encode(),
+                                          digest_size=8).digest(),
+                          "little", signed=True)
+
+
+class StandInLocations:
+    """An in-memory ``rhom.locations``: the reference's five columns of
+    ``SyntheticSource(n, seed)``, partitioned by ``user_id``. A session
+    answers the source's token-range scans (``execute``) and stores the
+    sink's inserts into ``rhom.heatmaps`` (``execute_async``)."""
+
+    import re as _re
+
+    _RANGE = _re.compile(
+        r"FROM (\w+\.\w+) WHERE token\(user_id\) >= (-?\d+) "
+        r"AND token\(user_id\) <= (-?\d+)")
+    _INSERT = _re.compile(r"INSERT INTO (\w+\.\w+) \(id, heatmap\)")
+
+    def __init__(self, n, seed):
+        from heatmap_tpu_torch.io import SyntheticSource
+
+        (cols,) = list(SyntheticSource(n=n, seed=seed).batches(n))
+        self.n = n
+        self.lat = cols["latitude"].tolist()
+        self.lon = cols["longitude"].tolist()
+        self.user = cols["user_id"]
+        self.source = cols["source"]
+        self.stamp = cols["timestamp"]
+        tokens = {u: user_token(u) for u in set(self.user)}
+        self.token = np.array([tokens[u] for u in self.user], np.int64)
+        self.heatmaps: dict = {}
+        self.scans = 0
+
+    def rows(self, idx):
+        for i in idx.tolist():
+            yield {"latitude": self.lat[i], "longitude": self.lon[i],
+                   "user_id": self.user[i], "source": self.source[i],
+                   "timestamp": self.stamp[i]}
+
+    def session(self):
+        table = self
+
+        class Future:
+            def result(self):
+                return None
+
+        class Session:
+            def execute(self, cql):
+                m = table._RANGE.search(cql)
+                assert m and m.group(1) == "rhom.locations", cql
+                lo, hi = int(m.group(2)), int(m.group(3))
+                table.scans += 1
+                return table.rows(np.flatnonzero(
+                    (table.token >= lo) & (table.token <= hi)))
+
+            def execute_async(self, cql, params):
+                m = table._INSERT.search(cql)
+                assert m and m.group(1) == "rhom.heatmaps", cql
+                blob_id, heatmap = params
+                table.heatmaps[blob_id] = heatmap
+                return Future()
+
+        return Session()
+
+    def cosmos_client(self, n_ranges):
+        """A CosmosDB container stand-in over the same rows: partition
+        key range ``r`` holds the users whose token is ``r`` mod
+        ``n_ranges``."""
+        table = self
+        part = np.mod(self.token, n_ranges)
+
+        class Client:
+            def partition_key_range_ids(self):
+                return [str(r) for r in range(n_ranges)]
+
+            def query_items(self, sql, partition_key_range_id=None):
+                assert sql.startswith("SELECT c.latitude"), sql
+                return table.rows(np.flatnonzero(
+                    part == int(partition_key_range_id)))
+
+        return Client()
+
+
+def _cassandra_job(dev, source, sink, backend="auto"):
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job
+
+    sp.aggregate_sorted_keys_partitioned.launches = 0
+    t0 = time.perf_counter()
+    blobs = run_job(source, sink, BatchJobConfig(cascade_backend=backend),
+                    batch_size=CASSANDRA_BATCH, max_points_in_flight=0,
+                    device=dev)
+    torch.cuda.synchronize()
+    return blobs, time.perf_counter() - t0, \
+        sp.aggregate_sorted_keys_partitioned.launches
+
+
+def phase_cassandra(dev):
+    """The reference's ``batchMain`` end to end: ``CassandraSource`` over
+    a stand-in ``rhom.locations`` of N_CASSANDRA rows (64 token ranges),
+    ``run_job`` on the card at ``BatchJobConfig()`` defaults, and
+    ``CassandraBlobSink`` into the stand-in's ``rhom.heatmaps``. Every
+    segment-reduce launch of that job is held to the plain version on
+    its own inputs, and the stored blobs equal, byte for byte, the plain
+    scatter cascade's (``cascade_backend="scatter"``, no kernel) over
+    the same columns through ``memory:``; the rows read are counted in
+    ``source_rows_read_total{source="cassandra"}``; the two shard views
+    of 2 hosts together read the whole table; a range re-read is
+    deterministic; a CosmosDB stand-in with COSMOS_RANGES partition-key
+    ranges gives the same blobs; and the job retried past
+    ``source.read`` faults gives them too. The job runs with metrics on
+    and no stage timer, so its stage spans and its dispatch split are
+    the telemetry's own. Returns the main job's segment-reduce
+    launches."""
+    from heatmap_tpu_torch import faults, obs
+    from heatmap_tpu_torch.io import (CassandraBlobSink, CassandraSource,
+                                      CosmosDBSource, MemorySink,
+                                      SyntheticSource, token_ranges)
+    from heatmap_tpu_torch.parallel.multihost import shard_source
+
+    t_phase = time.perf_counter()
+    table = StandInLocations(N_CASSANDRA, CASSANDRA_SEED)
+    want, want_s, plain_launches = _cassandra_job(
+        dev, SyntheticSource(n=N_CASSANDRA, seed=CASSANDRA_SEED),
+        MemorySink(), backend="scatter")
+    assert plain_launches == 0, plain_launches
+    registry = obs.get_registry()
+    registry.reset()
+    obs.enable_metrics(True)
+    try:
+        # The reference's path: token-range scans in, rhom.heatmaps out.
+        src = CassandraSource(session_factory=table.session)
+        assert len(src.my_ranges()) == src.config.n_ranges == 64
+        with segment_calls_held_to_plain("cassandra job") as held, \
+                CassandraBlobSink(session=table.session()) as sink:
+            got, seconds, launches = _cassandra_job(dev, src, sink)
+        assert launches == len(held) == 16, (launches, len(held))
+        assert table.scans == 64, table.scans
+        rows_read = obs.SOURCE_ROWS.samples()[("cassandra",)]
+        assert rows_read == N_CASSANDRA, rows_read
+        assert got == want, "Cassandra-source blobs differ from the plain"
+        assert table.heatmaps == want, "stored rhom.heatmaps differ"
+        stored = len(table.heatmaps)
+        # The job's stage spans and its host/device dispatch split
+        # (obs.DispatchTimer: enqueued, then synchronised only because
+        # metrics are on).
+        stage_s = {k[0]: v[1] for k, v in obs.STAGE_SECONDS.samples().items()}
+        dispatch = {"host_s": stage_s["cascade.dispatch.host"],
+                    "device_s": stage_s["cascade.dispatch.device"],
+                    "overhead_s": obs.DISPATCH_OVERHEAD.samples()[
+                        ("single",)][1]}
+        spans_s = {k: v for k, v in stage_s.items()
+                   if k.startswith(("cascade", "egress", "ingest"))}
+        cascade_s = sum(stage_s[k] for k in (
+            "cascade.project", "cascade.emissions", "cascade.device",
+            "cascade.decode"))
+
+        # Two hosts' shard views read the whole table between them.
+        t0 = time.perf_counter()
+        lats, counts = [], []
+        for i in range(2):
+            view = shard_source(src, process_count=2, process_index=i)
+            assert (view.shard_index, view.shard_count) == (i, 2)
+            part = [b["latitude"] for b in view.batches(CASSANDRA_BATCH)]
+            counts.append(sum(len(p) for p in part))
+            lats.extend(part)
+        assert sum(counts) == N_CASSANDRA, counts
+        assert np.array_equal(np.sort(np.concatenate(lats)),
+                              np.sort(np.asarray(table.lat))), \
+            "shard views do not read the whole table"
+        shard_scan_s = time.perf_counter() - t0
+
+        # Re-reading one non-empty range gives the same batches.
+        index = next(i for i, (lo, hi) in enumerate(token_ranges(64))
+                     if ((table.token >= lo) & (table.token <= hi)).any())
+        first = list(src.range_batches(index))
+        again = list(src.range_batches(index))
+        assert first and len(first) == len(again)
+        for a, b in zip(first, again):
+            assert all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                       for k in a), "range re-read differs"
+
+        # The CosmosDB alternative over the same rows.
+        cosmos, cosmos_s, cosmos_launches = _cassandra_job(
+            dev, CosmosDBSource(
+                client_factory=lambda: table.cosmos_client(COSMOS_RANGES)),
+            None)
+        assert cosmos_launches == 16, cosmos_launches
+        assert cosmos == want, "CosmosDB-source blobs differ"
+        assert obs.SOURCE_ROWS.samples()[("cosmosdb",)] == N_CASSANDRA
+
+        # source.read faults retried with resume: the same bytes.
+        faults.install_spec(CASSANDRA_CHAOS)
+        try:
+            chaos, chaos_s, _ = _cassandra_job(
+                dev, CassandraSource(session_factory=table.session), None)
+        finally:
+            faults.install(None)
+        retries = obs.IO_RETRIES.samples().get(("source.read",), 0)
+        injected = obs.FAULTS_INJECTED.samples().get(("source.read",), 0)
+        assert retries > 0 and injected == 1, (retries, injected)
+        assert chaos == want, "blobs differ after source.read retries"
+        # The job, the two shard views and the retried job; a replayed
+        # prefix is not counted twice.
+        assert obs.SOURCE_ROWS.samples()[("cassandra",)] == 3 * N_CASSANDRA
+    finally:
+        obs.enable_metrics(False)
+        registry.reset()
+    # The spans split the job: the scan before the ``cascade`` span; in
+    # it the cascade's stages, then egress (blobs and sink writes).
+    emit({"phase": "cassandra", "rows": N_CASSANDRA, "token_ranges": 64,
+          "blobs": stored, "launches": launches,
+          "held_to_plain": len(held), "source_rows_read": rows_read,
+          "seconds": seconds, "scan_s": seconds - stage_s["cascade"],
+          "cascade_s": cascade_s,
+          "egress_s": stage_s["cascade"] - cascade_s,
+          "spans_s": spans_s, "dispatch": dispatch,
+          "plain_scatter_job_s": want_s,
+          "shard_views_scan_s": shard_scan_s, "shard_rows": counts,
+          "range_reread": {"index": index, "batches": len(first)},
+          "cosmosdb": {"ranges": COSMOS_RANGES, "seconds": cosmos_s,
+                       "launches": cosmos_launches, "equal": True},
+          "chaos": {"spec": CASSANDRA_CHAOS, "seconds": chaos_s,
+                    "faults_injected": injected, "io_retries": retries,
+                    "equal": True},
+          "equal_to_plain_scatter": True,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# -- the bench-tool twins --
+
+#: Sizes of the tools phase: each twin at its smallest useful size.
+TOOLS_JOB_N = 1 << 18
+TOOLS_DELTA_BASE = 1 << 18
+TOOLS_DELTA_RATIO = 16
+TOOLS_INGEST_POINTS = 1 << 16
+TOOLS_INGEST_MICRO = 1 << 14
+
+
+def _check_keys(rec, keys, what):
+    missing = [k for k in keys if k not in rec]
+    assert not missing, f"{what} lacks the JAX tool's keys {missing}"
+
+
+def phase_tools(dev, tmp):
+    """The bench-tool twins on the card, each once at its smallest useful
+    size: ``bench_job``'s parent process (its measurement in a child),
+    the child's blob count equal to the same job run here;
+    ``bench_delta`` and ``bench_ingest`` in this process (their
+    segment-reduce launches counted), exact and bucketed padding
+    applying the same points and invalidating the same keys. Every
+    segment-reduce launch of the twins run here, and of the job run
+    here, is held to the plain version on its own inputs. Each
+    record has the JAX tool's keys plus the card's name and power
+    limit. Returns the in-process twins' launches."""
+    from heatmap_tpu_torch import obs
+    from heatmap_tpu_torch.io.hmpb import HMPBSource
+    from heatmap_tpu_torch.io.sinks import MemorySink
+    from heatmap_tpu_torch.obs import tracing
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job_fast
+    from heatmap_tpu_torch.tools import bench_delta, bench_ingest, bench_job
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join("chiprun_out", "torch_bench")
+    rec = {}
+
+    t0 = time.perf_counter()
+    path = os.path.join(out_dir, "bench_job.json")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        # The parent here, its measurement in a child process.
+        rc = bench_job.main([
+            "--n", str(TOOLS_JOB_N), "--runs", "1", "--egress", "json",
+            "--child-timeout", "300", "--device", dev.type, "--out", path])
+    assert rc == 0, printed.getvalue()[-3000:]
+    with open(path) as f:
+        (job,) = json.load(f)["results"]
+    _check_keys(job, bench_job.RECORD_KEYS, "bench_job")
+    assert job["device"] == dev.type, job["device"]
+    hmpb = bench_job.synth_hmpb(os.path.join(tmp, "bench_job.hmpb"),
+                                TOOLS_JOB_N)
+    with segment_calls_held_to_plain("bench_job's job") as held_job:
+        blobs = run_job_fast(HMPBSource(hmpb), MemorySink(), device=dev)
+    assert job["out"] == len(blobs) > 0, (job["out"], len(blobs))
+    assert held_job and len(held_job) % 16 == 0, len(held_job)
+    if dev.type == "cuda":
+        assert job["gpu_name"] == torch.cuda.get_device_name(0)
+    rec["bench_job"] = {"seconds": time.perf_counter() - t0,
+                        "total_s": job["total_s"],
+                        "pts_per_s": job["pts_per_s"],
+                        "stages": job["stages"], "blobs": job["out"],
+                        "power_limit_w": job.get("power_limit_w")}
+
+    sp.aggregate_sorted_keys_partitioned.launches = 0
+    held = []
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, "bench_delta.json")
+        with contextlib.redirect_stdout(printed), \
+                segment_calls_held_to_plain("bench_delta") as calls:
+            assert bench_delta.main([
+                "--base-points", str(TOOLS_DELTA_BASE), "--ratios",
+                str(TOOLS_DELTA_RATIO), "--device", dev.type, "--out",
+                path]) == 0
+        held += calls
+        tracing.disable_tracing()
+        with open(path) as f:
+            doc = json.load(f)
+        _check_keys(doc, bench_delta.RECORD_KEYS, "bench_delta")
+        assert doc["device"] == dev.type, doc["device"]
+        (row,) = doc["results"]
+        _check_keys(row, bench_delta.RESULT_KEYS, "bench_delta row")
+        assert row["delta_rows"] > 0 and row["affected_keys"] > 0, row
+        rec["bench_delta"] = {"seconds": time.perf_counter() - t0,
+                              **{k: row[k] for k in (
+                                  "full_recompute_s", "incremental_apply_s",
+                                  "speedup", "full_rows", "delta_rows")}}
+
+        t0 = time.perf_counter()
+        path = os.path.join(out_dir, "bench_ingest.json")
+        with contextlib.redirect_stdout(printed), \
+                segment_calls_held_to_plain("bench_ingest") as calls:
+            assert bench_ingest.main([
+                "--points", str(TOOLS_INGEST_POINTS), "--micro-batches",
+                str(TOOLS_INGEST_MICRO), "--device", dev.type, "--out",
+                path]) == 0
+        held += calls
+        with open(path) as f:
+            doc = json.load(f)
+        _check_keys(doc, bench_ingest.RECORD_KEYS, "bench_ingest")
+        assert doc["device"] == dev.type, doc["device"]
+        exact, pow2 = doc["results"]
+        for cell in (exact, pow2):
+            _check_keys(cell, bench_ingest.RESULT_KEYS, "bench_ingest row")
+        for k in ("ticks", "points", "keys_invalidated"):
+            assert exact[k] == pow2[k], (k, exact[k], pow2[k])
+        assert exact["points"] == TOOLS_INGEST_POINTS, exact["points"]
+        assert pow2["compiles"] <= exact["compiles"], (pow2, exact)
+        rec["bench_ingest"] = {
+            "seconds": time.perf_counter() - t0,
+            **{m["mode"]: {k: m[k] for k in (
+                "ticks", "pts_per_s", "lag_ms", "tick_ms", "compiles")}
+               for m in (exact, pow2)}}
+    finally:
+        obs.enable_metrics(False)
+        obs.get_registry().reset()
+    launches = sp.aggregate_sorted_keys_partitioned.launches
+    # One launch per cascade level: bench_delta's base, full, warm-up
+    # and timed apply, and bench_ingest's ticks.
+    delta_levels = BatchJobConfig(
+        detail_zoom=12, min_detail_zoom=5).cascade_config().n_levels + 1
+    ingest_levels = BatchJobConfig(
+        detail_zoom=11, min_detail_zoom=5,
+        result_delta=3).cascade_config().n_levels + 1
+    assert launches == len(held) == (
+        4 * delta_levels + ingest_levels
+        * (exact["ticks"] + pow2["ticks"])), (launches, len(held))
+    emit({"phase": "tools", **rec, "launches": launches,
+          "held_to_plain": len(held) + len(held_job),
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda",
             "source": f"heatmap_tpu_torch/csrc/{source}",
@@ -4383,6 +4842,9 @@ def main() -> int:
     phase_stream_bench(dev)
     phase_splat(dev)
     phase_headline(dev)
+    cassandra_launches = phase_cassandra(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_launches = phase_tools(dev, tmp)
     segment_reduce = kernel_entry(
         "segment_reduce", "segment_reduce.cu",
         "heatmap_tpu/ops/sparse_partitioned.py:75", bounded_launches,
@@ -4393,6 +4855,8 @@ def main() -> int:
                                           "serve": serve_launches,
                                           "writeplane": writeplane_launches,
                                           "temporal": temporal_launches,
+                                          "cassandra": cassandra_launches,
+                                          "tools": tools_launches,
                                           **parallel_launches}
     window_histogram = kernel_entry(
         "window_histogram", "window_histogram.cu",

@@ -26,6 +26,16 @@ version runs instead.
 """
 
 from heatmap_tpu_torch.devices import resolve_device
+from heatmap_tpu_torch.ops import (
+    Window,
+    aggregate_keys,
+    bin_points_window,
+    bin_rowcol_window,
+    coarsen_raster,
+    pyramid_from_raster,
+    pyramid_sparse_morton,
+    window_from_bounds,
+)
 from heatmap_tpu_torch.pipeline.batch import (
     BatchJobConfig,
     run_batch,
@@ -33,8 +43,22 @@ from heatmap_tpu_torch.pipeline.batch import (
     run_job_fast,
     run_job_resumable,
 )
+from heatmap_tpu_torch.tilemath import (
+    Tile,
+    column_from_longitude,
+    latitude_from_row,
+    longitude_from_column,
+    row_from_latitude,
+    tile_id_from_lat_long,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["BatchJobConfig", "resolve_device", "run_batch", "run_job",
-           "run_job_fast", "run_job_resumable"]
+__all__ = [
+    "BatchJobConfig", "Tile", "Window", "aggregate_keys",
+    "bin_points_window", "bin_rowcol_window", "coarsen_raster",
+    "column_from_longitude", "latitude_from_row", "longitude_from_column",
+    "pyramid_from_raster", "pyramid_sparse_morton", "resolve_device",
+    "row_from_latitude", "run_batch", "run_job", "run_job_fast",
+    "run_job_resumable", "tile_id_from_lat_long", "window_from_bounds",
+]

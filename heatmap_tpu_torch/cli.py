@@ -3,7 +3,10 @@ run|tiles|stream|serve|render|convert|merge|info|update|retract|ingest|
 writeplane ...``, the JAX CLI's twelve commands.
 
 ``run`` is the batch job (reference batchMain): points from ``--input``
-to heatmap blobs (or per-level arrays) in ``--output``. CSV and HMPB
+to heatmap blobs (or per-level arrays) in ``--output``; the reference's
+own ends, ``cassandra:``/``cosmosdb:`` in and ``cassandra:`` out, need
+an injected client session, so from the command line they fail with
+the JAX run's ``ConfigError``/``SinkConfigError`` (exit 1). CSV and HMPB
 inputs take the integer fast path on their own (``--no-fast`` opts
 out, ``--fast`` makes ineligibility an error); sources too large for
 host RAM, or ``--max-points-in-flight N``, run chunked;
@@ -139,8 +142,8 @@ def _init_backend(args) -> str:
 
 
 def _sink_spec(spec: str) -> str:
-    """argparse type= wrapper: reject a typo'd or unported --output kind
-    at parse time with a one-line error."""
+    """argparse type= wrapper: reject a typo'd --output kind at parse
+    time with a one-line error."""
     from heatmap_tpu_torch.io.sinks import validate_sink_spec
 
     try:
@@ -503,13 +506,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_backend_flags(p)
     p.add_argument("--input", required=True,
                    help="synthetic:N[:seed] | csv:PATH | jsonl:PATH | "
-                   "parquet:PATH | hmpb:PATH")
+                   "parquet:PATH | hmpb:PATH | cassandra:[ENDPOINT] | "
+                   "cosmosdb:")
     p.add_argument("--output", default="jsonl:heatmaps.jsonl",
                    type=_sink_spec,
-                   help="memory: | jsonl:PATH | dir:PATH | arrays:DIR "
-                   "(columnar per-level npz) | arrays-parquet:DIR | "
-                   "arrays-synopsis:DIR | arrays-integral:DIR | "
-                   "arrays-tilefs:DIR")
+                   help="memory: | jsonl:PATH | dir:PATH | cassandra: | "
+                   "arrays:DIR (columnar per-level npz) | "
+                   "arrays-parquet:DIR | arrays-synopsis:DIR | "
+                   "arrays-integral:DIR | arrays-tilefs:DIR")
     p.add_argument("--detail-zoom", type=int, default=21,
                    help="finest zoom of the cascade")
     p.add_argument("--min-detail-zoom", type=int, default=5,

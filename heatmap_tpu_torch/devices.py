@@ -60,6 +60,22 @@ def stage(timer: StageTimer | None, name: str):
     return contextlib.nullcontext() if timer is None else timer.stage(name)
 
 
+@contextlib.contextmanager
+def cascade_stage(timer: StageTimer | None, name: str, items=None):
+    """One stage of the cascade (``sort``, ``segment_reduce``), named
+    once for both of its timings: ``timer``'s fenced stage ``name`` and
+    the trace's stage span ``cascade.<name>`` (underscores as hyphens,
+    the JAX package's span names). Under stage tracing the span closes
+    only after the card has finished the stage's work
+    (``utils.trace.stage_block``)."""
+    from heatmap_tpu_torch.utils import trace
+
+    with stage(timer, name), trace.stage_span(
+            "cascade." + name.replace("_", "-"), items=items):
+        yield
+        trace.stage_block(None)
+
+
 def process_count() -> int:
     """Processes in this job: the ``torch.distributed`` group's world
     size once a multihost job has joined its cluster

@@ -1,7 +1,8 @@
 """Egress sinks: heatmap blob writers, per-level arrays, the PNG tile tree.
 
-Port of the memory, JSONL, directory, ``arrays:``/``arrays-parquet:``
-and PNG-tile sinks of heatmap_tpu/io/sinks.py.
+Port of heatmap_tpu/io/sinks.py: the memory, JSONL, directory and
+Cassandra (``rhom.heatmaps``, reference heatmap.py:149-150) blob sinks,
+the ``arrays:`` family and the PNG-tile sink.
 Blob records are ``(id, heatmap)`` pairs where ``id`` is the composite
 ``user|timespan|coarseTileId`` key and ``heatmap`` the JSON dict of
 detail-tile counts (reference heatmap.py:156-157). Every blob sink
@@ -29,7 +30,7 @@ class BlobSink:
     starts and every ``write_one`` is an upsert by id, so a retried
     write is idempotent."""
 
-    #: Retry key of the sink kind.
+    #: Retry key and label of sink_blobs_written_total{sink=...}.
     KIND = "blob"
 
     def write(self, records: Iterable[tuple]) -> int:
@@ -38,6 +39,8 @@ class BlobSink:
             faults.retry_call(self.write_one, blob_id, heatmap,
                               site="sink.write", key=self.KIND)
             n += 1
+        if n and obs.metrics_enabled():
+            obs.SINK_BLOBS.inc(n, sink=self.KIND)
         return n
 
     def write_one(self, blob_id: str, heatmap) -> None:
@@ -55,6 +58,10 @@ class BlobSink:
 
 def _as_json(heatmap) -> str:
     return heatmap if isinstance(heatmap, str) else json.dumps(heatmap)
+
+
+class SinkConfigError(RuntimeError, faults.NonRetryable):
+    """Deterministic sink misconfiguration: never retried."""
 
 
 class MemorySink(BlobSink):
@@ -82,6 +89,8 @@ class MemorySink(BlobSink):
                 chunk = []
         if chunk:
             n += self._update(chunk)
+        if n and obs.metrics_enabled():
+            obs.SINK_BLOBS.inc(n, sink=self.KIND)
         return n
 
     def _update(self, chunk) -> int:
@@ -119,6 +128,8 @@ class JSONLBlobSink(BlobSink):
         ``sink.write`` retry policy."""
         f = self._open()
         n = 0
+        nbytes = 0
+        counting = obs.metrics_enabled()
         lines = []
         for blob_id, heatmap in records:
             lines.append(self._line(blob_id, heatmap) + "\n")
@@ -126,11 +137,18 @@ class JSONLBlobSink(BlobSink):
                 faults.retry_call(f.writelines, lines, site="sink.write",
                                   key=self.KIND)
                 n += len(lines)
+                if counting:
+                    nbytes += sum(len(ln) for ln in lines)
                 lines.clear()
         if lines:
             faults.retry_call(f.writelines, lines, site="sink.write",
                               key=self.KIND)
             n += len(lines)
+            if counting:
+                nbytes += sum(len(ln) for ln in lines)
+        if n and counting:
+            obs.SINK_BLOBS.inc(n, sink=self.KIND)
+            obs.SINK_BYTES.inc(nbytes, sink=self.KIND)
         return n
 
     def close(self):
@@ -163,6 +181,49 @@ class DirectoryBlobSink(BlobSink):
         fname = blob_id.replace(os.sep, "_") + ".json"
         with open(os.path.join(self.root, fname), "w") as f:
             f.write(_as_json(heatmap))
+
+
+@dataclasses.dataclass
+class CassandraBlobSink(BlobSink):
+    """``cassandra:``: egress to ``rhom.heatmaps`` (reference
+    heatmap.py:149-150; schema ``(id text PRIMARY KEY, heatmap text)``,
+    reference heatmap.py:157), an upsert by id. Needs an injected
+    ``session`` (``session.execute_async(cql, params) -> future`` with
+    ``future.result()``, as a cassandra-driver session gives); keeps
+    ``concurrency`` inserts in flight and drains them at close."""
+
+    session: object = None
+    keyspace: str = "rhom"  # reference heatmap.py:150
+    table: str = "heatmaps"  # reference heatmap.py:150
+    KIND = "cassandra"
+    concurrency: int = 128
+    _pending: list = dataclasses.field(default_factory=list, repr=False)
+
+    def write_one(self, blob_id, heatmap):
+        if self.session is None:
+            raise SinkConfigError(
+                "CassandraBlobSink needs a cassandra-driver session "
+                "(not baked into this image); use JSONL/Directory sinks "
+                "or inject session=..."
+            )
+        cql = (
+            f"INSERT INTO {self.keyspace}.{self.table} (id, heatmap) "
+            "VALUES (%s, %s)"
+        )
+        self._pending.append(
+            self.session.execute_async(cql, (blob_id, _as_json(heatmap)))
+        )
+        if len(self._pending) >= self.concurrency:
+            self._drain()
+
+    def _drain(self):
+        for fut in self._pending:
+            fut.result()
+        self._pending.clear()
+
+    def close(self):
+        if self._pending:
+            self._drain()
 
 
 @dataclasses.dataclass
@@ -415,27 +476,20 @@ def per_process_sink_spec(spec: str, process_index: int) -> str:
     raise ValueError(f"unrecognized sink spec {spec!r}")
 
 
-#: Sink spec kinds the port opens, in help order.
+#: Sink spec kinds ``open_sink`` accepts, in help order.
 SINK_KINDS = ("jsonl", "arrays", "arrays-parquet", "arrays-synopsis",
-              "arrays-integral", "arrays-tilefs", "dir", "memory")
-
-#: Sink kinds of the JAX package that the port does not open yet.
-UNPORTED_SINK_KINDS = ("cassandra",)
+              "arrays-integral", "arrays-tilefs", "dir", "memory",
+              "cassandra")
 
 
 def validate_sink_spec(spec: str) -> str:
-    """Reject a sink kind the port does not open with a one-line error:
-    a typo like ``josnl:x`` names the valid kinds, and a kind of the JAX
-    package that is not ported yet says so. Meant for argument-parse
-    time, so the error comes before any device work or ingest. Returns
-    ``spec`` so it can wrap an argparse ``type=``."""
+    """Reject an unknown sink kind with a one-line error naming the
+    valid ones. Meant for argument-parse time: a typo like ``josnl:x``
+    fails before any device work or ingest. Returns ``spec`` so it can
+    wrap an argparse ``type=``."""
     kind, sep, _ = spec.partition(":")
     if (sep and kind in SINK_KINDS) or spec.endswith((".jsonl", ".ndjson")):
         return spec
-    if sep and kind in UNPORTED_SINK_KINDS:
-        raise ValueError(
-            f"sink kind {kind!r} is not ported yet to heatmap_tpu_torch; "
-            f"use one of {', '.join(SINK_KINDS)}")
     raise ValueError(
         f"unrecognized sink spec {spec!r}: kind must be one of "
         f"{', '.join(SINK_KINDS)} (e.g. jsonl:blobs.jsonl), or a bare "
@@ -448,7 +502,9 @@ def open_sink(spec: str):
     (columnar per-level npz), ``arrays-parquet:DIR``,
     ``arrays-synopsis:DIR`` and ``arrays-integral:DIR`` (the npz levels
     plus their synopses or summed-area tables), ``arrays-tilefs:DIR``
-    (the npz levels plus their tilefs mirrors) or a bare ``.jsonl``
+    (the npz levels plus their tilefs mirrors), ``cassandra:`` (a
+    ``CassandraBlobSink`` with no session: its first write raises
+    ``SinkConfigError``, as the JAX package's does) or a bare ``.jsonl``
     path."""
     validate_sink_spec(spec)
     kind, sep, rest = spec.partition(":")
@@ -468,4 +524,6 @@ def open_sink(spec: str):
         return LevelArraysSink(rest, integrals=True)
     if kind == "arrays-tilefs":
         return LevelArraysSink(rest, tilefs=True)
+    if kind == "cassandra":
+        return CassandraBlobSink()
     return JSONLBlobSink(spec)

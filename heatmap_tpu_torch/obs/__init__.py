@@ -146,6 +146,12 @@ SPECULATIVE_LAUNCHES = _registry.counter(
     "speculative_launches_total",
     "Speculative duplicate shard executions by race outcome",
     labelnames=("outcome",))  # outcome = win | lose
+DISPATCH_OVERHEAD = _registry.histogram(
+    "dispatch_overhead_seconds",
+    "Host-side share of one cascade dispatch (routing, padding, plan, "
+    "argument prep — everything before the compiled program runs; the "
+    "overhead the gspmd one-program dispatch removes)",
+    labelnames=("dispatch",))
 PROCESS_UPTIME = _registry.gauge(
     "process_uptime_seconds", "Seconds since this process imported obs")
 BUILD_INFO = _registry.gauge(
@@ -172,6 +178,48 @@ def refresh_process_gauges():
 def telemetry_enabled() -> bool:
     """True when any sink (registry or event log) is live."""
     return _registry.enabled or events._current is not None
+
+
+class DispatchTimer:
+    """Host/device wall-time split for ONE cascade dispatch.
+
+    Splits the cascade's ``stage_duration_seconds`` attribution into
+    ``cascade.dispatch.host`` (routing, padding, partition planning,
+    argument prep: everything before the cascade's kernels are enqueued)
+    and ``cascade.dispatch.device`` (enqueued to outputs on the host),
+    and feeds ``dispatch_overhead_seconds{dispatch}`` with the host
+    share. Construct at the start of the host phase, call
+    :meth:`dispatched` once the cascade's kernels are enqueued and
+    :meth:`finished` once its outputs are ready (the caller synchronises
+    the card in between, and only while ``enabled``). Everything no-ops
+    when telemetry is off, so the production path pays two global reads.
+    """
+
+    __slots__ = ("dispatch", "enabled", "_t0", "_t1")
+
+    def __init__(self, dispatch: str):
+        self.dispatch = dispatch
+        self.enabled = telemetry_enabled()
+        self._t0 = time.perf_counter() if self.enabled else 0.0
+        self._t1 = None
+
+    def dispatched(self) -> None:
+        """Host phase over: the card owns the clock now."""
+        if self.enabled:
+            self._t1 = time.perf_counter()
+
+    def finished(self, items=None):
+        """Outputs ready; record both phases. Returns (host_s,
+        device_s) when telemetry is on, else None."""
+        if not self.enabled or self._t1 is None:
+            return None
+        t2 = time.perf_counter()
+        host_s, device_s = self._t1 - self._t0, t2 - self._t1
+        record_stage("cascade.dispatch.host", host_s, items)
+        record_stage("cascade.dispatch.device", device_s, items)
+        if _registry.enabled:
+            DISPATCH_OVERHEAD.observe(host_s, dispatch=self.dispatch)
+        return host_s, device_s
 
 
 def record_stage(stage: str, wall_s: float, items=None, **attrs):
@@ -406,6 +454,7 @@ def record_partition_planned(plan, boundary_tiles=None):
 
 
 __all__ = [
+    "DISPATCH_OVERHEAD", "DispatchTimer",
     "ANOMALIES_TOTAL", "BOUNDARY_TILES", "PARTITION_SKEW", "AnomalyEngine", "BUILD_INFO", "EVENT_SCHEMA",
     "ELASTIC_REASSIGNMENTS", "HOST_LAST_HEARTBEAT", "HOST_PHASE_SECONDS",
     "SHARD_RETRIES", "SPECULATIVE_LAUNCHES", "heartbeat", "heartbeat_ages",

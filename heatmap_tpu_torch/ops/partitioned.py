@@ -54,6 +54,24 @@ STREAM_SLAB_BUDGET = 4 << 30
 #: Cells per aligned output block of the JAX path (256 x 256).
 DEFAULT_BLOCK_CELLS = 1 << 16
 
+
+
+def masked_local_rc(block_start, good, stream, block_cells, side):
+    """(row-in-block, col-in-block) for one chunk's sorted cell ids,
+    with dropped lanes as row=-1/col=0 (matching no one-hot row): the
+    JAX package's helper of its one-hot block kernels, in plain torch
+    on int32 tensors (``good`` is 1 for a kept lane)."""
+    bc = torch.tensor(block_cells, dtype=torch.int32)
+    sd = torch.tensor(side, dtype=torch.int32)
+    local = stream - block_start * bc
+    ok = (good == 1) & (local >= 0) & (local < bc)
+    rloc = torch.where(ok, torch.div(local, sd, rounding_mode="floor"),
+                       torch.tensor(-1, dtype=torch.int32))
+    cloc = torch.where(ok, torch.remainder(local, sd),
+                       torch.tensor(0, dtype=torch.int32))
+    return rloc, cloc
+
+
 #: Side of the aligned sub-blocks of the bucketed kernels: a 128 x 128
 #: int32 or float32 sub-block (64 KiB) fits one block's shared memory.
 SUB_SIDE = 128

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from heatmap_tpu_torch.devices import stage
+from heatmap_tpu_torch.devices import cascade_stage
 from heatmap_tpu_torch.ops import sparse as sparse_ops
 from heatmap_tpu_torch.ops import sparse_partitioned as sp
 
@@ -113,7 +113,8 @@ def pyramid_sparse_morton(codes, weights=None, valid=None, levels: int = 0,
             cap = min(cap, uniq.shape[0])
         # Parent codes of the previous level's uniques; sentinel slots
         # stay sentinel (a plain shift would make plausible codes).
-        with stage(timer, "segment_reduce"):
+        with cascade_stage(timer, "segment_reduce",
+                           items=int(uniq.shape[0])):
             parents = torch.where(uniq == SENTINEL, SENTINEL, uniq >> 2)
             uniq, sums, count = sparse_ops.aggregate_sorted_keys(
                 parents, sums, cap, sentinel=SENTINEL)
@@ -146,7 +147,7 @@ def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
     n = codes.shape[0]
     caps = _level_caps(capacity, n, levels)
     keys = codes if valid is None else torch.where(valid, codes, SENTINEL)
-    with stage(timer, "sort"):
+    with cascade_stage(timer, "sort", items=n):
         if weights is None:
             skeys = torch.sort(keys).values
             sw = None
@@ -162,7 +163,7 @@ def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
             keep = adaptive_keep(out[-1][2], out[-1][0].shape[0])
             if keep is not None:
                 cap = min(cap, keep)
-        with stage(timer, "segment_reduce"):
+        with cascade_stage(timer, "segment_reduce", items=n):
             uniq, sums, n_unique = sp.aggregate_sorted_keys_partitioned(
                 skeys, cap, sentinel=shifted_sentinel, shift=2 * lvl,
                 sorted_weights=sw, weight_bound=weight_bound)

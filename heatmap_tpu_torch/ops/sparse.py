@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from heatmap_tpu_torch.devices import stage
+from heatmap_tpu_torch.devices import cascade_stage
 
 
 def _sentinel_for(dtype):
@@ -58,10 +58,11 @@ def aggregate_keys(keys, weights=None, valid=None, capacity=None,
     # Counts are exact in any summation order, so their sort may be
     # unstable; weights keep the stable order so sums reproduce the
     # host-order reference bit-for-bit.
-    with stage(timer, "sort"):
+    n = keys.shape[0]
+    with cascade_stage(timer, "sort", items=n):
         sk, order = torch.sort(keys, stable=weights is not None)
         sw = w[order]
-    with stage(timer, "segment_reduce"):
+    with cascade_stage(timer, "segment_reduce", items=n):
         return aggregate_sorted_keys(sk, sw, capacity, sentinel=sentinel)
 
 

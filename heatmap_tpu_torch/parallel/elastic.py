@@ -486,11 +486,10 @@ class ElasticCoordinator:
 
 def _project_detail_codes(lat, lon, detail_zoom: int):
     """Host-side float64 projection to detail-zoom Morton codes + validity
-    (the JAX package's ``project_detail_codes(prefer_device=False)``)."""
-    from heatmap_tpu_torch.tilemath import mercator, morton
+    (``project_detail_codes(prefer_device=False)``)."""
+    from heatmap_tpu_torch.pipeline.batch import project_detail_codes
 
-    row, col, valid = mercator.project_points_np(lat, lon, detail_zoom)
-    return morton.morton_encode_np(row, col), valid
+    return project_detail_codes(lat, lon, detail_zoom, prefer_device=False)
 
 
 def _make_executor(source, config, batch_size: int, exec_lock,

@@ -35,7 +35,7 @@ import warnings
 import numpy as np
 import torch
 
-from heatmap_tpu_torch import native
+from heatmap_tpu_torch import native, obs
 from heatmap_tpu_torch.devices import resolve_device, stage
 from heatmap_tpu_torch.pipeline import bucketing as bucketing_mod
 from heatmap_tpu_torch.pipeline import cascade as cascade_mod
@@ -401,6 +401,25 @@ def ingest_columns(batches, config: BatchJobConfig):
     return data
 
 
+def project_detail_codes(lat, lon, detail_zoom: int,
+                         prefer_device: bool = True, device="cuda"):
+    """f64 projection to detail-zoom Morton codes + validity, as numpy
+    arrays (int64 codes, bool mask).
+
+    With ``prefer_device`` the projection and interleave run on
+    ``device`` (:func:`project_codes`; the rows near an edge re-derived
+    on the host, so the codes are the reference's); without it on the
+    host in numpy (``mercator.project_points_np``), as the JAX
+    package's ``prefer_device=False`` does.
+    """
+    if prefer_device:
+        codes, valid = project_codes(lat, lon, detail_zoom,
+                                     resolve_device(device))
+        return codes.cpu().numpy(), valid.cpu().numpy()
+    row, col, valid = mercator.project_points_np(lat, lon, detail_zoom)
+    return morton.morton_encode_np(row, col), valid
+
+
 def project_codes(lat, lon, detail_zoom: int, device):
     """f64 projection to detail-zoom Morton codes + validity on
     ``device`` (numpy arrays are uploaded once; float64 tensors already
@@ -532,20 +551,25 @@ def run_job(source, sink=None, config: BatchJobConfig | None = None,
             "max_points_in_flight > 0 to chunk — silently ignoring the "
             "spill request would run the in-RAM merge it exists to avoid"
         )
-    if max_points_in_flight:  # 0/None -> single-shot
-        return _run_job_bounded(
-            source, sink, config, batch_size, max_points_in_flight,
-            overlap_ingest=overlap_ingest, spill_dir=merge_spill_dir,
-            device=device, timer=timer, feeder_stats=feeder_stats,
-        )
-    with stage(timer, "ingest"):
-        data = ingest_columns(source.batches(batch_size), config)
-    if data is None:
-        return {}
-    if device_columns is not None:
-        data = _with_device_columns(data, device_columns, device)
-    return _run_loaded(data, config, as_json=True, sink=sink, device=device,
-                       timer=timer)
+    # Tree-only span (no aggregate entry): a bare run_job call under
+    # tracing yields one connected tree whose ingest, cascade and egress
+    # spans all parent here.
+    with obs.tracing.span("run_job", bounded=bool(max_points_in_flight)):
+        if max_points_in_flight:  # 0/None -> single-shot
+            return _run_job_bounded(
+                source, sink, config, batch_size, max_points_in_flight,
+                overlap_ingest=overlap_ingest, spill_dir=merge_spill_dir,
+                device=device, timer=timer, feeder_stats=feeder_stats,
+            )
+        with stage(timer, "ingest"):
+            data = ingest_columns(source.batches(batch_size), config)
+        if data is None:
+            return {}
+        if device_columns is not None:
+            data = _with_device_columns(data, device_columns, device)
+        with get_tracer().span("cascade", items=len(data["latitude"])):
+            return _run_loaded(data, config, as_json=True, sink=sink,
+                               device=device, timer=timer)
 
 
 def _with_device_columns(data, device_columns, device):
@@ -830,6 +854,43 @@ def _fast_batches_for(source, batch_size, checkpointing=False):
     )
 
 
+def _resolve_backend(config: BatchJobConfig, device,
+                     n_emissions: int | None = None,
+                     data_parallel: bool = False) -> str:
+    """Resolve the cascade backend once per job and leave the JAX
+    package's audit trail: a ``backend_resolved`` event saying how
+    ``"auto"`` routed and why, and the ``points_binned_total`` counter
+    when the emission count is known here. With telemetry off it is
+    ``config.resolved_cascade_backend(device)`` and nothing else.
+
+    When the mesh engages (``data_parallel``), the event also carries
+    ``dispatch``, how the formulation knob resolved.
+    """
+    resolved = config.resolved_cascade_backend(device)
+    if not obs.telemetry_enabled():
+        return resolved
+    if config.cascade_backend != "auto":
+        reason = "explicit request"
+    elif config.weighted:
+        reason = ("weighted jobs stay on scatter (the bounded-integer "
+                  "partitioned contract is an explicit opt-in)")
+    elif resolved == "partitioned":
+        reason = "count job on cuda -> partitioned segment-reduce kernel"
+    else:
+        reason = "cpu device -> torch scatter"
+    if n_emissions is not None:
+        obs.POINTS_BINNED.inc(int(n_emissions), backend=resolved)
+    fields = {"requested": config.cascade_backend, "resolved": resolved,
+              "reason": reason, "weighted": bool(config.weighted),
+              "data_parallel": bool(data_parallel)}
+    if data_parallel:
+        fields["dispatch"] = config.resolved_dispatch
+    if n_emissions is not None:
+        fields["n_emissions"] = int(n_emissions)
+    obs.emit("backend_resolved", **fields)
+    return resolved
+
+
 def _run_job_bounded(source, sink, config: BatchJobConfig,
                      batch_size: int, max_points: int,
                      overlap_ingest: bool = True, fast: bool = False,
@@ -867,8 +928,11 @@ def _run_job_bounded(source, sink, config: BatchJobConfig,
     ts_vocab = TimespanVocab()
     ccfg = config.cascade_config()
     n_levels = ccfg.n_levels + 1
-    backend = config.resolved_cascade_backend(device)
     dp_mesh = _dp_mesh(config, device)
+    # Resolved once for the whole job (no emission count yet: each
+    # chunk adds its own to points_binned_total).
+    backend = _resolve_backend(config, device,
+                               data_parallel=dp_mesh is not None)
     empty = {
         "ts": np.empty(0, np.int64), "g": np.empty(0, np.int64),
         "code": np.empty(0, np.int64), "value": np.empty(0, np.float64),
@@ -965,6 +1029,8 @@ def _run_job_bounded(source, sink, config: BatchJobConfig,
                     build_emissions(codes, valid, group_ids, flat_stamps,
                                     config, ts_vocab=ts_vocab, weights=w))
             n_emit = int(e_codes.shape[0])
+            if obs.metrics_enabled():
+                obs.POINTS_BINNED.inc(n_emit, backend=backend)
             # The mesh route's shard_map formulation with the replicated
             # or prefix merge, as the JAX bounded path runs it (no plan).
             level_data = cascade_mod.run_cascade(
@@ -1525,12 +1591,14 @@ def run_job_fast(source, sink=None, config: BatchJobConfig | None = None,
                     checkpoint(done)
     if not lats or sum(len(a) for a in lats) == 0:
         return {}
-    return _run_grouped(
-        np.concatenate(lats), np.concatenate(lons), np.concatenate(gids),
-        np.concatenate(tss), vocab, config, as_json=True, sink=sink,
-        weights=np.concatenate(vals) if config.weighted else None,
-        device=device, timer=timer,
-    )
+    lat = np.concatenate(lats)
+    with tracer.span("cascade", items=len(lat)):
+        return _run_grouped(
+            lat, np.concatenate(lons), np.concatenate(gids),
+            np.concatenate(tss), vocab, config, as_json=True, sink=sink,
+            weights=np.concatenate(vals) if config.weighted else None,
+            device=device, timer=timer,
+        )
 
 
 def _stamps_to_checkpoint(flat_stamps) -> dict:
@@ -1676,13 +1744,15 @@ def run_job_resumable(source, checkpoint_dir: str, sink=None,
                     checkpoint(done)
     if not lats or sum(len(a) for a in lats) == 0:
         return {}
-    return _run_grouped(
-        np.concatenate(lats), np.concatenate(lons),
-        np.concatenate(gids).astype(np.int32),
-        [s for chunk in stamps for s in chunk], vocab, config, as_json=True,
-        sink=sink, weights=np.concatenate(vals) if config.weighted else None,
-        device=device, timer=timer,
-    )
+    with tracer.span("cascade"):
+        return _run_grouped(
+            np.concatenate(lats), np.concatenate(lons),
+            np.concatenate(gids).astype(np.int32),
+            [s for chunk in stamps for s in chunk], vocab, config,
+            as_json=True, sink=sink,
+            weights=np.concatenate(vals) if config.weighted else None,
+            device=device, timer=timer,
+        )
 
 
 def run_batch(rows, config: BatchJobConfig | None = None,
@@ -1758,8 +1828,6 @@ def _dp_mesh_for(mesh, config: BatchJobConfig, n_emissions: int,
                  else config.dp_min_emissions)
     if config.data_parallel is None and n_emissions < threshold:
         return None
-    from heatmap_tpu_torch import obs
-
     if plan is not None and plan.degenerate and obs.telemetry_enabled():
         obs.emit(
             "backend_resolved",
@@ -1828,9 +1896,11 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
         raise ValueError("config.weighted needs per-point weights "
                          "(a 'value' column in the source)")
     device = resolve_device(device)
-    with stage(timer, "project"):
+    tracer = get_tracer()
+    with tracer.span("cascade.project", items=len(lat)), \
+            stage(timer, "project"):
         codes, valid = project_codes(lat, lon, config.detail_zoom, device)
-    with stage(timer, "emissions"):
+    with tracer.span("cascade.emissions"), stage(timer, "emissions"):
         w = None
         if config.weighted:
             w = (weights.to(device=device, dtype=torch.float64)
@@ -1845,7 +1915,7 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
     if config.pad_bucketing != "exact":
         # Pad to the bucket on the card: capacity and n_slots are then
         # functions of the bucket, not of the batch (pipeline/bucketing.py).
-        with get_tracer().span("cascade.bucket", items=len(e_codes)):
+        with tracer.span("cascade.bucket", items=len(e_codes)):
             target = bucketing_mod.bucket_size(
                 len(e_codes), config.pad_bucketing, config.pad_bucket_min)
             e_codes, e_slots, e_valid, e_weights = (
@@ -1858,45 +1928,55 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
     if plan is not None and (dp_mesh is None or plan.degenerate):
         plan = None  # fallback recorded by _dp_mesh_for
     dispatch = config.resolved_dispatch if dp_mesh is not None else None
+    dispatch_timer = obs.DispatchTimer(dispatch or "single")
     if plan is not None and dispatch != "gspmd":
         # The gspmd formulation routes on the device against the splits;
         # the shard_map one takes the emissions pre-routed.
         e_codes, e_slots, e_valid, e_weights = _route(
             plan, config, e_codes, e_slots, e_valid, e_weights)
-    backend = config.resolved_cascade_backend(device)
-    capacity = config.capacity or len(e_codes)
-    acc_dtype = torch.float64 if e_weights is not None else None
-    if not stage_tracing_enabled() and not config.adaptive_capacity:
-        # The JAX package's jit cache key for this dispatch (shapes and
-        # every static arg of its _build_cascade_jit): the mirror counts
-        # what it would compile, so cache_stats() equals the JAX
-        # package's.
-        bucketing_mod.note_dispatch(
-            (int(e_codes.shape[0]), _dtype_name(e_codes),
-             _dtype_name(e_slots), e_valid is not None,
-             None if e_weights is None else _dtype_name(e_weights),
-             ccfg, n_slots, capacity,
-             None if acc_dtype is None else "float64",
-             backend,
-             None if dp_mesh is None
-             else tuple(sorted(dp_mesh.shape.items())),
-             config.dp_merge, config.weight_bound,
-             None if plan is None else ("morton", len(plan.splits)),
-             dispatch),
-            config.pad_bucketing)
-    levels = cascade_mod.run_cascade(
-        e_codes, e_slots, ccfg, n_slots=n_slots, valid=e_valid,
-        capacity=capacity, weights=e_weights,
-        # Weighted sums accumulate in f64; counts use int32.
-        acc_dtype=acc_dtype, backend=backend,
-        weight_bound=config.weight_bound, timer=timer,
-        adaptive=config.adaptive_capacity, mesh=dp_mesh,
-        merge=config.dp_merge,
-        partition_splits=(None if plan is None else torch.as_tensor(
-            plan.splits, dtype=torch.int64, device=e_codes.device)),
-        dispatch=dispatch or "shard_map",
-    )
-    with stage(timer, "decode"):
+    backend = _resolve_backend(config, device, n_emissions=len(e_codes),
+                               data_parallel=dp_mesh is not None)
+    with tracer.span("cascade.device", backend=backend):
+        capacity = config.capacity or len(e_codes)
+        acc_dtype = torch.float64 if e_weights is not None else None
+        if not stage_tracing_enabled() and not config.adaptive_capacity:
+            # The JAX package's jit cache key for this dispatch (shapes
+            # and every static arg of its _build_cascade_jit): the mirror
+            # counts what it would compile, so cache_stats() equals the
+            # JAX package's.
+            bucketing_mod.note_dispatch(
+                (int(e_codes.shape[0]), _dtype_name(e_codes),
+                 _dtype_name(e_slots), e_valid is not None,
+                 None if e_weights is None else _dtype_name(e_weights),
+                 ccfg, n_slots, capacity,
+                 None if acc_dtype is None else "float64",
+                 backend,
+                 None if dp_mesh is None
+                 else tuple(sorted(dp_mesh.shape.items())),
+                 config.dp_merge, config.weight_bound,
+                 None if plan is None else ("morton", len(plan.splits)),
+                 dispatch),
+                config.pad_bucketing)
+        levels = cascade_mod.run_cascade(
+            e_codes, e_slots, ccfg, n_slots=n_slots, valid=e_valid,
+            capacity=capacity, weights=e_weights,
+            # Weighted sums accumulate in f64; counts use int32.
+            acc_dtype=acc_dtype, backend=backend,
+            weight_bound=config.weight_bound, timer=timer,
+            adaptive=config.adaptive_capacity, mesh=dp_mesh,
+            merge=config.dp_merge,
+            partition_splits=(None if plan is None else torch.as_tensor(
+                plan.splits, dtype=torch.int64, device=e_codes.device)),
+            dispatch=dispatch or "shard_map",
+        )
+        # Kernels enqueued; only while telemetry is on, the card is
+        # synchronised so the host/device split times execution.
+        dispatch_timer.dispatched()
+        if dispatch_timer.enabled and e_codes.device.type == "cuda":
+            torch.cuda.synchronize(e_codes.device)
+        dispatch_timer.finished(items=len(e_codes))
+    with tracer.span("cascade.decode"), stage(timer, "decode"):
         decoded = cascade_mod.decode_levels(levels, ccfg)
     return _finish_blobs(decoded, ccfg, _slot_names(vocab, ts_vocab, n_groups),
                          as_json, sink=sink, timer=timer)
+

@@ -303,6 +303,16 @@ def decode_levels(level_data, config: CascadeConfig):
     return out
 
 
+def emit_level_arrays(level_data, config: CascadeConfig, slot_names):
+    """Columnar egress: per-level numpy arrays with coarse (blob) tile
+    coordinates and dictionary-encoded (user, timespan) columns
+    (:func:`finalize_level_arrays` of :func:`decode_levels`), with the
+    amplify_all compat patch applied when configured."""
+    return finalize_level_arrays(
+        decode_levels(level_data, config), config, slot_names
+    )
+
+
 def finalize_level_arrays(levels, config: CascadeConfig, slot_names):
     """Resolve slot names, add coarse (blob) tile coordinates and apply
     the amplify_all compat patch.

@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from heatmap_tpu_torch import faults
+from heatmap_tpu_torch import faults, obs
 
 _DONE = object()   # worker -> consumer end-of-stream sentinel
 _POLL_S = 0.05     # bounded put/get poll interval (not a sleep loop)
@@ -194,6 +194,21 @@ def ready(fed):
     return item
 
 
+def device_put_columns(cols, *, device, columns=("latitude", "longitude",
+                                                "value")):
+    """The batch dict with its numeric columns in ``columns`` moved to
+    ``device`` as tensors (the JAX package's ``device_put_columns``; the
+    device is named, never implied). Only ndarray float/int columns
+    move: string columns and ``timestamp`` (the host-side timespan
+    labeler reads it) stay as they are."""
+    out = dict(cols)
+    for name in columns:
+        val = out.get(name)
+        if isinstance(val, np.ndarray) and val.dtype.kind in "fiu":
+            out[name] = torch.as_tensor(val, device=torch.device(device))
+    return out
+
+
 def feed(items, transfer, *, depth: int = DEFAULT_DEPTH,
          stats: FeederStats | None = None, thread_name: str = "feeder"):
     """Yield ``transfer(item)`` for each item, producing and transferring
@@ -240,10 +255,13 @@ def feed(items, transfer, *, depth: int = DEFAULT_DEPTH,
             worker_error.append(e)
             abort.set()
 
-    worker = threading.Thread(target=_work, name=thread_name, daemon=True)
+    # The worker's spans join the consumer's span tree.
+    worker = threading.Thread(target=obs.tracing.context_bound(_work),
+                              name=thread_name, daemon=True)
     worker.start()
 
     def _drain():
+        metrics_on = obs.metrics_enabled()
         try:
             while True:
                 t0 = time.monotonic()
@@ -258,6 +276,8 @@ def feed(items, transfer, *, depth: int = DEFAULT_DEPTH,
                 if got is _DONE:
                     break
                 st.depth_hwm = max(st.depth_hwm, q.qsize() + 1)
+                if metrics_on:
+                    obs.FEEDER_DEPTH.set(q.qsize())
                 st.batches += 1
                 yield got
         finally:

@@ -1,8 +1,13 @@
-"""Vectorized Web-Mercator projection.
+"""Vectorized Web-Mercator projection (forward and inverse).
 
-Port of heatmap_tpu/tilemath/mercator.py (``project_points``,
-``project_points_np``). The behavioural contract is the reference's
-scalar math (reference tile.py:16-30), quirks included:
+Port of heatmap_tpu/tilemath/mercator.py: ``project_points``,
+``project_points_np``, the forward and inverse functions
+(``mercator_x``/``mercator_y``, ``row_from_latitude``,
+``column_from_longitude``, ``latitude_from_row``,
+``longitude_from_column``) and ``tile_center_latlon``, as torch
+functions that keep their input tensor's device. The behavioural
+contract is the reference's scalar math (reference tile.py:16-30),
+quirks included:
 
 - ``floor`` semantics, so negative intermediates round down;
 - no pole clamping: |lat| >= 90 gives non-finite rows, and latitudes
@@ -37,6 +42,80 @@ from heatmap_tpu_torch.tilemath import tile as _tile
 MAX_LATITUDE = math.degrees(math.atan(math.sinh(math.pi)))  # 85.05112877980659
 
 _PI = math.pi
+
+
+def default_float_dtype():
+    """``torch.float64``: the port's tile math runs at the reference's
+    CPython-double precision (the JAX package's x64 default)."""
+    return torch.float64
+
+
+def _as_float(x, dtype):
+    dtype = dtype or default_float_dtype()
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return torch.as_tensor(x, dtype=dtype)
+
+
+def mercator_y(latitude, dtype=None):
+    """Normalized Mercator y in [0, 1) for latitudes in the mercator range.
+
+    Same operation order as the reference formula (reference
+    tile.py:17): ``(1 - log(tan(phi) + sec(phi)) / pi) / 2`` with
+    ``phi = lat*pi/180``.
+    """
+    lat = _as_float(latitude, dtype)
+    phi = lat * _PI / 180.0
+    return (1.0 - torch.log(torch.tan(phi) + 1.0 / torch.cos(phi)) / _PI) / 2.0
+
+
+def mercator_x(longitude, dtype=None):
+    """Normalized Mercator x in [0, 1); lon == 180 maps to exactly 1.0."""
+    lon = _as_float(longitude, dtype)
+    return (lon + 180.0) / 360.0
+
+
+def row_from_latitude(latitude, zoom, dtype=None):
+    """Floored tile row at ``zoom`` (float dtype; may be non-finite at
+    poles). Matches reference tile.py:16-17; in float64 the rows within
+    the error margin of an edge are the host's (see
+    :func:`project_points`), so every row is the reference's."""
+    return _floored_rows(_as_float(latitude, dtype), zoom)
+
+
+def column_from_longitude(longitude, zoom, dtype=None):
+    """Floored tile column at ``zoom`` (float dtype; 180° -> 2^zoom).
+    Matches reference tile.py:20-21."""
+    return torch.floor(mercator_x(longitude, dtype) * float(1 << zoom))
+
+
+def latitude_from_row(row, zoom, dtype=None):
+    """North-edge latitude of tile ``row`` at ``zoom`` (reference
+    tile.py:24-26): ``atan(sinh(n))`` written as ``atan(0.5*(e^n -
+    e^-n))`` with ``n = pi - 2*pi*row/2^zoom``."""
+    r = _as_float(row, dtype)
+    n = _PI - 2.0 * _PI * r / float(1 << zoom)
+    return 180.0 / _PI * torch.atan(0.5 * (torch.exp(n) - torch.exp(-n)))
+
+
+def longitude_from_column(column, zoom, dtype=None):
+    """West-edge longitude of tile ``column`` at ``zoom`` (reference
+    tile.py:29-30)."""
+    c = _as_float(column, dtype)
+    return c / float(1 << zoom) * 360.0 - 180.0
+
+
+def tile_center_latlon(row, column, zoom, dtype=None):
+    """Center (lat, lon) of tiles as the reference computes it: the
+    arithmetic mean of the edge latitudes (reference tile.py:45-52), not
+    the inverse projection of the Mercator-y midpoint."""
+    lat_n = latitude_from_row(row, zoom, dtype)
+    r = _as_float(row, dtype)
+    lat_s = latitude_from_row(r + 1.0, zoom, dtype)
+    lon_w = longitude_from_column(column, zoom, dtype)
+    c = _as_float(column, dtype)
+    lon_e = longitude_from_column(c + 1.0, zoom, dtype)
+    return (lat_n + lat_s) / 2.0, (lon_e + lon_w) / 2.0
 
 
 #: Machine epsilon of float64: the spacing of doubles in [1, 2).
@@ -102,15 +181,7 @@ def project_points(latitude, longitude, zoom: int, dtype=torch.float64):
     lat = torch.as_tensor(latitude, dtype=dtype)
     lon = torch.as_tensor(longitude, dtype=dtype, device=lat.device)
     n = float(1 << zoom)
-    phi = lat * _PI / 180.0
-    t = torch.tan(phi)
-    s = 1.0 / torch.cos(phi)
-    u = t + s
-    log_u = torch.log(u)
-    ny = (1.0 - log_u / _PI) / 2.0 * n
-    frow = torch.floor(ny)
-    if dtype == torch.float64:
-        frow = _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom)
+    frow = _floored_rows(lat, zoom)
     fcol = torch.floor((lon + 180.0) / 360.0 * n)
     valid = (
         torch.isfinite(frow)
@@ -130,6 +201,22 @@ def project_points(latitude, longitude, zoom: int, dtype=torch.float64):
 
 
 project_points.rechecked = 0
+
+
+def _floored_rows(lat, zoom: int):
+    """Floored rows of a float tensor of latitudes; in float64 the lanes
+    near a row edge are re-derived on the host (:func:`project_points`)."""
+    n = float(1 << zoom)
+    phi = lat * _PI / 180.0
+    t = torch.tan(phi)
+    s = 1.0 / torch.cos(phi)
+    u = t + s
+    log_u = torch.log(u)
+    ny = (1.0 - log_u / _PI) / 2.0 * n
+    frow = torch.floor(ny)
+    if lat.dtype == torch.float64:
+        frow = _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom)
+    return frow
 
 
 def _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom):

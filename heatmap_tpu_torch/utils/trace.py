@@ -10,7 +10,8 @@ record into it (``ingest.batch``, ``cascade.chunk``, ``merge.chunk``,
 Spans measure the host's clock. Device work inside a span is counted
 only as far as the host waited for it; ``devices.StageTimer`` is the
 fenced per-stage split. ``stage_span`` opens a span only while stage
-tracing is on and costs a nullcontext otherwise.
+tracing is on and costs a nullcontext otherwise; ``stage_block`` then
+synchronises the card, so a span times execution, not launch.
 
 Closed spans of the default tracer also feed the telemetry core
 (heatmap_tpu_torch/obs): a ``stage_duration_seconds`` sample and a
@@ -172,6 +173,18 @@ def stage_span(name: str, items: int | None = None, **attrs):
     if not _stage_tracing:
         return contextlib.nullcontext()
     return _default.span(name, items=items, **attrs)
+
+
+def stage_block(x):
+    """Under stage tracing, wait for the card to finish the work queued
+    so far (a span closing on unfinished kernels records only their
+    launch) and return ``x``; the identity otherwise."""
+    if _stage_tracing:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    return x
 
 
 @contextlib.contextmanager

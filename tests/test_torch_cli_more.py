@@ -346,9 +346,11 @@ def test_output_typo_fails_at_parse_time(capsys, command):
 @pytest.mark.parametrize("kind", ["arrays-synopsis", "arrays-integral",
                                   "cassandra"])
 def test_unported_sink_kind_fails_at_parse_time(capsys, tmp_path, kind):
-    """``cassandra:`` still exits 2 at parse time. ``arrays-synopsis:``
-    and ``arrays-integral:``, ported since, write the JAX run's files
-    (levels plus synopses or summed-area tables) byte for byte."""
+    """Every JAX sink kind parses now. ``arrays-synopsis:`` and
+    ``arrays-integral:`` write the JAX run's files (levels plus synopses
+    or summed-area tables) byte for byte; ``cassandra:`` without a
+    session runs the job and then fails on its first write with the JAX
+    run's ``SinkConfigError`` (a process exits 1 on it)."""
     if kind != "cassandra":
         trees = []
         for cli, dev in ((tcli, "--device"), (jcli, "--backend")):
@@ -362,11 +364,18 @@ def test_unported_sink_kind_fails_at_parse_time(capsys, tmp_path, kind):
         side = "synopsis-z" if kind == "arrays-synopsis" else "integral-z"
         assert any(name.startswith(side) for name in trees[0])
         return
-    with pytest.raises(SystemExit) as err:
-        tcli.main(["run", "--input", "synthetic:10", "--backend", "cpu",
-                   "--output", f"{kind}:x"])
-    assert err.value.code == 2
-    assert f"sink kind '{kind}' is not ported yet" in capsys.readouterr().err
+    from heatmap_tpu.io.sinks import SinkConfigError as JSinkConfigError
+    from heatmap_tpu_torch.io.sinks import SinkConfigError
+
+    errors = []
+    for cli, dev, exc in ((tcli, "--device", SinkConfigError),
+                          (jcli, "--backend", JSinkConfigError)):
+        with pytest.raises(exc) as err:
+            cli.main(["run", "--input", "synthetic:300:2", *RUN, dev, "cpu",
+                      "--output", f"{kind}:"])
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    assert "needs a cassandra-driver session" in errors[0]
 
 
 @pytest.mark.parametrize("command", ["run", "tiles", "stream", "info"])

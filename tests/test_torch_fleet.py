@@ -442,6 +442,16 @@ class TestRollingReload:
         victim.set_address(good_host, int(good_port))
         status, body = _post(f"{base}/reload")
         assert (status, json.loads(body)["ok"]) == (200, True)
+        assert victim.ejected is None
+        if victim.breaker.state != "closed":
+            # The prober (every 50 ms) reached the bad address three
+            # times before the restore, which opens the breaker: the
+            # backend rejoins on the first half-open probe after the
+            # cooldown, as in the JAX router.
+            deadline = time.monotonic() + 30.0
+            while (victim.breaker.state != "closed"
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
         health = json.loads(_get(base + "/healthz")[2])
         assert victim.id in health["fleet"]["eligible"]
 
