@@ -13,8 +13,8 @@ just before it and read just after:
 
 - the single-shot batch job, ``run_job``, at the default z21 -> z6
   cascade with native decode and JSON egress, checked against the CPU
-  and the reference's scalar projection, and at 1M points against the
-  scatter backend and adaptive capacities (segment-reduce kernel);
+  and the reference's scalar projection, and at 524,288 points against
+  the scatter backend and adaptive capacities (segment-reduce kernel);
 - the same 4M-point job chunked (``max_points_in_flight``, four 1M-point
   chunks fed to the card by the CUDA-stream feeder), in RAM and with a
   spill dir, each equal to the single-shot blobs, with 16 segment-reduce
@@ -25,7 +25,7 @@ just before it and read just after:
   blobs;
 - the mesh paths (``parallel/``), 4 shards laid on the card: the 4M
   job with ``data_parallel=True`` (gspmd, Morton ranges routed on the
-  card) equal to the single-shot blobs; 1M-point jobs under shard_map
+  card) equal to the single-shot blobs; 524,288-point jobs under shard_map
   with the replicated and prefix merges, Morton ranges under both
   dispatches and a weighted job, each equal to the single-device job
   (one segment-reduce launch per shard); ``run --data-parallel on``
@@ -52,8 +52,8 @@ just before it and read just after:
   through a CSV (bit-equal to the uninterrupted run); each against the
   same run on the CPU (bit-equal without decay, within STREAM_RTOL with
   it), and a twin of ``tools/bench_stream.py`` per binning backend;
-- the delta store through ``update`` and ``retract`` (a 524,288-point
-  base, 131,072-point increments, a duplicate, retractions, a compaction),
+- the delta store through ``update`` and ``retract`` (a 262,144-point
+  base, 65,536-point increments, a duplicate, retractions, a compaction),
   checked against a one-shot run over the surviving points and against
   the same sequence on the CPU (16 segment-reduce launches per applied
   batch);
@@ -81,8 +81,8 @@ just before it and read just after:
   process, tiles through the router equal to a single-process app's, a
   child SIGKILLed mid-list (no 500; restarted and back on the ring), and
   no process of the fleet holding a CUDA context;
-- the temporal plane: ``update --bucket-width 3600`` over a 262,144-point
-  base and four 65,536-point increments stamped into separate hours, two
+- the temporal plane: ``update --bucket-width 3600`` over a 131,072-point
+  base and four 32,768-point increments stamped into separate hours, two
   bucketed compactions (the manifest against the bucket ladder), ``retract
   --where`` landing one counter-batch per bucket, ``serve`` as a process
   answering ``?as_of=`` (against a recompute over the batches inside the
@@ -107,7 +107,14 @@ just before it and read just after:
   a process (its blob count equal to the same job run here),
   ``bench_delta`` and ``bench_ingest`` (exact and bucketed padding
   applying the same points), each record with the JAX tool's keys and
-  each segment-reduce launch made here held to the plain version;
+  each segment-reduce launch made here held to the plain version; then
+  the measuring tools' twins (``bench_writeplane``, ``bench_temporal``,
+  ``bench_query``, ``bench_synopsis``, ``mem_probe`` with each child's
+  peak device bytes, the job single-shot and chunked, ``tilefs_convert``
+  and ``load_gen`` as host work on a copy of the serve phase's small
+  store, ``soak`` with its mesh checks on 8 shards laid on the card and
+  ``weighted`` (b) at 2^20 points), every gate of their records true
+  and every kernel launch made here held to the plain version;
 
 and the Gaussian splat's convolutions on the card against the CPU.
 
@@ -179,7 +186,7 @@ N_TILES = 4_000_000
 #: of sqrt(k) * 2^-24 is then about 3e-5, and this is 3x that. The CPU
 #: tests, at their sizes, hold 1e-5.
 FRACTIONAL_RTOL = 1e-4
-#: The delta phase: a base of 524,288 points, increments of 131,072
+#: The delta phase: a base of 262,144 points, increments of 65,536
 #: points (seeds 1-4), the user a predicate retraction removes; and the
 #: small sequence (a 50k base with 8,192-point increments: 200k until the
 #: temporal phase came, 100k with 16,384 until the parallel phase came)
@@ -187,10 +194,11 @@ FRACTIONAL_RTOL = 1e-4
 #: phase's (b) store and the serve phase's large store. (The default
 #: job's 4M points until the write-plane and fleet phases came, then
 #: 2M until the temporal phase came, then 1M with 262,144-point
-#: increments until the Cassandra and tools phases came; halved each
-#: time to keep the smoke within its time.)
-N_DELTA_BASE = 1 << 19
-N_DELTA_INC = 1 << 17
+#: increments until the Cassandra and tools phases came, then 524,288
+#: with 131,072 until the measuring tools came; halved each time to
+#: keep the smoke within its time.)
+N_DELTA_BASE = 1 << 18
+N_DELTA_INC = 1 << 16
 N_DELTA_SMALL_BASE = 50_000
 N_DELTA_SMALL_INC = 1 << 13
 DELTA_USER = "user-3"
@@ -276,7 +284,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: base's among them). Four increments (one an hour over hours 1-15
 #: until the smoke's time forced the cut; the base 1M points and the
 #: increments 131,072 until the parallel phase came, the base 524,288
-#: until the Cassandra and tools phases came), placed so that
+#: until the Cassandra and tools phases came, 262,144 with 65,536-point
+#: increments until the measuring tools came), placed so that
 #: the compactions
 #: still coarsen hours 0 and 2 into one tier-1 bucket. TEMPORAL_T0 is a
 #: multiple of
@@ -285,7 +294,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: TEMPORAL_TILES most populated tiles plus TEMPORAL_EMPTY empty ones in
 #: each cut, and TEMPORAL_GROWTH_QUERIES ``op=topk_growth`` requests.
 #: The card-against-CPU sequence is the same at N_TEMPORAL_SMALL_BASE
-#: and N_TEMPORAL_SMALL_INC points with increments in
+#: and N_TEMPORAL_SMALL_INC points (65,536 and 16,384 until the
+#: measuring tools came) with increments in
 #: TEMPORAL_SMALL_HOURS (far enough apart for its oldest hours to
 #: coarsen); the ``ingest`` case drains TEMPORAL_INGEST_TICKS ticks of
 #: INGEST_MICRO points, two per hour across an hour edge, onto a store
@@ -294,8 +304,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: TEMPORAL_ROLL_TILES populated tiles (and a sixth of that empty) served
 #: in ``?window=1h``.
 TEMPORAL_T0 = 1_700_121_600
-N_TEMPORAL_BASE = 1 << 18
-N_TEMPORAL_INC = 1 << 16
+N_TEMPORAL_BASE = 1 << 17
+N_TEMPORAL_INC = 1 << 15
 TEMPORAL_HOURS = (2, 4, 9)
 TEMPORAL_LATE_HOURS = (11,)
 TEMPORAL_USER = "user-3"
@@ -304,8 +314,8 @@ TEMPORAL_TILES = 150
 TEMPORAL_EMPTY = 15
 TEMPORAL_ROLL_TILES = 60
 TEMPORAL_GROWTH_QUERIES = 50
-N_TEMPORAL_SMALL_BASE = 1 << 16
-N_TEMPORAL_SMALL_INC = 1 << 14
+N_TEMPORAL_SMALL_BASE = 1 << 15
+N_TEMPORAL_SMALL_INC = 1 << 13
 TEMPORAL_SMALL_HOURS = (3, 6, 9, 12)
 TEMPORAL_SMALL_LATE_HOURS = ()
 TEMPORAL_INGEST_TICKS = 4
@@ -427,6 +437,60 @@ def segment_calls_held_to_plain(what):
                          f"(n={keys.shape[0]}, shift={shift})")
         checked.append({"n": int(keys.shape[0]), "capacity": capacity,
                         "shift": shift, "weighted": weights is not None})
+    del calls
+
+
+@contextlib.contextmanager
+def window_calls_held_to_plain(what):
+    """``segment_calls_held_to_plain`` for the window kernels (the
+    histogram's and the bucketed counts and weights): every launch of
+    the path run inside is kept (references, as there) and, after the
+    body, held to ``histogram._plain`` on its own inputs: bit-equal for
+    counts and integer weights, else both within FRACTIONAL_RTOL of the
+    float64 sum of the same weights. Returns the list of checked calls
+    (kernel, points)."""
+    from heatmap_tpu_torch.ops import histogram
+    from heatmap_tpu_torch.ops import pallas_kernels as pk
+    from heatmap_tpu_torch.ops import partitioned as pt
+
+    calls, checked = [], []
+    launches = {}
+
+    def recorder(module, kernel):
+        launch = launches[module] = module._launch
+
+        def recorded(row, col, window, weights, valid):
+            got = launch(row, col, window, weights, valid)
+            calls.append((kernel, row, col, window, weights, valid, got))
+            return got
+        return recorded
+
+    pk._launch = recorder(pk, "window_histogram")
+    pt._launch = recorder(pt, "window_partitioned")
+    try:
+        yield checked
+    finally:
+        for module, launch in launches.items():
+            module._launch = launch
+    torch.cuda.synchronize()
+    for i, (kernel, row, col, window, weights, valid, got) in \
+            enumerate(calls):
+        name = f"{what}: {kernel} call {i} (n={row.shape[0]})"
+        want = histogram._plain(row, col, window, weights, valid)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if weights is None or torch.equal(weights, weights.round()):
+            assert torch.equal(got, want), name
+        else:
+            ref = histogram._scatter_window(
+                row, col, window, weights=weights.double(), valid=valid,
+                dtype=torch.float64)
+            for x in (got, want):
+                rel = ((x.double() - ref).abs()
+                       / ref.abs().clamp(min=1e-30)).max()
+                assert float(rel) <= FRACTIONAL_RTOL, (name, float(rel))
+        if kernel == "window_partitioned" and weights is not None:
+            kernel = "window_partitioned_weighted"
+        checked.append({"kernel": kernel, "n": int(row.shape[0])})
     del calls
 
 
@@ -2018,7 +2082,7 @@ def phase_ingest(dev, big_root):
     """The ``ingest`` command on the card, as the N_INGEST* constants
     describe: (a) a drain into a fresh journal at the command's defaults;
     (b) INGEST_B_TICKS ticks onto ``big_root`` (the delta phase's store,
-    a compacted 524,288-point base); (c) the replay of (a)'s first ticks onto
+    a compacted 262,144-point base); (c) the replay of (a)'s first ticks onto
     a store that holds them, every tick a duplicate; (d) ``--retract``
     of (a)'s first N_INGEST_RETRACT points; (e) (a)'s first
     INGEST_CUT_TICKS ticks with every telemetry flag on, into a fresh
@@ -2162,7 +2226,7 @@ def phase_ingest(dev, big_root):
         assert any(x.startswith("snap-") for x in os.listdir(spill))
         pads_counted = [float(line.split()[-1]) for line in prom.splitlines()
                         if line.startswith("cascade_pad_emissions_total")]
-        # (b) ticks onto the delta phase's store (524,288-point base).
+        # (b) ticks onto the delta phase's store (262,144-point base).
         b = ingest_drain(argv(big_root, f"synthetic:"
                               f"{INGEST_B_TICKS * INGEST_MICRO}:8",
                               "--max-ticks", str(INGEST_B_TICKS),
@@ -2454,7 +2518,7 @@ def served_drain(root, spec, rates, device, tiles_of, cold_every_tick):
     return rec
 
 
-def phase_serve(dev, big_root, plain_ticks_s):
+def phase_serve(dev, big_root, plain_ticks_s, keep):
     """Serving on the card's stores, as SERVE_* describe. (a) and (b):
     ``ingest --serve-port 0`` at its defaults onto the delta phase's
     store (``big_root``): its mount of ``delta:``, the tile list fetched
@@ -2470,8 +2534,10 @@ def phase_serve(dev, big_root, plain_ticks_s):
     --follow-stream`` at its defaults with ``--tick-seconds 0`` for
     SERVE_TICKS ticks over the small store: one window-histogram launch
     a tick, the live raster bit-equal to the port's HeatmapStream on the
-    CPU over the same points. Returns the segment-reduce launches of the
-    served ticks and (c)'s histogram launches."""
+    CPU over the same points. A copy of the small store is left at
+    ``keep`` (the tools phase serves it). Returns the
+    segment-reduce launches of the served ticks and (c)'s histogram
+    launches."""
     import threading
 
     from heatmap_tpu_torch import cli, delta
@@ -2640,6 +2706,7 @@ def phase_serve(dev, big_root, plain_ticks_s):
                                 "max": max(tick_s) * 1e3},
                     "live_tiles_fetched": len(live),
                     "raster_equal_cpu": True}
+        shutil.copytree(roots["serve"], keep)
     emit(out)
     return launches, hist
 
@@ -4018,11 +4085,13 @@ def phase_stream_bench(dev):
           "backends": out})
 
 
-#: The mesh phase: shards laid on the one card; the 1M-point jobs of its
-#: dispatch, merge and partition variants; the multihost and elastic
-#: jobs' points and batch; the sharded stream's ticks.
+#: The mesh phase: shards laid on the one card; the points of its
+#: dispatch, merge and partition variants (also the run_job phase's
+#: backend and adaptive checks; 2^20 until the measuring tools came);
+#: the multihost and elastic jobs' points and batch; the sharded
+#: stream's ticks.
 PARALLEL_SHARDS = 4
-N_PARALLEL = 1 << 20
+N_PARALLEL = 1 << 19
 N_MULTIHOST = 1 << 18
 MULTIHOST_BATCH = 1 << 15
 N_ELASTIC = 1 << 18
@@ -4660,6 +4729,35 @@ TOOLS_DELTA_BASE = 1 << 18
 TOOLS_DELTA_RATIO = 16
 TOOLS_INGEST_POINTS = 1 << 16
 TOOLS_INGEST_MICRO = 1 << 14
+#: The measuring tools' twins (their JAX defaults in brackets).
+TOOLS_WRITEPLANE_POINTS = 1 << 14  # [20,000 points, 2,048 a batch]
+TOOLS_WRITEPLANE_MICRO = 1 << 12
+TOOLS_TEMPORAL_POINTS = 20_000  # [20,000; 30 iterations]
+TOOLS_TEMPORAL_ITERS = 10
+TOOLS_QUERY_POINTS = 1 << 16  # [200,000; 300 requests]
+TOOLS_QUERY_ITERS = 50
+TOOLS_SYNOPSIS_POINTS = 1 << 15  # [30,000; 50 decode passes]
+TOOLS_SYNOPSIS_ITERS = 10
+#: mem_probe: the job single-shot at two sizes (H5), then the smaller
+#: in chunks [20M points in 2M chunks].
+TOOLS_MEM_SIZES = (1 << 20, 1 << 21)
+TOOLS_MEM_CHUNK = 1 << 18
+#: soak [2M points, every check]: the checks whose work grows with the
+#: points at the JAX default (weighted (b)'s kernel at 2^20 points;
+#: ``streaming``'s tick of n // 50 points must split over the 8 shards,
+#: which 2^20 // 50 does not), the job checks at 2^17. ``resume`` (day
+#: timespans: ~30 blobs a point, three runs) at TOOLS_SOAK_RESUME_N is
+#: refused on the card (ROADMAP F9).
+TOOLS_SOAK_RUNS = ((2_000_000, "mesh,streaming,weighted"),
+                   (1 << 17, "fast-vs-bounded,dp-job"))
+TOOLS_SOAK_RESUME_N = 1 << 14
+#: The refusal of F9: "auto" sends the count job to the partitioned
+#: segment reduce, whose keys hold at most 60 bits.
+F9_REFUSAL = ("ValueError: cascade backend 'partitioned' reconstructs keys "
+              "from three 20-bit channels (60-bit limit)")
+TOOLS_LOAD_SECONDS = 2.0  # [10 s, 8 workers, 512 tiles]
+TOOLS_LOAD_WORKERS = 4
+TOOLS_LOAD_TILES = 128
 
 
 def _check_keys(rec, keys, what):
@@ -4667,17 +4765,19 @@ def _check_keys(rec, keys, what):
     assert not missing, f"{what} lacks the JAX tool's keys {missing}"
 
 
-def phase_tools(dev, tmp):
+def phase_tools(dev, tmp, store):
     """The bench-tool twins on the card, each once at its smallest useful
     size: ``bench_job``'s parent process (its measurement in a child),
     the child's blob count equal to the same job run here;
     ``bench_delta`` and ``bench_ingest`` in this process (their
     segment-reduce launches counted), exact and bucketed padding
-    applying the same points and invalidating the same keys. Every
-    segment-reduce launch of the twins run here, and of the job run
-    here, is held to the plain version on its own inputs. Each
-    record has the JAX tool's keys plus the card's name and power
-    limit. Returns the in-process twins' launches."""
+    applying the same points and invalidating the same keys; then the
+    measuring tools (``measuring_tools``) with ``store``, a copy of the
+    serve phase's small delta store. Every launch of the twins run
+    here, and of the job run here, is held to the plain version on its
+    own inputs. Each record has the JAX tool's keys plus
+    the card's name and power limit. Returns the in-process twins'
+    launches by kernel."""
     from heatmap_tpu_torch import obs
     from heatmap_tpu_torch.io.hmpb import HMPBSource
     from heatmap_tpu_torch.io.sinks import MemorySink
@@ -4781,10 +4881,294 @@ def phase_tools(dev, tmp):
     assert launches == len(held) == (
         4 * delta_levels + ingest_levels
         * (exact["ticks"] + pow2["ticks"])), (launches, len(held))
-    emit({"phase": "tools", **rec, "launches": launches,
-          "held_to_plain": len(held) + len(held_job),
+    by_kernel, held_measuring = measuring_tools(dev, tmp, store, rec)
+    by_kernel["segment_reduce"] += launches
+    held_measuring["segment_reduce"] += len(held) + len(held_job)
+    emit({"phase": "tools", **rec, "launches": by_kernel,
+          "held_to_plain": held_measuring,
           "phase_s": time.perf_counter() - t_phase})
-    return launches
+    return by_kernel
+
+
+def _check_record(doc, keys, what, dev):
+    """The JAX tool's keys, the device, and on a card its name and power
+    limit; ``dev`` None for a twin whose work is the host's alone
+    (``device`` "host", no card named)."""
+    _check_keys(doc, keys, what)
+    if dev is None:
+        assert doc["device"] == "host" and "gpu_name" not in doc, \
+            (what, doc["device"])
+        return
+    assert doc["device"] == dev.type, (what, doc["device"])
+    if dev.type == "cuda":
+        assert doc["gpu_name"] == torch.cuda.get_device_name(0), what
+        assert doc["power_limit_w"] is not None, what
+
+
+def _run_twin(module, argv, what):
+    """``module.main(argv)`` in this process, its output kept, the
+    kernels' counts set to 0 just before and read just after, every
+    launch of every kernel held to its plain version. Returns (exit
+    code, seconds, {kernel: launches}, {kernel: calls checked},
+    output)."""
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+
+    seg = sp.aggregate_sorted_keys_partitioned
+    printed = io.StringIO()
+    seg.launches = 0
+    zero_window_counters()
+    with contextlib.redirect_stdout(printed), \
+            segment_calls_held_to_plain(what) as held, \
+            window_calls_held_to_plain(what) as held_window:
+        t0 = time.perf_counter()
+        rc = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    checked = {"segment_reduce": len(held), "window_histogram": 0,
+               "window_partitioned": 0, "window_partitioned_weighted": 0}
+    for call in held_window:
+        checked[call["kernel"]] += 1
+    return (rc, seconds, {"segment_reduce": seg.launches,
+                          **window_counters()}, checked,
+            printed.getvalue())
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def measuring_tools(dev, tmp, store, rec):
+    """The measuring tools' twins on the card, each through its ``main``
+    at the TOOLS_* sizes, records under ``chiprun_out/torch_bench/``:
+
+    - ``bench_writeplane`` at 1, 2 and 4 writers, every cell's tiles
+      byte-identical to the single-writer reference;
+    - ``bench_temporal``, both byte gates true;
+    - ``bench_query`` (its own integral store), every op and the router;
+    - ``bench_synopsis``, the stamped error re-verified, provisional
+      publishes seen in the ingest drain;
+    - ``mem_probe`` (children: their launches are not this process's):
+      its child with the job single-shot at two sizes, then the twin's
+      ``ram`` mode with the smaller chunked, each child's peak device
+      bytes, rows equal between the smaller one's two runs;
+    - ``tilefs_convert --verify`` on a copy of ``store``, then
+      ``load_gen`` over the converted copy (mirrors mapped): no error,
+      no 5xx, a warm hit rate of at least 0.95; both host work, their
+      records' ``device`` "host";
+    - ``soak`` (TOOLS_SOAK_RUNS): every check passing, ``mesh`` and
+      ``dp-job`` over MESH_SHARDS shards laid on the card (not
+      skipped), ``weighted`` (b) the weighted bucketed kernel bit-equal
+      to the scatter path at 2^20 points (one launch), ``streaming``
+      the row-sharded stream (one window launch per shard a tick, the
+      bucketed counts kernel at its 1024x1024 window); then
+      ``resume``, which the card refuses before any launch where the
+      cascade resolves to the partitioned backend (F9_REFUSAL, ROADMAP
+      F9) and which passes where it resolves to scatter.
+
+    Every launch of every kernel in these twins is held to its plain
+    version on its own inputs (``_run_twin``). Adds each twin's numbers
+    to ``rec``; returns the launches and the calls held, by kernel."""
+    from heatmap_tpu_torch import obs
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig
+    from heatmap_tpu_torch.tools import (bench_query, bench_synopsis,
+                                         bench_temporal, bench_writeplane,
+                                         load_gen, mem_probe, soak,
+                                         tilefs_convert)
+
+    out_dir = os.path.join("chiprun_out", "torch_bench")
+    dargs = ["--device", dev.type]
+    launches = {"segment_reduce": 0, "window_histogram": 0,
+                "window_partitioned": 0, "window_partitioned_weighted": 0}
+    held_total = dict(launches)
+
+    def run(module, argv, what, expect_rc=0):
+        try:
+            rc, seconds, counts, held, text = _run_twin(module, argv, what)
+        finally:
+            obs.enable_metrics(False)
+            obs.get_registry().reset()
+        assert rc == expect_rc, (what, rc, text[-3000:])
+        assert counts == held, (what, counts, held)
+        for k, v in counts.items():
+            launches[k] += v
+            held_total[k] += held[k]
+        return seconds, counts
+
+    # bench_writeplane: pump threads launch the segment reduce at once.
+    path = os.path.join(out_dir, "bench_writeplane.json")
+    seconds, counts = run(bench_writeplane, [
+        "--points", str(TOOLS_WRITEPLANE_POINTS), "--writers", "1,2,4",
+        "--micro-batch", str(TOOLS_WRITEPLANE_MICRO), *dargs,
+        "--out", path], "bench_writeplane")
+    doc = _load(path)
+    _check_record(doc, bench_writeplane.RECORD_KEYS, "bench_writeplane", dev)
+    assert [r["writers"] for r in doc["results"]] == [1, 2, 4]
+    for row in doc["results"]:
+        _check_keys(row, bench_writeplane.RESULT_KEYS, "bench_writeplane row")
+        assert row["byte_identical"] and row["failed"] == 0, row
+        assert row["points"] == TOOLS_WRITEPLANE_POINTS, row
+    assert counts["segment_reduce"] > 0, counts
+    rec["bench_writeplane"] = {
+        "seconds": seconds, "tiles": doc["tiles"], "launches": counts,
+        **{f"writers_{r['writers']}": {k: r[k] for k in (
+            "pts_per_s", "lag_s", "publishes", "wall_s")}
+           for r in doc["results"]}}
+
+    path = os.path.join(out_dir, "bench_temporal.json")
+    seconds, counts = run(bench_temporal, [
+        "--points", str(TOOLS_TEMPORAL_POINTS), "--iters",
+        str(TOOLS_TEMPORAL_ITERS), *dargs, "--out", path], "bench_temporal")
+    doc = _load(path)
+    _check_record(doc, bench_temporal.RECORD_KEYS, "bench_temporal", dev)
+    assert doc["alltime_byte_identical"] is True
+    assert doc["retract"]["byte_identical"] is True
+    assert doc["retract"]["rows"] > 0 and counts["segment_reduce"] > 0
+    rec["bench_temporal"] = {
+        "seconds": seconds, "launches": counts,
+        "build_seconds": doc["build_seconds"],
+        "fold_ms": {k: v["ms"] for k, v in doc["fold"].items()},
+        "serve_ms": {k: v["ms"] for k, v in doc["serve"].items()},
+        "retract": {k: doc["retract"][k] for k in (
+            "rows", "batches", "seconds", "rows_per_s")},
+        "growth": doc["growth"]}
+
+    path = os.path.join(out_dir, "bench_query.json")
+    seconds, counts = run(bench_query, [
+        "--points", str(TOOLS_QUERY_POINTS), "--iters",
+        str(TOOLS_QUERY_ITERS), *dargs, "--out", path], "bench_query")
+    doc = _load(path)
+    _check_record(doc, bench_query.RECORD_KEYS, "bench_query", dev)
+    assert list(doc["direct"]) == ["sum", "topk", "quantile"], doc["direct"]
+    assert doc["bytes"] and doc["router"]["requests"] == TOOLS_QUERY_ITERS
+    assert counts["segment_reduce"] > 0, counts
+    rec["bench_query"] = {
+        "seconds": seconds, "launches": counts, "zoom": doc["zoom"],
+        "direct": doc["direct"], "router": doc["router"]}
+
+    path = os.path.join(out_dir, "bench_synopsis.json")
+    seconds, counts = run(bench_synopsis, [
+        "--points", str(TOOLS_SYNOPSIS_POINTS), "--decode-iters",
+        str(TOOLS_SYNOPSIS_ITERS), *dargs, "--out", path], "bench_synopsis")
+    doc = _load(path)
+    _check_record(doc, bench_synopsis.RECORD_KEYS, "bench_synopsis", dev)
+    assert doc["decode"]["verified"] is True
+    assert doc["early_serve"]["provisional_publishes"] > 0, doc
+    assert counts["segment_reduce"] > 0, counts
+    rec["bench_synopsis"] = {
+        "seconds": seconds, "launches": counts,
+        "bytes_ratio": doc["compression"]["bytes_ratio"],
+        "decode": doc["decode"], "early_serve": doc["early_serve"]}
+
+    # mem_probe: each job in a child of its own. First the single-shot
+    # job (max_points_in_flight=0: the route _auto_points_in_flight
+    # keeps for a source that fits, H5's) at two sizes, through the
+    # twin's child; then the twin itself, chunked (its jobs always take
+    # the bounded path).
+    probes = []
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "mem_probe")
+    for n in TOOLS_MEM_SIZES:
+        os.makedirs(work)
+        mem_probe.build_points(os.path.join(work, "pts.hmpb"), n)
+        line = mem_probe.run_mode(os.path.join(work, "pts.hmpb"), "ram", 0,
+                                  work, dev)
+        shutil.rmtree(work)
+        probes.append({**line, "n": n, "route": "single-shot"})
+    path = os.path.join(out_dir, "mem_probe.json")
+    run(mem_probe, [
+        "--n", str(TOOLS_MEM_SIZES[0]), "--chunk", str(TOOLS_MEM_CHUNK),
+        "--modes", "ram", *dargs, "--out", path], "mem_probe")
+    doc = _load(path)
+    _check_record(doc, ("results",), "mem_probe", dev)
+    (line,) = doc["results"]
+    _check_keys(line, mem_probe.MODE_KEYS, "mem_probe line")
+    assert line["chunks"] == -(-TOOLS_MEM_SIZES[0] // TOOLS_MEM_CHUNK), line
+    probes.append({**line, "route": "bounded"})
+    for line in probes:
+        assert line["rows"] > 0, line
+        if dev.type == "cuda":
+            assert line["peak_device_bytes"] > 0, line
+        peak = line.get("peak_device_bytes")
+        line["bytes_per_point"] = peak / line["n"] if peak else None
+    assert probes[0]["rows"] == probes[2]["rows"], probes
+    rec["mem_probe"] = {"seconds": time.perf_counter() - t0,
+                        "probes": probes}
+
+    # tilefs_convert on a copy of the serve store, then load_gen over it.
+    copy = os.path.join(tmp, "tools_store")
+    shutil.copytree(store, copy)
+    path = os.path.join(out_dir, "tilefs_convert.json")
+    seconds, counts = run(tilefs_convert, [
+        f"delta:{copy}", "--verify", "--record", path], "tilefs_convert")
+    doc = _load(path)
+    _check_record(doc, tilefs_convert.SUMMARY_KEYS, "tilefs_convert", None)
+    assert doc["verified"] is True and doc["files"], doc
+    assert counts["segment_reduce"] == 0, counts
+    rec["tilefs_convert"] = {"seconds": seconds, "files": len(doc["files"]),
+                             "bytes": doc["bytes"]}
+
+    path = os.path.join(out_dir, "load_gen.json")
+    seconds, counts = run(load_gen, [
+        "--store", f"delta:{copy}", "--workers", str(TOOLS_LOAD_WORKERS),
+        "--duration", str(TOOLS_LOAD_SECONDS), "--tiles",
+        str(TOOLS_LOAD_TILES), "--out", path], "load_gen")
+    doc = _load(path)
+    _check_record(doc, load_gen.RECORD_KEYS, "load_gen", None)
+    assert doc["errors"] == 0 and doc["requests"] > 0, doc
+    assert all(s.startswith("2") or s == "304" for s in doc["statuses"]), \
+        doc["statuses"]
+    assert doc["hit_rate"] >= 0.95, doc["hit_rate"]
+    assert counts["segment_reduce"] == 0, counts
+    rec["load_gen"] = {"seconds": seconds, **{k: doc[k] for k in (
+        "tiles", "requests", "rps", "latency_ms", "hit_rate")},
+        "obs": doc["obs"]}
+    shutil.rmtree(copy)
+
+    soaks = []
+    t0 = time.perf_counter()
+    for n, checks in TOOLS_SOAK_RUNS:
+        path = os.path.join(out_dir, f"soak_{n}.json")
+        seconds, counts = run(soak, [
+            "--n", str(n), "--checks", checks, *dargs, "--out", path],
+            f"soak {checks}")
+        doc = _load(path)
+        _check_record(doc, ("results",), "soak", dev)
+        lines = {line["check"]: line for line in doc["results"]}
+        assert list(lines) == checks.split(","), lines
+        for name, line in lines.items():
+            assert line["ok"] and "skipped" not in line, line
+        if "weighted" in lines:
+            assert lines["weighted"]["kernel_points"] == min(n, 1 << 20)
+            if dev.type == "cuda":
+                assert lines["weighted"]["kernel_points"] == 1 << 20
+                assert counts["window_partitioned_weighted"] == 1, counts
+        if "streaming" in lines:
+            assert lines["streaming"]["sharded"] is True
+        for name in ("mesh", "dp-job"):
+            if name in lines:
+                assert lines[name]["devices"] == soak.MESH_SHARDS, lines
+        soaks.append({"n": n, "seconds": seconds, "launches": counts,
+                      "checks": lines})
+    # resume: the count job with day timespans needs keys of more than
+    # 60 bits, and "auto" still picks the partitioned backend on a card,
+    # which refuses it (F9, as the JAX package does on a TPU).
+    refused = BatchJobConfig(
+        timespans=("alltime", "day"),
+        data_parallel=False).resolved_cascade_backend(dev) == "partitioned"
+    path = os.path.join(out_dir, "soak_resume.json")
+    seconds, counts = run(soak, [
+        "--n", str(TOOLS_SOAK_RESUME_N), "--checks", "resume", *dargs,
+        "--out", path], "soak resume", expect_rc=1 if refused else 0)
+    (line,) = _load(path)["results"]
+    if refused:
+        assert not line["ok"] and line["error"].startswith(F9_REFUSAL), line
+        assert counts["segment_reduce"] == 0, counts
+    soaks.append({"n": TOOLS_SOAK_RESUME_N, "seconds": seconds,
+                  "launches": counts, "checks": {"resume": line},
+                  "known_fault": "F9" if refused else None})
+    rec["soak"] = {"seconds": time.perf_counter() - t0, "runs": soaks}
+    return launches, held_total
 
 
 def kernel_entry(name, source, replaces, launches, timing):
@@ -4810,13 +5194,17 @@ def main() -> int:
     histogram = phase_kernel_window_histogram(dev)
     part_counts, part_weighted = phase_kernel_window_partitioned(dev)
     torch.cuda.empty_cache()
-    _, single, single_1m = phase_run_job(dev)
+    _, single, single_ref = phase_run_job(dev)
     phase_projection(data, dev)
     del data
     bounded_launches = phase_bounded(dev, single)
     parallel_launches, stream_sharded = phase_parallel(dev, single,
-                                                       single_1m)
-    del single_1m
+                                                       single_ref)
+    del single_ref
+    # The serve phase leaves a copy of its small store here for the
+    # tools phase (removed at the end, or at exit if a phase fails).
+    kept = tempfile.TemporaryDirectory(prefix="smoke-kept-")
+    serve_store = os.path.join(kept.name, "serve_store")
     with tempfile.TemporaryDirectory() as tmp:
         # The 4M points as a CSV: the fast phase's input, and the
         # stream's resume case.
@@ -4830,8 +5218,8 @@ def main() -> int:
         delta_root = os.path.join(tmp, "delta_store")
         delta_launches = phase_delta(dev, delta_root)
         ingest_launches, plain_ticks = phase_ingest(dev, delta_root)
-        serve_launches, follow_launches = phase_serve(dev, delta_root,
-                                                      plain_ticks)
+        serve_launches, follow_launches = phase_serve(
+            dev, delta_root, plain_ticks, serve_store)
         shutil.rmtree(delta_root)
         plane_root, writeplane_launches = phase_writeplane(dev, tmp)
         phase_fleet(dev, plane_root)
@@ -4844,7 +5232,8 @@ def main() -> int:
     phase_headline(dev)
     cassandra_launches = phase_cassandra(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        tools_launches = phase_tools(dev, tmp)
+        tools_launches = phase_tools(dev, tmp, serve_store)
+    kept.cleanup()
     segment_reduce = kernel_entry(
         "segment_reduce", "segment_reduce.cu",
         "heatmap_tpu/ops/sparse_partitioned.py:75", bounded_launches,
@@ -4856,7 +5245,8 @@ def main() -> int:
                                           "writeplane": writeplane_launches,
                                           "temporal": temporal_launches,
                                           "cassandra": cassandra_launches,
-                                          "tools": tools_launches,
+                                          "tools": tools_launches[
+                                              "segment_reduce"],
                                           **parallel_launches}
     window_histogram = kernel_entry(
         "window_histogram", "window_histogram.cu",
@@ -4865,20 +5255,27 @@ def main() -> int:
     window_histogram["launches_by_path"] = {
         "tiles": tiles_launches["window_histogram"],
         "serve": follow_launches,
-        "stream_sharded": stream_sharded["window_histogram"]}
+        "stream_sharded": stream_sharded["window_histogram"],
+        "tools": tools_launches["window_histogram"]}
     weighted_entry = kernel_entry(
         "window_partitioned_weighted", "window_bucketed.cu",
         "heatmap_tpu/ops/partitioned.py:137",
         tiles_launches["window_partitioned_weighted"], part_weighted)
     weighted_entry["launches_by_path"] = {
         "tiles": tiles_launches["window_partitioned_weighted"],
-        "stream_sharded": stream_sharded["window_partitioned_weighted"]}
+        "stream_sharded": stream_sharded["window_partitioned_weighted"],
+        "tools": tools_launches["window_partitioned_weighted"]}
+    counts_entry = kernel_entry(
+        "window_partitioned", "window_bucketed.cu",
+        "heatmap_tpu/ops/partitioned.py:104",
+        tiles_launches["window_partitioned"], part_counts)
+    counts_entry["launches_by_path"] = {
+        "tiles": tiles_launches["window_partitioned"],
+        "tools": tools_launches["window_partitioned"]}
     emit({"kernels": [
         segment_reduce,
         window_histogram,
-        kernel_entry("window_partitioned", "window_bucketed.cu",
-                     "heatmap_tpu/ops/partitioned.py:104",
-                     tiles_launches["window_partitioned"], part_counts),
+        counts_entry,
         weighted_entry,
     ]})
     print(smi, flush=True)

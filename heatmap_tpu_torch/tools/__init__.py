@@ -7,10 +7,27 @@ scripts that measure the main paths, run as
 - ``bench_delta``: a full recompute against an incremental delta apply
   (``tools/bench_delta.py``);
 - ``bench_ingest``: continuous ingest, exact against bucketed padding,
-  throughput and lag (``tools/bench_ingest.py``).
+  throughput and lag (``tools/bench_ingest.py``);
+- ``bench_writeplane``: the write plane at 1, 2 and 4 writers,
+  byte-gated against one delta store (``tools/bench_writeplane.py``);
+- ``bench_temporal``: folds per temporal cut, temporal tiles, a
+  predicate retraction and ``topk_growth`` (``tools/bench_temporal.py``);
+- ``bench_query``: ``/query`` on integral and fall-through stores and
+  through a thread-mode fleet (``tools/bench_query.py``);
+- ``bench_synopsis``: synopsis bytes, decode latency, the re-verified
+  error stamp and early-serve lag (``tools/bench_synopsis.py``);
+- ``mem_probe``: peak memory of the bounded merge per mode in fresh
+  processes (on a card, their peak device bytes too), or of a serve
+  fleet (``tools/mem_probe.py``);
+- ``tilefs_convert``: a store to zero-copy tilefs mirrors
+  (``tools/tilefs_convert.py``);
+- ``soak``: cross-path equivalences at scale (``tools/soak.py``);
+- ``load_gen``: closed-loop serving load, fleets, brownout, cold
+  against warm restarts (``tools/load_gen.py``).
 
 Each prints the JAX tool's record keys, plus ``device`` and, on a card,
 ``gpu_name`` and ``power_limit_w``, and writes its record under
-``build/torch_bench/`` unless ``--out`` names another file. They run on
-the card unless ``--device cpu`` is given.
+``build/torch_bench/`` unless ``--out`` names another file
+(``tilefs_convert``: ``--record``). They run on the card unless
+``--device cpu`` is given.
 """

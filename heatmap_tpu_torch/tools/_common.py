@@ -41,13 +41,36 @@ def device_fields(device) -> dict:
     return out
 
 
-def write_record(path: str, record: dict) -> None:
-    """Write ``record`` as indented JSON to ``path`` (parents made)."""
+#: A record's device fields where its work ran on the host alone (no
+#: card touched): ``device`` is ``host``, with no card name or power
+#: limit beside the numbers.
+HOST_FIELDS = {"device": "host"}
+
+
+def write_record(path: str, record: dict, sort_keys: bool = False) -> None:
+    """Write ``record`` as indented JSON to ``path`` (parents made);
+    ``sort_keys`` for the tools whose JAX twin writes its keys sorted."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        json.dump(record, f, indent=2, default=str)
+        json.dump(record, f, indent=2, default=str, sort_keys=sort_keys)
         f.write("\n")
     print(json.dumps({"wrote": path}), flush=True)
+
+
+def pct(sorted_vals, q: float):
+    """The ``q`` quantile of already sorted values by the JAX tools'
+    rule (index ``int(q * n)``, clipped), None when there are none."""
+    if not len(sorted_vals):
+        return None
+    return sorted_vals[min(len(sorted_vals) - 1, int(q * len(sorted_vals)))]
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work (nothing on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def summarize_trace(chrome_doc: dict, top: int = 6) -> dict:

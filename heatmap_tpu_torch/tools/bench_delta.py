@@ -33,7 +33,8 @@ import tempfile
 import time
 
 from heatmap_tpu_torch.tools._common import (default_out, device_fields,
-                                             summarize_trace, write_record)
+                                             summarize_trace, synchronize,
+                                             write_record)
 
 #: The JAX tool's record keys and per-ratio row keys, in its order.
 RECORD_KEYS = ("bench", "base_points", "detail_zoom", "results",
@@ -54,13 +55,6 @@ class _Chain:
     def batches(self, batch_size: int = 1 << 20):
         for src in self.sources:
             yield from src.batches(batch_size)
-
-
-def _synchronize(device):
-    import torch
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def bench_ratio(ratio: int, base_points: int, config, tmpdir: str,
@@ -88,7 +82,7 @@ def bench_ratio(ratio: int, base_points: int, config, tmpdir: str,
     full_stats = run_job(
         _Chain(open_source(base_spec), open_source(delta_spec)),
         LevelArraysSink(full_dir), config, device=device)
-    _synchronize(device)
+    synchronize(device)
     full_s = time.perf_counter() - t0
 
     # Incremental: journal + cascade only the new points, after one
@@ -98,7 +92,7 @@ def bench_ratio(ratio: int, base_points: int, config, tmpdir: str,
     t0 = time.perf_counter()
     res = delta.apply_batch(root, open_source(delta_spec), config,
                             device=device)
-    _synchronize(device)
+    synchronize(device)
     incr_s = time.perf_counter() - t0
 
     shutil.rmtree(full_dir, ignore_errors=True)
