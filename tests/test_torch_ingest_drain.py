@@ -41,10 +41,13 @@ def test_keepalive_client_across_drain(tmp_path, monkeypatch):
         host, port = base.removeprefix("http://").split(":")
         conn = http.client.HTTPConnection(host, int(port), timeout=10)
         while not stop.is_set():
+            # Stamp the request when it is sent: a stamp taken after the
+            # read can land after ``done`` by a thread switch alone.
+            t = time.monotonic()
             try:
                 conn.request("GET", "/healthz")
                 conn.getresponse().read()
-                sent.append(time.monotonic())
+                sent.append(t)
             except (OSError, http.client.HTTPException):
                 # The drain closed the connection: open a new one until
                 # the listening socket is gone too.
@@ -75,7 +78,9 @@ def test_keepalive_client_across_drain(tmp_path, monkeypatch):
         for t in threads:
             t.join(20)
     assert summary["epochs"] == 5 and sent
-    assert max(sent) < done  # nothing answered after the drain
+    # Every answered request was sent before the drain returned; that
+    # nothing was answered after it is held by ``run_end`` being last.
+    assert max(sent) < done
     assert errors == []
     assert obs.get_event_log() is None
     lines = [json.loads(x) for x in events.read_text().splitlines()]
