@@ -13,9 +13,9 @@ just before it and read just after:
 
 - the single-shot batch job, ``run_job``, at the default z21 -> z6
   cascade with native decode and JSON egress, checked against the CPU
-  and the reference's scalar projection, and at 524,288 points against
+  and the reference's scalar projection, and at 262,144 points against
   the scatter backend and adaptive capacities (segment-reduce kernel);
-- the same 4M-point job chunked (``max_points_in_flight``, four 1M-point
+- the same 2M-point job chunked (``max_points_in_flight``, four 500,000-point
   chunks fed to the card by the CUDA-stream feeder), in RAM and with a
   spill dir, each equal to the single-shot blobs, with 16 segment-reduce
   launches a chunk;
@@ -23,22 +23,22 @@ just before it and read just after:
   native decoder (``run_job_fast``) and the string path, then converted
   to HMPB and run from the memory map, each equal to the single-shot
   blobs;
-- the mesh paths (``parallel/``), 4 shards laid on the card: the 4M
+- the mesh paths (``parallel/``), 4 shards laid on the card: the 2M
   job with ``data_parallel=True`` (gspmd, Morton ranges routed on the
-  card) equal to the single-shot blobs; 524,288-point jobs under shard_map
+  card) equal to the single-shot blobs; 262,144-point jobs under shard_map
   with the replicated and prefix merges, Morton ranges under both
   dispatches and a weighted job, each equal to the single-device job
   (one segment-reduce launch per shard); ``run --data-parallel on``
   (the card's own 1-shard mesh) equal to a plain ``run``; ``run
-  --multihost`` as 2 gloo processes on the card under the gather,
-  sharded and columnar sharded egress, each equal to one process;
-  elastic reassignment with 3 simulated hosts, one killed by a chaos
-  rule, byte-equal to an unfailed run; and the row-sharded stream, 16
-  ticks at its defaults and at z16 weighted, bit-equal to the unsharded
-  stream (one window launch per shard a tick);
+  --multihost`` as 2 gloo processes on the card under the gather
+  egress, equal to one process (the multiproc twin below carries the
+  sharded and columnar egress, the chaos twin elastic reassignment);
+  and the row-sharded stream, 8 ticks at its defaults and at z16
+  weighted, bit-equal to the unsharded stream (one window launch per
+  shard a tick);
 - ``run_job_resumable`` on 1M points, failed at one batch by a
   ``FaultInjector`` and resumed to the uninterrupted blobs;
-- the same 4M-point job with ``adaptive_capacity=True`` (equal blobs,
+- the same 2M-point job with ``adaptive_capacity=True`` (equal blobs,
   16 launches at shrunken output shapes), and 200k points read from a
   Parquet file by the ``run`` command (equal to the CSV run's bytes);
 - the ``tiles`` command at its defaults (the bucketed partitioned
@@ -46,7 +46,7 @@ just before it and read just after:
   window (the window-histogram kernel), each raster bit-equal and each
   PNG tree byte-identical to the same run on the CPU;
 - the ``stream`` command (a decayed live raster, one binning launch a
-  tick): at its defaults on 4M synthetic points (the window-histogram
+  tick): at its defaults on 2M synthetic points (the window-histogram
   kernel), at z16 in 1M-point ticks (the bucketed kernels, counts and
   integer weights), and resumed from a checkpoint written halfway
   through a CSV (bit-equal to the uninterrupted run); each against the
@@ -64,12 +64,12 @@ just before it and read just after:
   one-shot run, the exact-padded synchronous drain and each other (16
   launches per applied tick, none per duplicate);
 - serving: ``delta:`` over the delta phase's store in a ``ServeApp``,
-  1,100 tiles (png and json) fetched cold and warm over HTTP; ``ingest
+  550 tiles (png and json) fetched cold and warm over HTTP; ``ingest
   --serve-port 0`` (8 ticks) onto a fresh store while a client
   fetches, every touched cached tile equal to a cold mount's after
   each tick, and the store equal to the same drain without serving and
   on the CPU (16 segment-reduce launches per applied tick); ``serve
-  --follow-stream`` for 16 ticks (one window-histogram launch a tick),
+  --follow-stream`` for 8 ticks (one window-histogram launch a tick),
   its live raster bit-equal to the port's stream on the CPU;
 - the write plane: the ``writeplane`` command at its defaults over
   262,144 points (2 pump threads launching the cascade concurrently, 16
@@ -95,7 +95,7 @@ just before it and read just after:
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
   defaults (with its stage split), checked against the plain scatter;
 - the reference's own ends: ``CassandraSource`` over a stand-in
-  ``rhom.locations`` of 1,048,576 rows (64 token ranges), ``run_job`` at
+  ``rhom.locations`` of 524,288 rows (64 token ranges), ``run_job`` at
   the default z21 -> z6 cascade and ``CassandraBlobSink`` into the
   stand-in's ``rhom.heatmaps``, byte-equal to the plain scatter
   cascade over the same columns through ``memory:`` (16 segment-reduce
@@ -115,6 +115,17 @@ just before it and read just after:
   store, ``soak`` with its mesh checks on 8 shards laid on the card and
   ``weighted`` (b) at 2^20 points), every gate of their records true
   and every kernel launch made here held to the plain version;
+- the last six tool twins: ``chaos_soak``'s card phases (the clean and
+  chaos pipelines and serving, the ingest crash, writer loss, the
+  feeder storms, both host losses, the torn temporal bucket, byte
+  equality) at ``--n 3000`` under its default plane, no 500 and the
+  clean run's bytes; ``multiproc_check`` (2 gloo processes on the card,
+  every egress against one process) and its ``--skew-only`` exchange;
+  ``verify_partitioned_onchip`` on every case and plan (bit-exact;
+  fractional weights within its rtol); ``sweep_partitioned``'s rows at
+  2^22 points (each plan bit-checked, then timed); and
+  ``apply_decisions`` over the state they wrote, with the stream
+  twin's rows: four decision lines, none an error;
 
 and the Gaussian splat's convolutions on the card against the CPU.
 
@@ -134,7 +145,6 @@ import ctypes
 import dataclasses
 import gc
 import io
-import itertools
 import json
 import math
 import os
@@ -153,13 +163,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 #: Peak HBM rate of an H100 SXM (NVIDIA data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 SENTINEL = torch.iinfo(torch.int64).max
-N_MAIN = 4_000_000
-#: Chunk of the chunked phase: the 4M-point job in four chunks.
-N_BOUNDED_CHUNK = 1_000_000
+#: Points of the default batch job (4M until the last tool twins came,
+#: halved with N_TILES for the smoke's time).
+N_MAIN = 2_000_000
+#: Chunk of the chunked phase: the job in four chunks.
+N_BOUNDED_CHUNK = 500_000
 N_WEIGHTED = 1_000_000
 N_CROSSCHECK = 200_000
 #: The stream command's default micro-batch, and the batch of its z16
-#: cases (the 4M points in 4 ticks; a whole number of default batches).
+#: cases (the N_TILES points in 2 ticks; a whole number of default
+#: batches).
 STREAM_BATCH = 1 << 16
 STREAM_BIG_BATCH = 1 << 20
 #: tools/bench_stream.py's defaults: steps and points per step.
@@ -177,7 +190,9 @@ REPEATS = 20
 WEIGHTED_REPEATS = 5
 #: Points of the window-kernel phases and of the headline step.
 N_WINDOW = 1 << 25
-N_TILES = 4_000_000
+#: Points of the tiles and stream phases (the stream's resume reads the
+#: N_MAIN-point CSV, so the two are equal).
+N_TILES = N_MAIN
 #: Fractional float32 weights sum in another order on each side
 #: (atomics), so the kernel and its plain version are each held to the
 #: float64 sum of the same weights, within f32 rounding (the JAX
@@ -195,10 +210,11 @@ FRACTIONAL_RTOL = 1e-4
 #: job's 4M points until the write-plane and fleet phases came, then
 #: 2M until the temporal phase came, then 1M with 262,144-point
 #: increments until the Cassandra and tools phases came, then 524,288
-#: with 131,072 until the measuring tools came; halved each time to
-#: keep the smoke within its time.)
-N_DELTA_BASE = 1 << 18
-N_DELTA_INC = 1 << 16
+#: with 131,072 until the measuring tools came, then 262,144 with 65,536
+#: until the last tool twins came; halved each time to keep the smoke
+#: within its time.)
+N_DELTA_BASE = 1 << 17
+N_DELTA_INC = 1 << 15
 N_DELTA_SMALL_BASE = 50_000
 N_DELTA_SMALL_INC = 1 << 13
 DELTA_USER = "user-3"
@@ -219,9 +235,9 @@ N_INGEST = 1 << 19
 INGEST_SEED = 7
 INGEST_MICRO = 1 << 14
 INGEST_CUT_TICKS = 16
-INGEST_B_TICKS = 8
+INGEST_B_TICKS = 4
 N_INGEST_RETRACT = 1 << 18
-N_INGEST_WEIGHTED = 1 << 16
+N_INGEST_WEIGHTED = 1 << 15
 #: The serve phase. (a) and (b) run in one ``ingest --serve-port 0``
 #: process at the command's defaults over the delta phase's store: (a)
 #: its mount of ``delta:`` and a tile list (the SERVE_TILES most
@@ -240,12 +256,12 @@ N_INGEST_WEIGHTED = 1 << 16
 #: 1,200, so (b) runs the one tick that shows the refresh's own cost.
 #: The curve ran (0, 50, 200, None) until the temporal phase came; its
 #: two ends stay. (c) SERVE_TICKS follow-stream ticks of STREAM_BATCH.
-SERVE_TILES = 1000
-SERVE_EMPTY = 100
+SERVE_TILES = 500
+SERVE_EMPTY = 50
 SERVE_ZOOMS = tuple(range(8, 17))
 SERVE_CLIENT_RPS = (0,)
 SERVE_CURVE_RPS = (0, None)
-SERVE_TICKS = 16
+SERVE_TICKS = 8
 N_SERVE_BASE = 1 << 16
 #: The write-plane phase: the ``writeplane`` command at its defaults (2
 #: writers, 16,384-point micro-batches, queue depth 4, a publish every
@@ -258,10 +274,10 @@ N_SERVE_BASE = 1 << 16
 #: WRITEPLANE_CURVE_TICKS batches (8 for the curve until the temporal
 #: phase came).
 N_WRITEPLANE = 1 << 18
-N_WRITEPLANE_C = 1 << 17
+N_WRITEPLANE_C = 1 << 16
 N_WRITEPLANE_RETRACT = 1 << 15
 WRITEPLANE_CUT_TICKS = 4
-WRITEPLANE_CURVE_TICKS = 4
+WRITEPLANE_CURVE_TICKS = 2
 WRITEPLANE_WRITERS = (1, 2, 4)
 #: The fleet phase: ``serve --fleet FLEET_BACKENDS`` over (a)'s root, in
 #: process mode; FLEET_RESTART_WAIT_S bounds the wait for a killed
@@ -285,7 +301,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: until the smoke's time forced the cut; the base 1M points and the
 #: increments 131,072 until the parallel phase came, the base 524,288
 #: until the Cassandra and tools phases came, 262,144 with 65,536-point
-#: increments until the measuring tools came), placed so that
+#: increments until the measuring tools came, 131,072 with 32,768 until
+#: the last tool twins came), placed so that
 #: the compactions
 #: still coarsen hours 0 and 2 into one tier-1 bucket. TEMPORAL_T0 is a
 #: multiple of
@@ -295,7 +312,8 @@ FLEET_RESTART_WAIT_S = 120.0
 #: each cut, and TEMPORAL_GROWTH_QUERIES ``op=topk_growth`` requests.
 #: The card-against-CPU sequence is the same at N_TEMPORAL_SMALL_BASE
 #: and N_TEMPORAL_SMALL_INC points (65,536 and 16,384 until the
-#: measuring tools came) with increments in
+#: measuring tools came, 32,768 and 8,192 until the last tool twins
+#: came) with increments in
 #: TEMPORAL_SMALL_HOURS (far enough apart for its oldest hours to
 #: coarsen); the ``ingest`` case drains TEMPORAL_INGEST_TICKS ticks of
 #: INGEST_MICRO points, two per hour across an hour edge, onto a store
@@ -304,18 +322,18 @@ FLEET_RESTART_WAIT_S = 120.0
 #: TEMPORAL_ROLL_TILES populated tiles (and a sixth of that empty) served
 #: in ``?window=1h``.
 TEMPORAL_T0 = 1_700_121_600
-N_TEMPORAL_BASE = 1 << 17
-N_TEMPORAL_INC = 1 << 15
+N_TEMPORAL_BASE = 1 << 16
+N_TEMPORAL_INC = 1 << 14
 TEMPORAL_HOURS = (2, 4, 9)
 TEMPORAL_LATE_HOURS = (11,)
 TEMPORAL_USER = "user-3"
 TEMPORAL_AS_OF_HOUR = 8
-TEMPORAL_TILES = 150
-TEMPORAL_EMPTY = 15
+TEMPORAL_TILES = 75
+TEMPORAL_EMPTY = 8
 TEMPORAL_ROLL_TILES = 60
-TEMPORAL_GROWTH_QUERIES = 50
-N_TEMPORAL_SMALL_BASE = 1 << 15
-N_TEMPORAL_SMALL_INC = 1 << 13
+TEMPORAL_GROWTH_QUERIES = 25
+N_TEMPORAL_SMALL_BASE = 1 << 14
+N_TEMPORAL_SMALL_INC = 1 << 12
 TEMPORAL_SMALL_HOURS = (3, 6, 9, 12)
 TEMPORAL_SMALL_LATE_HOURS = ()
 TEMPORAL_INGEST_TICKS = 4
@@ -738,7 +756,7 @@ def phase_kernel(dev):
 
 
 def phase_run_job(dev):
-    """The single-shot path: the default 4M-point job on the card, with
+    """The single-shot path: the default N_MAIN-point job on the card, with
     native decode and JSON egress; at N_PARALLEL points the same job
     equal to the scatter backend's and to adaptive capacities'. Returns
     its launches, its blobs and the N_PARALLEL-point job's blobs."""
@@ -789,7 +807,7 @@ def phase_run_job(dev):
         assert body and all(math.isfinite(x) and x > 0 for x in body.values())
     stages = {k: sum(v) for k, v in timer.ms.items()}
     # The backends' and adaptive capacities' equality at N_PARALLEL
-    # points (a 4M-point rerun of each costs the smoke's time): the
+    # points (an N_MAIN-point rerun of each costs the smoke's time): the
     # partitioned job,
     # the scatter backend and adaptive capacities (the segment reduce's
     # output arrays shrink to the real unique counts level by level).
@@ -838,8 +856,8 @@ def _span_split(tracer):
 
 
 def phase_bounded(dev, single):
-    """The chunked path: the default job on SyntheticSource(4M, seed 0)
-    in 1M-point chunks, fed by the CUDA-stream feeder, in RAM and with a
+    """The chunked path: the default job on SyntheticSource(N_MAIN, seed
+    0) in N_BOUNDED_CHUNK-point chunks, fed by the CUDA-stream feeder, in RAM and with a
     spill dir; each equal to the single-shot blobs ``single``, with 16
     segment-reduce launches a chunk. Returns the in-RAM run's launches."""
     from heatmap_tpu_torch.io import SyntheticSource
@@ -3939,14 +3957,14 @@ def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
 def phase_stream(dev, csv_path):
     """The ``stream`` command on the card, each case with the kernels'
     counts set to 0 just before it and read just after: (a) defaults on
-    4M synthetic points (62 ticks of 65,536, a 256x256 z12 window: one
+    N_TILES synthetic points (31 ticks of 65,536, a 256x256 z12 window: one
     window-histogram launch a tick), (b) ``--zoom 16 --batch-points
-    1048576`` (4 ticks, 1792x1280: one bucketed launch a tick), (c) (b)
+    1048576`` (2 ticks, 1792x1280: one bucketed launch a tick), (c) (b)
     with ``--weighted`` on integer values in [0, 100] (one weighted
     bucketed launch a tick), each against the same run on the CPU;
     (a) and (c) again with no decay (``--half-life 1e18``), bit-equal
-    to the CPU; (d) (a)'s flags on the 4M-point CSV ``csv_path``:
-    checkpointed over its first 31 batches (half the ticks, a whole
+    to the CPU; (d) (a)'s flags on the N_MAIN-point CSV ``csv_path``:
+    checkpointed over its first 15 batches (half the ticks, a whole
     number of batches, so the replay lines up at the checkpoint),
     resumed over the whole file, bit-equal to an uninterrupted run. The
     window kernels are held against their plain versions at (a)'s and
@@ -4083,22 +4101,23 @@ def phase_stream_bench(dev):
     emit({"phase": "stream_bench", "window": [window.height, window.width],
           "zoom": 11, "batch": batch, "steps": steps, "half_life_s": 600.0,
           "backends": out})
+    # The rows ``tools/bench_stream.py --state`` appends to the sweep
+    # state, which ``apply_decisions`` reads (phase_tools2).
+    return [{"check": "stream", "backend": be, "batch": batch,
+             "device": dev.type, "pts_per_s": r["pts_per_s"],
+             "steps_per_s": r["steps_per_s"]} for be, r in out.items()]
 
 
 #: The mesh phase: shards laid on the one card; the points of its
 #: dispatch, merge and partition variants (also the run_job phase's
-#: backend and adaptive checks; 2^20 until the measuring tools came);
-#: the multihost and elastic jobs' points and batch; the sharded
-#: stream's ticks.
+#: backend and adaptive checks; 2^20 until the measuring tools came,
+#: 2^19 until the last tool twins came); the multihost job's points and
+#: batch; the sharded stream's ticks.
 PARALLEL_SHARDS = 4
-N_PARALLEL = 1 << 19
+N_PARALLEL = 1 << 18
 N_MULTIHOST = 1 << 18
 MULTIHOST_BATCH = 1 << 15
-N_ELASTIC = 1 << 18
-ELASTIC_BATCH = 1 << 15
-ELASTIC_HOSTS = 3
-ELASTIC_DEADLINE_S = 5.0
-STREAM_SHARDED_TICKS = 16
+STREAM_SHARDED_TICKS = 8
 STREAM_SHARDED_Z16_BATCH = 1 << 18
 
 #: A ``run`` in a child process that prints, after the command's own
@@ -4173,21 +4192,11 @@ def _blobs_equal(got, want, what):
         assert got[k] == v or json.loads(got[k]) == json.loads(v), (what, k)
 
 
-def _levels_equal(got, want, what):
-    assert len(got) == len(want), (what, len(got), len(want))
-    for g, w in zip(got, want):
-        for key in ("zoom", "coarse_zoom", "row", "col", "value",
-                    "user_idx", "timespan_idx", "user_names",
-                    "timespan_names"):
-            assert np.array_equal(np.asarray(g[key]), np.asarray(w[key])), \
-                (what, key)
-
-
 def phase_parallel(dev, single, ref):
     """The mesh paths on the card (parallel/), each with the kernels'
     counts set to 0 just before it and read just after:
 
-    (a) the 4M-point default job with ``data_parallel=True`` on a
+    (a) the N_MAIN-point default job with ``data_parallel=True`` on a
         PARALLEL_SHARDS-shard mesh laid on the card (default dispatch:
         gspmd, its Morton ranges routed on the card), its blobs equal to
         ``phase_run_job``'s single-device ``single``; one segment-reduce
@@ -4201,29 +4210,22 @@ def phase_parallel(dev, single, ref):
         twin;
     (c) ``run --data-parallel on`` through the CLI (the card's own
         devices: a 1-shard mesh), the same bytes as a plain ``run``;
-    (d) ``run --multihost`` as 2 processes over gloo on the card, under
-        ``--multihost-egress gather`` and ``sharded`` and to a columnar
-        ``arrays:`` sharded egress, each reassembled equal to the
-        single-process run;
-    (e) elastic reassignment: ``run_job_multihost(on_straggler=
-        "reassign")`` with ELASTIC_HOSTS simulated hosts, a chaos rule
-        eating one host's heartbeats after its first shard, the arrays
-        byte-equal to an unfailed ``run --multihost --on-straggler
-        reassign`` and the reassigned shards counted;
-    (f) ``HeatmapStream(mesh=)`` for STREAM_SHARDED_TICKS ticks at the
+    (d) ``run --multihost`` as 2 processes over gloo on the card under
+        ``--multihost-egress gather``, equal to the single-process run
+        (the multiproc twin of ``phase_tools2`` runs the sharded and
+        columnar egress in one pair of processes, and the chaos twin's
+        host-loss phases elastic reassignment);
+    (e) ``HeatmapStream(mesh=)`` for STREAM_SHARDED_TICKS ticks at the
         stream's defaults (one window-histogram launch per shard a tick)
         and at ``--zoom 16 --weighted`` (one weighted bucketed launch per
         shard a tick), each bit-equal to the unsharded stream.
 
     Returns the segment-reduce launches by path and the window kernels'
-    launches of (f)."""
-    from heatmap_tpu_torch import cli, obs
+    launches of (e)."""
     from heatmap_tpu_torch.cli import tiles_window
-    from heatmap_tpu_torch.io import LevelArraysSink, SyntheticSource
-    from heatmap_tpu_torch.io.merge import merge_level_dirs
+    from heatmap_tpu_torch.io import SyntheticSource
     from heatmap_tpu_torch.ops import sparse_partitioned as sp
     from heatmap_tpu_torch.parallel import mesh as mesh_mod
-    from heatmap_tpu_torch.parallel import run_job_multihost
     from heatmap_tpu_torch.pipeline.batch import (BatchJobConfig,
                                                   load_columns, run_job)
     from heatmap_tpu_torch.streaming import HeatmapStream, StreamConfig
@@ -4241,7 +4243,7 @@ def phase_parallel(dev, single, ref):
         torch.cuda.synchronize()
         return out, seg.launches, time.perf_counter() - t0
 
-    # (a) the 4M job on the mesh.
+    # (a) the default job on the mesh.
     with mesh_mod._lay_shards(dev, k):
         cfg = BatchJobConfig(data_parallel=True)
         assert cfg.resolved_dispatch == "gspmd"
@@ -4249,7 +4251,7 @@ def phase_parallel(dev, single, ref):
             SyntheticSource(n=N_MAIN, seed=0), None, cfg, device=dev))
     assert blobs == single, "the mesh job's blobs differ from run_job's"
     assert n == k, n
-    rec["job_4m"] = {"points": N_MAIN, "seconds": dt, "launches": n,
+    rec["job_default"] = {"points": N_MAIN, "seconds": dt, "launches": n,
                      "launches_per_shard": n / k, "dispatch": "gspmd",
                      "equal_to_single_device": True}
     launches["mesh"] = n
@@ -4309,110 +4311,31 @@ def phase_parallel(dev, single, ref):
             "plain_launches": n_off, "bytes_equal": True}
         launches["mesh"] += n_on
 
-        # (d) multihost: 2 processes on the card, three egresses at once.
+        # (d) multihost: 2 processes on the card, the gather egress.
         want = _jsonl_blobs(os.path.join(tmp, "off.jsonl"))
-        single_levels = LevelArraysSink(os.path.join(tmp, "single"))
-        run_job(SyntheticSource(n=N_MULTIHOST, seed=4), single_levels,
-                BatchJobConfig(), batch_size=MULTIHOST_BATCH, device=dev)
         t0 = time.perf_counter()
-        runs = {}
-        import concurrent.futures as cf
-
-        with cf.ThreadPoolExecutor(3) as ex:
-            futs = {
-                "gather": ex.submit(
-                    multihost_cluster, tmp, "gather",
-                    f"jsonl:{tmp}/g.jsonl", ["--multihost-egress", "gather"],
-                    dev.type),
-                "sharded": ex.submit(
-                    multihost_cluster, tmp, "sharded",
-                    f"jsonl:{tmp}/s.jsonl",
-                    ["--multihost-egress", "sharded"], dev.type),
-                "arrays_sharded": ex.submit(
-                    multihost_cluster, tmp, "arrays", f"arrays:{tmp}/A",
-                    ["--multihost-egress", "sharded"], dev.type),
-            }
-            runs = {name: f.result() for name, f in futs.items()}
+        outs = multihost_cluster(tmp, "gather", f"jsonl:{tmp}/g.jsonl",
+                                 ["--multihost-egress", "gather"], dev.type)
         mh_s = time.perf_counter() - t0
         _blobs_equal(_jsonl_blobs(os.path.join(tmp, "g.jsonl")), want,
                      "gather")
-        parts = [_jsonl_blobs(os.path.join(tmp, f"s.jsonl.p{i:03d}"))
-                 for i in range(2)]
-        assert not set(parts[0]) & set(parts[1])
-        _blobs_equal({**parts[0], **parts[1]}, want, "sharded")
-        hosts = sorted(os.path.join(tmp, "A", h)
-                       for h in os.listdir(os.path.join(tmp, "A")))
-        assert [os.path.basename(h) for h in hosts] == ["host000", "host001"]
-        _levels_equal(merge_level_dirs(hosts),
-                      merge_level_dirs([os.path.join(tmp, "single")]),
-                      "multihost arrays")
-        mh_launches = {name: [n for _, n in outs]
-                       for name, outs in runs.items()}
-        for name, per_rank in mh_launches.items():
-            assert per_rank == [16, 16], (name, per_rank)
-        launches["multihost"] = sum(sum(v) for v in mh_launches.values())
+        per_rank = [n for _, n in outs]
+        assert per_rank == [16, 16], per_rank
+        launches["multihost"] = sum(per_rank)
         rec["multihost"] = {
             "points": N_MULTIHOST, "processes": 2, "seconds": mh_s,
-            "launches_by_rank": mh_launches,
-            "blobs_by_rank": {name: [s.get("blobs", s.get("rows"))
-                                     for s, _ in outs]
-                              for name, outs in runs.items()},
+            "launches_by_rank": {"gather": per_rank},
+            "blobs_by_rank": {"gather": [x.get("blobs") for x, _ in outs]},
             "equal_to_single_process": True}
 
-        # (e) elastic reassignment with one simulated host killed.
-        espec = f"synthetic:{N_ELASTIC}:6"
-        eargv = ["run", "--input", espec, "--batch-size",
-                 str(ELASTIC_BATCH), "--multihost", "--on-straggler",
-                 "reassign", "--elastic-hosts", str(ELASTIC_HOSTS),
-                 "--device", dev.type]
-        seg.launches = 0
-        ok, ok_s = cli_call([*eargv, "--elastic-dir", f"{tmp}/lin-ok",
-                             "--output", f"arrays:{tmp}/E-ok"])
-        n_ok = seg.launches
-        obs.enable_metrics(True)
-        try:
-            lost, n_lost, lost_s = counted(lambda: run_job_multihost(
-                SyntheticSource(n=N_ELASTIC, seed=6),
-                LevelArraysSink(f"{tmp}/E-lost"), BatchJobConfig(),
-                batch_size=ELASTIC_BATCH, on_straggler="reassign",
-                elastic_dir=f"{tmp}/lin-lost", elastic_hosts=ELASTIC_HOSTS,
-                heartbeat_deadline_s=ELASTIC_DEADLINE_S,
-                elastic_opts=dict(
-                    wedge_host=ELASTIC_HOSTS - 1, wedge_after=1,
-                    beat_interval_s=0.05,
-                    wedge_spec=("seed=29,scale=0,multihost.heartbeat@p"
-                                f"{ELASTIC_HOSTS - 1}=999")),
-                device=dev))
-        finally:
-            from heatmap_tpu_torch import faults
-
-            faults.install(None)
-            obs.enable_metrics(False)
-            obs.get_registry().reset()
-        assert lost["reassigned"] > 0, lost
-        assert ok["rows"] == lost["rows"] > 0, (ok, lost)
-        assert read_tree(f"{tmp}/E-ok") == read_tree(f"{tmp}/E-lost"), \
-            "elastic failover changed the arrays"
-        assert n_ok == n_lost == 16 * lost["shards"], (n_ok, n_lost, lost)
-        launches["elastic"] = n_ok + n_lost
-        rec["elastic"] = {"points": N_ELASTIC, "hosts": ELASTIC_HOSTS,
-                          "shards": lost["shards"],
-                          "reassigned": lost["reassigned"],
-                          "deadline_s": ELASTIC_DEADLINE_S,
-                          "seconds": lost_s, "unfailed_seconds": ok_s,
-                          "launches": n_lost, "unfailed_launches": n_ok,
-                          "bytes_equal_to_unfailed": True}
-        print(f"elastic: {lost['reassigned']} shard(s) reassigned",
-              flush=True)
-
-    # (f) the row-sharded stream against the unsharded one.
+    # (e) the row-sharded stream against the unsharded one.
     streams = {}
     window_launches = {}
     # The stream's default source, cut to its batch: the first ticks'
     # worth of ``stream_sources()``'s small batches.
     need = STREAM_SHARDED_TICKS * (STREAM_SHARDED_Z16_BATCH // STREAM_BATCH)
-    small = list(itertools.islice(
-        SyntheticSource(n=N_TILES, seed=0).batches(STREAM_BATCH), need))
+    small = list(SyntheticSource(n=need * STREAM_BATCH, seed=0).batches(
+        STREAM_BATCH))
     for name, extra, batch, kernel in (
             ("defaults", (), STREAM_BATCH, "window_histogram"),
             ("z16_weighted", ("--zoom", "16", "--batch-points",
@@ -4473,8 +4396,9 @@ def phase_parallel(dev, single, ref):
 
 #: Rows of the stand-in ``rhom.locations`` table (the reference scans a
 #: whole table; each row here passes through the source's per-row scan
-#: loop of Python dicts, so the phase reads 2^20 of them).
-N_CASSANDRA = 1 << 20
+#: loop of Python dicts, so the phase reads 2^19 of them; 2^20 until the
+#: last tool twins came).
+N_CASSANDRA = 1 << 19
 CASSANDRA_SEED = 3
 #: Partition-key ranges of the CosmosDB stand-in.
 COSMOS_RANGES = 8
@@ -4483,7 +4407,7 @@ COSMOS_RANGES = 8
 CASSANDRA_CHAOS = "seed=7,scale=0,source.read=1x2"
 #: Source batch of the phase's jobs: 16 batches of the stand-in table,
 #: so the chaos rule fires mid-stream.
-CASSANDRA_BATCH = 1 << 16
+CASSANDRA_BATCH = 1 << 15
 
 
 def user_token(user) -> int:
@@ -4736,11 +4660,12 @@ TOOLS_TEMPORAL_POINTS = 20_000  # [20,000; 30 iterations]
 TOOLS_TEMPORAL_ITERS = 10
 TOOLS_QUERY_POINTS = 1 << 16  # [200,000; 300 requests]
 TOOLS_QUERY_ITERS = 50
-TOOLS_SYNOPSIS_POINTS = 1 << 15  # [30,000; 50 decode passes]
+TOOLS_SYNOPSIS_POINTS = 1 << 14  # [30,000; 50 decode passes]
 TOOLS_SYNOPSIS_ITERS = 10
-#: mem_probe: the job single-shot at two sizes (H5), then the smaller
-#: in chunks [20M points in 2M chunks].
-TOOLS_MEM_SIZES = (1 << 20, 1 << 21)
+#: mem_probe: the job single-shot (H5's route; at 2^21 points too
+#: until the last tool twins came), then in chunks [20M points in 2M
+#: chunks].
+TOOLS_MEM_SIZES = (1 << 20,)
 TOOLS_MEM_CHUNK = 1 << 18
 #: soak [2M points, every check]: the checks whose work grows with the
 #: points at the JAX default (weighted (b)'s kernel at 2^20 points;
@@ -4949,9 +4874,9 @@ def measuring_tools(dev, tmp, store, rec):
     - ``bench_synopsis``, the stamped error re-verified, provisional
       publishes seen in the ingest drain;
     - ``mem_probe`` (children: their launches are not this process's):
-      its child with the job single-shot at two sizes, then the twin's
-      ``ram`` mode with the smaller chunked, each child's peak device
-      bytes, rows equal between the smaller one's two runs;
+      its child with the job single-shot at TOOLS_MEM_SIZES, then the
+      twin's ``ram`` mode with the first of them chunked, each child's
+      peak device bytes, rows equal between that size's two runs;
     - ``tilefs_convert --verify`` on a copy of ``store``, then
       ``load_gen`` over the converted copy (mirrors mapped): no error,
       no 5xx, a warm hit rate of at least 0.95; both host work, their
@@ -5062,7 +4987,7 @@ def measuring_tools(dev, tmp, store, rec):
 
     # mem_probe: each job in a child of its own. First the single-shot
     # job (max_points_in_flight=0: the route _auto_points_in_flight
-    # keeps for a source that fits, H5's) at two sizes, through the
+    # keeps for a source that fits, H5's) at TOOLS_MEM_SIZES, through the
     # twin's child; then the twin itself, chunked (its jobs always take
     # the bounded path).
     probes = []
@@ -5091,7 +5016,7 @@ def measuring_tools(dev, tmp, store, rec):
             assert line["peak_device_bytes"] > 0, line
         peak = line.get("peak_device_bytes")
         line["bytes_per_point"] = peak / line["n"] if peak else None
-    assert probes[0]["rows"] == probes[2]["rows"], probes
+    assert probes[0]["rows"] == probes[-1]["rows"], probes
     rec["mem_probe"] = {"seconds": time.perf_counter() - t0,
                         "probes": probes}
 
@@ -5171,6 +5096,211 @@ def measuring_tools(dev, tmp, store, rec):
     return launches, held_total
 
 
+#: The last six tool twins (their JAX defaults in brackets). The chaos
+#: twin's phases on the card: every one that runs a cascade (or a delta
+#: apply), and those that byte_equality and the fault floor need; the
+#: host-only phases (backend_loss, synopsis, query, tilefs, incident,
+#: telemetry, adaptive) run in the CPU tests.
+TWINS_CHAOS_N = 3000  # [3000, DEFAULT_CHAOS]
+TWINS_CHAOS_PHASES = ("baseline", "chaos_pipeline", "chaos_serve",
+                      "heartbeat", "fault_floor", "ingest_crash",
+                      "writer_loss", "dispatch", "host_loss",
+                      "host_loss_morton", "temporal", "byte_equality")
+TWINS_MULTIPROC = ("--k", "2", "--n", "3000")  # [2, 3000]
+#: Sweep twin: its rows at 2^22 points [2^25 points, 5 steps]. Every
+#: timed call is held to its plain version, so its outputs (about 12 GB
+#: of the card at 2^22) stay until the twin ends.
+TWINS_SWEEP = ("--n", "22", "--steps", "5")
+#: Verify twin: every (case, combo) of its epoch, all bit-exact.
+TWINS_VERIFY_COMBOS = 98
+#: Where the card twins keep their state here (returned with the run).
+TWINS_STATE = os.path.join("chiprun_out", "torch_onchip_state")
+KERNELS = ("segment_reduce", "window_histogram", "window_partitioned",
+           "window_partitioned_weighted")
+
+
+def _json_lines(text):
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def phase_tools2(dev, stream_rows):
+    """The last six tool twins on the card, state under TWINS_STATE:
+
+    - ``chaos_soak`` (TWINS_CHAOS_PHASES at ``--n`` TWINS_CHAOS_N under
+      its default plane) in this process: every phase ok, typed 503s and
+      no 500 in the chaos serve, the chaos run's level arrays and tiles
+      equal to the clean run's;
+    - ``multiproc_check`` at TWINS_MULTIPROC (its children on the card:
+      their launches are theirs, counted in their lines), every check
+      of both processes true, and ``--skew-only`` as a process beside it;
+    - ``verify_partitioned_onchip`` in this process: TWINS_VERIFY_COMBOS
+      combos, every one bit-exact (fractional weights within its rtol),
+      exit code 0; its default plans through the wrappers;
+    - ``sweep_partitioned``'s default rows at TWINS_SWEEP, every plan
+      bit-checked by the twin, no error row;
+    - ``apply_decisions`` over that state plus ``stream_rows`` (the
+      stream twin's): four decision lines, none an error or lacking
+      data.
+
+    Every launch made in this process is held to the plain version on
+    its own inputs (``_run_twin``). Returns {kernel: {path: launches}}
+    for the paths ``chaos``, ``multiproc``, ``verify`` and ``sweep``."""
+    from heatmap_tpu_torch import obs
+    from heatmap_tpu_torch.tools import (apply_decisions, chaos_soak,
+                                         multiproc_check, sweep_partitioned,
+                                         verify_partitioned_onchip)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.rmtree(TWINS_STATE, ignore_errors=True)
+    os.makedirs(TWINS_STATE)
+    by_path = {k: {} for k in KERNELS}
+    rec = {}
+
+    def record(path, counts):
+        for k in KERNELS:
+            by_path[k][path] = counts.get(k, 0)
+
+    def card_fields(line, what):
+        assert line["device"] == dev.type, (what, line)
+        if dev.type == "cuda":
+            assert line["gpu_name"] == torch.cuda.get_device_name(0), what
+            assert line["power_limit_w"] is not None, what
+
+    # chaos_soak: the card phases in this process.
+    argv = ["--n", str(TWINS_CHAOS_N), "--device", dev.type]
+    for name in TWINS_CHAOS_PHASES:
+        argv += ["--only", name]
+    try:
+        rc, seconds, counts, held, text = _run_twin(chaos_soak, argv,
+                                                    "chaos_soak")
+    finally:
+        obs.enable_metrics(False)
+        obs.get_registry().reset()
+    lines = _json_lines(text)
+    phases = {x["phase"]: x for x in lines if "phase" in x}
+    assert rc == 0, text[-3000:]
+    assert tuple(phases) == TWINS_CHAOS_PHASES, list(phases)
+    assert all(x["ok"] for x in phases.values()), phases
+    card_fields(lines[-1], "chaos_soak")
+    codes = phases["chaos_serve"]["codes"]
+    assert "500" not in codes and codes.get("503", 0) > 0, codes
+    assert counts == held and counts["segment_reduce"] > 0, (counts, held)
+    record("chaos", counts)
+    rec["chaos_soak"] = {
+        "seconds": seconds, "n": TWINS_CHAOS_N, "launches": counts,
+        "phases": {name: {k: v for k, v in x.items()
+                          if k not in ("phase", "ok")}
+                   for name, x in phases.items()}}
+
+    # multiproc_check: two processes on the card here, while the skew
+    # exchange (host bytes only) runs as a process of its own beside it.
+    skew = subprocess.Popen(
+        [sys.executable, "-m", "heatmap_tpu_torch.tools.multiproc_check",
+         "--k", "2", "--skew-only", "--device", dev.type], cwd=here,
+        env=dict(os.environ, PYTHONPATH=here), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    mp = {}
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = multiproc_check.main([*TWINS_MULTIPROC, "--device",
+                                       dev.type])
+        outputs = {"full": (rc, printed.getvalue())}
+        out, err = skew.communicate(timeout=600)
+        outputs["skew"] = (skew.returncode, out + err[-3000:])
+    finally:
+        if skew.poll() is None:
+            skew.kill()
+            skew.communicate()
+    for name, (rc, text) in outputs.items():
+        lines = _json_lines(text)
+        assert rc == 0, (name, text[-3000:])
+        verdict, children = lines[-1], lines[:-1]
+        assert verdict["check"] == "multiproc" and verdict["ok"], verdict
+        assert sorted(c["pid"] for c in children) == [0, 1], children
+        for child in children:
+            assert child["ok"] and all(child["checks"].values()), child
+        mp[name] = {"tool_s": verdict["s"],
+                    "checks": sum(len(c["checks"]) for c in children),
+                    "launches": verdict["launches"]}
+    mp["seconds"] = time.perf_counter() - t0
+    card_fields(_json_lines(outputs["full"][1])[-1], "multiproc_check")
+    assert mp["full"]["launches"]["segment_reduce"] > 0, mp
+    record("multiproc", mp["full"]["launches"])
+    rec["multiproc_check"] = mp
+
+    # verify_partitioned_onchip: every case and plan, in this process.
+    path = os.path.join(TWINS_STATE, "verify.jsonl")
+    rc, seconds, counts, held, text = _run_twin(
+        verify_partitioned_onchip, ["--state", path, "--device", dev.type],
+        "verify_partitioned_onchip")
+    lines = _json_lines(text)
+    final = lines[-1]
+    assert rc == 0, text[-3000:]
+    assert final["verdict"] == "BIT-EXACT", final
+    assert final["bit_exact"] == final["combos_done"] == \
+        TWINS_VERIFY_COMBOS, final
+    card_fields(final, "verify_partitioned_onchip")
+    combos = [x for x in lines if "bit_exact" in x and "case" in x]
+    assert len(combos) == TWINS_VERIFY_COMBOS and all(
+        x["bit_exact"] for x in combos), combos
+    # Each kernel at its own plan and at least one other.
+    seen = {(x["kw"].get("kernel", "segment_reduce"),
+             bool(set(x["kw"]) - {"kernel", "window"}))
+            for x in combos if "kw" in x}
+    assert seen == {(k, other) for k in ("bucketed", "histogram",
+                                         "segment_reduce")
+                    for other in (False, True)}, seen
+    assert counts == held and counts["segment_reduce"] == 15, (counts, held)
+    record("verify", counts)
+    rec["verify_partitioned_onchip"] = {
+        "seconds": seconds, "combos": len(combos), "launches": counts,
+        "kernel_epoch": final["kernel_epoch"]}
+
+    # sweep_partitioned: its rows at TWINS_SWEEP, in this process.
+    path = os.path.join(TWINS_STATE, "sweep.jsonl")
+    rc, seconds, counts, held, text = _run_twin(
+        sweep_partitioned, [*TWINS_SWEEP, "--state", path, "--device",
+                            dev.type], "sweep_partitioned")
+    lines = _json_lines(text)
+    final, rows = lines[-1], [x for x in lines if "config" in x]
+    assert rc == 0, text[-3000:]
+    assert final["errors"] == 0 and not any("error" in x for x in rows), \
+        rows
+    card_fields(final, "sweep_partitioned")
+    kernel_rows = [x for x in rows
+                   if x["config"].startswith(("partitioned", "histogram",
+                                              "cascade-level part",
+                                              "cascade-pyramid16 part"))]
+    assert kernel_rows and all(x["bit_exact"] for x in kernel_rows), rows
+    assert counts == held == final["launches"], (counts, held, final)
+    record("sweep", counts)
+    rec["sweep_partitioned"] = {
+        "seconds": seconds, "n": final["n"], "steps": final["steps"],
+        "launches": counts,
+        "rows": {x["config"]: {"ms": x["ms"], "device_us": x["device_us"]}
+                 for x in rows}}
+
+    # apply_decisions over the state, with the stream twin's rows.
+    with open(path, "a") as f:
+        for row in stream_rows:
+            f.write(json.dumps(row) + "\n")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        assert apply_decisions.main(["--state-dir", TWINS_STATE]) == 0
+    decisions = _json_lines(printed.getvalue())
+    assert [x["decision"] for x in decisions] == list(
+        apply_decisions.DECISIONS), decisions
+    for x in decisions:
+        assert "error" not in x and x["verdict"] != "insufficient-data", x
+    rec["apply_decisions"] = {x["decision"]: x for x in decisions}
+    emit({"phase": "tools2", **rec, "launches": by_path,
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: dict(v) for k, v in by_path.items()}
+
+
 def kernel_entry(name, source, replaces, launches, timing):
     return {"name": name, "route": "cuda",
             "source": f"heatmap_tpu_torch/csrc/{source}",
@@ -5206,7 +5336,7 @@ def main() -> int:
     kept = tempfile.TemporaryDirectory(prefix="smoke-kept-")
     serve_store = os.path.join(kept.name, "serve_store")
     with tempfile.TemporaryDirectory() as tmp:
-        # The 4M points as a CSV: the fast phase's input, and the
+        # The N_MAIN points as a CSV: the fast phase's input, and the
         # stream's resume case.
         csv_path = os.path.join(tmp, "points.csv")
         phase_fast(dev, single, csv_path)
@@ -5227,13 +5357,14 @@ def main() -> int:
         temporal_launches = phase_temporal(dev, tmp)
         tiles_launches = phase_tiles(dev)
         phase_stream(dev, csv_path)
-    phase_stream_bench(dev)
+    stream_rows = phase_stream_bench(dev)
     phase_splat(dev)
     phase_headline(dev)
     cassandra_launches = phase_cassandra(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tools_launches = phase_tools(dev, tmp, serve_store)
     kept.cleanup()
+    twins_launches = phase_tools2(dev, stream_rows)
     segment_reduce = kernel_entry(
         "segment_reduce", "segment_reduce.cu",
         "heatmap_tpu/ops/sparse_partitioned.py:75", bounded_launches,
@@ -5247,7 +5378,9 @@ def main() -> int:
                                           "cassandra": cassandra_launches,
                                           "tools": tools_launches[
                                               "segment_reduce"],
-                                          **parallel_launches}
+                                          **parallel_launches,
+                                          **twins_launches[
+                                              "segment_reduce"]}
     window_histogram = kernel_entry(
         "window_histogram", "window_histogram.cu",
         "heatmap_tpu/ops/pallas_kernels.py:49",
@@ -5256,7 +5389,8 @@ def main() -> int:
         "tiles": tiles_launches["window_histogram"],
         "serve": follow_launches,
         "stream_sharded": stream_sharded["window_histogram"],
-        "tools": tools_launches["window_histogram"]}
+        "tools": tools_launches["window_histogram"],
+        **twins_launches["window_histogram"]}
     weighted_entry = kernel_entry(
         "window_partitioned_weighted", "window_bucketed.cu",
         "heatmap_tpu/ops/partitioned.py:137",
@@ -5264,14 +5398,16 @@ def main() -> int:
     weighted_entry["launches_by_path"] = {
         "tiles": tiles_launches["window_partitioned_weighted"],
         "stream_sharded": stream_sharded["window_partitioned_weighted"],
-        "tools": tools_launches["window_partitioned_weighted"]}
+        "tools": tools_launches["window_partitioned_weighted"],
+        **twins_launches["window_partitioned_weighted"]}
     counts_entry = kernel_entry(
         "window_partitioned", "window_bucketed.cu",
         "heatmap_tpu/ops/partitioned.py:104",
         tiles_launches["window_partitioned"], part_counts)
     counts_entry["launches_by_path"] = {
         "tiles": tiles_launches["window_partitioned"],
-        "tools": tools_launches["window_partitioned"]}
+        "tools": tools_launches["window_partitioned"],
+        **twins_launches["window_partitioned"]}
     emit({"kernels": [
         segment_reduce,
         window_histogram,

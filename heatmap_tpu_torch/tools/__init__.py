@@ -24,10 +24,27 @@ scripts that measure the main paths, run as
 - ``soak``: cross-path equivalences at scale (``tools/soak.py``);
 - ``load_gen``: closed-loop serving load, fleets, brownout, cold
   against warm restarts (``tools/load_gen.py``).
+- ``chaos_soak``: the whole pipeline under the seeded fault plane,
+  byte-identical to a clean run, never a 500 (``tools/chaos_soak.py``);
+- ``multiproc_check``: k real processes over gloo, every multihost
+  egress against one process (``tools/multiproc_check.py``);
+- ``_epoch``: the kernel epoch, a hash of the kernel sources and their
+  plain versions; standard library only, loaded by path
+  (``tools/_epoch.py``);
+- ``verify_partitioned_onchip``: the kernels bit-exact on the card
+  across their plans, keyed by the epoch
+  (``tools/verify_partitioned_onchip.py``);
+- ``sweep_partitioned``: the same plans timed beside the PyTorch calls
+  they compete with (``tools/sweep_partitioned.py``);
+- ``apply_decisions``: the measurement-gated decisions over those
+  records (``tools/apply_decisions.py``).
 
 Each prints the JAX tool's record keys, plus ``device`` and, on a card,
 ``gpu_name`` and ``power_limit_w``, and writes its record under
 ``build/torch_bench/`` unless ``--out`` names another file
-(``tilefs_convert``: ``--record``). They run on the card unless
-``--device cpu`` is given.
+(``tilefs_convert``: ``--record``; the last six print their lines, and
+the card tools keep their state under ``build/torch_onchip_state/``).
+They run on the card unless ``--device cpu`` is given; the verify and
+sweep twins refuse the CPU (exit code 2), and ``_epoch`` and
+``apply_decisions`` do no device work.
 """

@@ -57,6 +57,22 @@ def write_record(path: str, record: dict, sort_keys: bool = False) -> None:
     print(json.dumps({"wrote": path}), flush=True)
 
 
+def append_line(path, rec):
+    """Append ``rec`` as one JSON line, durably; after a torn last line
+    (a killed writer's) it starts a new line, so the torn one alone is
+    lost."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a+b") as f:
+        f.seek(0, os.SEEK_END)
+        if f.tell():
+            f.seek(-1, os.SEEK_END)
+            if f.read(1) != b"\n":
+                f.write(b"\n")
+        f.write((json.dumps(rec) + "\n").encode())
+        f.flush()
+        os.fsync(f.fileno())
+
+
 def pct(sorted_vals, q: float):
     """The ``q`` quantile of already sorted values by the JAX tools'
     rule (index ``int(q * n)``, clipped), None when there are none."""
