@@ -1,0 +1,9 @@
+"""Median ms of the project stage over the traced run's split steps: one
+step run stage by stage between CUDA events (benchmark/split.py)."""
+
+import statistics
+
+
+def read(ctx):
+    ms = ctx.counters.get("split_ms", {}).get("project")
+    return statistics.median(ms) if ms else None
