@@ -38,6 +38,7 @@ from heatmap_tpu_torch.ops.histogram import (
 )
 from heatmap_tpu_torch.ops.pyramid import coarsen_raster
 from heatmap_tpu_torch.tilemath import mercator
+from heatmap_tpu_torch.utils.trace import stage_block, stage_span
 
 
 def make_points(n, seed=0):
@@ -92,10 +93,12 @@ def pyramid_capped(raster, levels: int):
     """[raster, coarsened once, ...]: up to ``levels`` 2x2 reshape-sums,
     stopping where a side would drop below 2 (bench.py's rollup)."""
     out = [raster]
-    for _ in range(levels):
-        if min(out[-1].shape) < 2:
-            break
-        out.append(coarsen_raster(out[-1]))
+    with stage_span("pyramid.coarsen", items=raster.numel()):
+        for _ in range(levels):
+            if min(out[-1].shape) < 2:
+                break
+            out.append(coarsen_raster(out[-1]))
+        stage_block(None)
     return out
 
 

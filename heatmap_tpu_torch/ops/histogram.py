@@ -27,6 +27,7 @@ import torch
 
 from heatmap_tpu_torch.tilemath import mercator
 from heatmap_tpu_torch.tilemath import tile as _tile
+from heatmap_tpu_torch.utils.trace import stage_block, stage_span
 
 BACKENDS = ("auto", "xla", "pallas", "partitioned")
 
@@ -209,26 +210,29 @@ def bin_rowcol_window(row, col, window: Window, weights=None, valid=None,
     """
     if dtype is None:
         dtype = torch.int32 if weights is None else torch.float32
-    picked = _pick_backend(backend, window, torch.as_tensor(row).device)
-    if picked == "partitioned":
-        from heatmap_tpu_torch.ops.partitioned import (
-            bin_rowcol_window_partitioned,
-        )
+    row = torch.as_tensor(row)
+    picked = _pick_backend(backend, window, row.device)
+    with stage_span("bin.window", items=row.numel(), backend=picked):
+        if picked == "partitioned":
+            from heatmap_tpu_torch.ops.partitioned import (
+                bin_rowcol_window_partitioned,
+            )
 
-        return bin_rowcol_window_partitioned(
-            row, col, window, weights=weights, valid=valid, dtype=dtype
-        )
-    if picked == "pallas":
-        from heatmap_tpu_torch.ops.pallas_kernels import (
-            bin_rowcol_window_pallas,
-        )
+            raster = bin_rowcol_window_partitioned(
+                row, col, window, weights=weights, valid=valid, dtype=dtype
+            )
+        elif picked == "pallas":
+            from heatmap_tpu_torch.ops.pallas_kernels import (
+                bin_rowcol_window_pallas,
+            )
 
-        raster = bin_rowcol_window_pallas(
-            row, col, window, weights=weights, valid=valid
-        )
-        return raster.to(dtype)
-    return _scatter_window(row, col, window, weights=weights, valid=valid,
-                           dtype=dtype)
+            raster = bin_rowcol_window_pallas(
+                row, col, window, weights=weights, valid=valid
+            ).to(dtype)
+        else:
+            raster = _scatter_window(row, col, window, weights=weights,
+                                     valid=valid, dtype=dtype)
+        return stage_block(raster)
 
 
 def bin_points_window(

@@ -44,7 +44,9 @@ from heatmap_tpu_torch.pipeline.groups import ALL_GROUP, EXCLUDED, UserVocab
 from heatmap_tpu_torch.pipeline.timespan import TS_MISSING, TimespanVocab
 from heatmap_tpu_torch.tilemath import mercator, morton
 from heatmap_tpu_torch.utils.checkpoint import CheckpointManager
-from heatmap_tpu_torch.utils.trace import get_tracer, stage_tracing_enabled
+from heatmap_tpu_torch.utils.trace import (get_tracer, stage_block,
+                                           stage_span,
+                                           stage_tracing_enabled)
 
 BACKGROUND_SOURCE = "background"  # dropped at ingest, reference heatmap.py:28-29
 
@@ -390,14 +392,15 @@ def ingest_columns(batches, config: BatchJobConfig):
         tracer.add_items("ingest.batch", len(cols["latitude"]))
     if not lats or sum(len(a) for a in lats) == 0:
         return None
-    data = {
-        "latitude": np.concatenate(lats),
-        "longitude": np.concatenate(lons),
-        "user_id": users,
-        "timestamp": stamps,
-    }
-    if config.weighted:
-        data["value"] = np.concatenate(vals)
+    with stage_span("ingest.concat"):
+        data = {
+            "latitude": np.concatenate(lats),
+            "longitude": np.concatenate(lons),
+            "user_id": users,
+            "timestamp": stamps,
+        }
+        if config.weighted:
+            data["value"] = np.concatenate(vals)
     return data
 
 
@@ -1774,7 +1777,7 @@ def run_batch(rows, config: BatchJobConfig | None = None,
 def _run_loaded(data, config: BatchJobConfig, as_json: bool, sink=None,
                 device="cuda", timer=None):
     vocab = UserVocab()
-    with stage(timer, "ingest"):
+    with stage(timer, "ingest"), stage_span("ingest.vocab"):
         group_ids = vocab.group_ids(data["user_id"])
     return _run_grouped(
         data["latitude"], data["longitude"], group_ids,
@@ -1975,6 +1978,9 @@ def _run_grouped(lat, lon, group_ids, timestamps, vocab,
         if dispatch_timer.enabled and e_codes.device.type == "cuda":
             torch.cuda.synchronize(e_codes.device)
         dispatch_timer.finished(items=len(e_codes))
+        # Under stage tracing the span closes once the card has run the
+        # cascade, so it times execution, not the enqueue.
+        stage_block(None)
     with tracer.span("cascade.decode"), stage(timer, "decode"):
         decoded = cascade_mod.decode_levels(levels, ccfg)
     return _finish_blobs(decoded, ccfg, _slot_names(vocab, ts_vocab, n_groups),

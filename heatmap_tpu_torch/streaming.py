@@ -41,6 +41,7 @@ from heatmap_tpu_torch import obs
 from heatmap_tpu_torch.devices import resolve_device
 from heatmap_tpu_torch.ops.histogram import Window, bin_points_window
 from heatmap_tpu_torch.parallel.mesh import DATA_AXIS
+from heatmap_tpu_torch.utils.trace import stage_block, stage_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,15 +88,19 @@ def make_update_step(config: StreamConfig, mesh=None):
     window = config.window
 
     def update(raster, fresh, decay):
-        if raster.dtype == torch.float32:
-            # XLA fuses raster * decay + fresh into one multiply-add with
-            # a single rounding. The float64 product of two float32
-            # values is exact, so the float64 sum rounded once to float32
-            # gives the same bits (except where that sum sits exactly on
-            # a float32 rounding midpoint), on the card and the CPU alike.
-            return raster.copy_(torch.add(fresh.double(), raster.double(),
-                                          alpha=decay))
-        return raster.mul_(decay).add_(fresh)
+        with stage_span("stream.decay", items=raster.numel()):
+            if raster.dtype == torch.float32:
+                # XLA fuses raster * decay + fresh into one multiply-add
+                # with a single rounding. The float64 product of two
+                # float32 values is exact, so the float64 sum rounded
+                # once to float32 gives the same bits (except where that
+                # sum sits exactly on a float32 rounding midpoint), on
+                # the card and the CPU alike.
+                raster.copy_(torch.add(fresh.double(), raster.double(),
+                                       alpha=decay))
+            else:
+                raster.mul_(decay).add_(fresh)
+            return stage_block(raster)
 
     if mesh is None:
         def step(raster, lat, lon, dt_s, weights, valid):
@@ -178,24 +183,26 @@ class HeatmapStream:
             target = -(-n // self._ndev) * self._ndev
         valid = None
         if target is not None and target != n:
-            pad = target - n
-            lat = np.concatenate([lat, np.zeros(pad, lat.dtype)])
-            lon = np.concatenate([lon, np.zeros(pad, lon.dtype)])
-            valid = np.arange(target) < n
-            if weights is not None:
-                weights = np.concatenate(
-                    [np.asarray(weights), np.zeros(pad, np.asarray(weights).dtype)]
-                )
+            with stage_span("stream.pad", items=target - n):
+                pad = target - n
+                lat = np.concatenate([lat, np.zeros(pad, lat.dtype)])
+                lon = np.concatenate([lon, np.zeros(pad, lon.dtype)])
+                valid = np.arange(target) < n
+                if weights is not None:
+                    weights = np.concatenate(
+                        [np.asarray(weights),
+                         np.zeros(pad, np.asarray(weights).dtype)]
+                    )
         dev = self.device
-        self._step(
-            self.raster,
-            torch.as_tensor(lat, device=dev),
-            torch.as_tensor(lon, device=dev),
-            dt,
-            None if weights is None else torch.as_tensor(
-                np.asarray(weights), device=dev),
-            None if valid is None else torch.as_tensor(valid, device=dev),
-        )
+        with stage_span("stream.copy", items=n):
+            lat_t = torch.as_tensor(lat, device=dev)
+            lon_t = torch.as_tensor(lon, device=dev)
+            w_t = (None if weights is None
+                   else torch.as_tensor(np.asarray(weights), device=dev))
+            valid_t = (None if valid is None
+                       else torch.as_tensor(valid, device=dev))
+            stage_block(None)
+        self._step(self.raster, lat_t, lon_t, dt, w_t, valid_t)
         self.t = t
         self.n_batches += 1
         if obs.metrics_enabled():

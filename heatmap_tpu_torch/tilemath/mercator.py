@@ -37,6 +37,9 @@ import numpy as np
 import torch
 
 from heatmap_tpu_torch.tilemath import tile as _tile
+from heatmap_tpu_torch.utils.trace import (get_tracer, stage_block,
+                                           stage_span,
+                                           stage_tracing_enabled)
 
 # Latitude of the square Web-Mercator world edge: atan(sinh(pi)).
 MAX_LATITUDE = math.degrees(math.atan(math.sinh(math.pi)))  # 85.05112877980659
@@ -182,21 +185,23 @@ def project_points(latitude, longitude, zoom: int, dtype=torch.float64):
     lon = torch.as_tensor(longitude, dtype=dtype, device=lat.device)
     n = float(1 << zoom)
     frow = _floored_rows(lat, zoom)
-    fcol = torch.floor((lon + 180.0) / 360.0 * n)
-    valid = (
-        torch.isfinite(frow)
-        & torch.isfinite(fcol)
-        & (frow >= 0.0)
-        & (frow < n)
-        & (fcol >= 0.0)
-        & (fcol < n)
-    )
-    # Zero invalid lanes before the int cast: clip alone keeps NaN, and
-    # NaN -> int is backend-dependent garbage.
-    frow = torch.where(valid, frow, 0.0)
-    fcol = torch.where(valid, fcol, 0.0)
-    row = torch.clamp(frow, 0.0, n - 1.0).to(torch.int32)
-    col = torch.clamp(fcol, 0.0, n - 1.0).to(torch.int32)
+    with stage_span("project.cols", items=lat.numel()):
+        fcol = torch.floor((lon + 180.0) / 360.0 * n)
+        valid = (
+            torch.isfinite(frow)
+            & torch.isfinite(fcol)
+            & (frow >= 0.0)
+            & (frow < n)
+            & (fcol >= 0.0)
+            & (fcol < n)
+        )
+        # Zero invalid lanes before the int cast: clip alone keeps NaN,
+        # and NaN -> int is backend-dependent garbage.
+        frow = torch.where(valid, frow, 0.0)
+        fcol = torch.where(valid, fcol, 0.0)
+        row = torch.clamp(frow, 0.0, n - 1.0).to(torch.int32)
+        col = torch.clamp(fcol, 0.0, n - 1.0).to(torch.int32)
+        stage_block(None)
     return row, col, valid
 
 
@@ -207,13 +212,15 @@ def _floored_rows(lat, zoom: int):
     """Floored rows of a float tensor of latitudes; in float64 the lanes
     near a row edge are re-derived on the host (:func:`project_points`)."""
     n = float(1 << zoom)
-    phi = lat * _PI / 180.0
-    t = torch.tan(phi)
-    s = 1.0 / torch.cos(phi)
-    u = t + s
-    log_u = torch.log(u)
-    ny = (1.0 - log_u / _PI) / 2.0 * n
-    frow = torch.floor(ny)
+    with stage_span("project.rows", items=lat.numel()):
+        phi = lat * _PI / 180.0
+        t = torch.tan(phi)
+        s = 1.0 / torch.cos(phi)
+        u = t + s
+        log_u = torch.log(u)
+        ny = (1.0 - log_u / _PI) / 2.0 * n
+        frow = torch.floor(ny)
+        stage_block(None)
     if lat.dtype == torch.float64:
         frow = _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom)
     return frow
@@ -221,17 +228,22 @@ def _floored_rows(lat, zoom: int):
 
 def _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom):
     """``frow`` with the lanes near a row edge replaced by the host's
-    scalar rows (see :func:`project_points`)."""
-    margin = _row_edge_margin(t, s, u, log_u, n)
-    # A NaN margin (u <= 0) flags the lane too.
-    near = torch.isfinite(ny) & ~((ny - torch.round(ny)).abs() > margin)
-    idx = torch.nonzero(near).squeeze(1)
-    k = int(idx.shape[0])
-    project_points.rechecked += k
-    if k == 0:
-        return frow
-    host = [_host_row(x, zoom) for x in lat[idx].tolist()]
-    frow[idx] = torch.tensor(host, dtype=frow.dtype, device=frow.device)
+    scalar rows (see :func:`project_points`). Its stage span's items are
+    the lanes it recomputed."""
+    with stage_span("project.recheck"):
+        margin = _row_edge_margin(t, s, u, log_u, n)
+        # A NaN margin (u <= 0) flags the lane too.
+        near = torch.isfinite(ny) & ~((ny - torch.round(ny)).abs() > margin)
+        idx = torch.nonzero(near).squeeze(1)
+        k = int(idx.shape[0])
+        project_points.rechecked += k
+        if stage_tracing_enabled():
+            get_tracer().add_items("project.recheck", k)
+        if k:
+            host = [_host_row(x, zoom) for x in lat[idx].tolist()]
+            frow[idx] = torch.tensor(host, dtype=frow.dtype,
+                                     device=frow.device)
+        stage_block(None)
     return frow
 
 

@@ -13,6 +13,15 @@ fenced per-stage split. ``stage_span`` opens a span only while stage
 tracing is on and costs a nullcontext otherwise; ``stage_block`` then
 synchronises the card, so a span times execution, not launch.
 
+While a ``torch.profiler`` is recording, every span and stage span also
+opens a ``record_function`` range of its name, so the profiler's trace
+(``torch_profile``, the benchmark's ``--trace 1``) shows it as a
+``user_annotation`` on the kernels' clock. The guard is one read of the
+profiler's module flag: ``record_function`` costs microseconds even
+with no profiler running, so it is never entered unguarded. With the
+profiler on and stage tracing off, a stage span is that range alone: no
+aggregate entry, no ``stage_end`` event, no synchronisation.
+
 Closed spans of the default tracer also feed the telemetry core
 (heatmap_tpu_torch/obs): a ``stage_duration_seconds`` sample and a
 ``stage_end`` event, both no-ops unless a metrics sink or an event log
@@ -27,6 +36,8 @@ import contextlib
 import os
 import threading
 import time
+
+from torch.autograd import profiler as _profiler
 
 _obs = None  # imported at the first span close, not with this module
 
@@ -81,11 +92,17 @@ class Tracer:
         begin = _tree_begin
         tree_span = (begin(name, attrs or None)
                      if begin is not None and self is _default else None)
+        rf = (_profiler.record_function(name)
+              if _profiler._is_profiler_enabled else None)
+        if rf is not None:
+            rf.__enter__()
         t0 = time.perf_counter()
         try:
             yield self
         finally:
             dt = time.perf_counter() - t0
+            if rf is not None:
+                rf.__exit__(None, None, None)
             with self._lock:
                 s = self._stat(name)
                 s.count += 1
@@ -168,11 +185,14 @@ def stage_tracing_enabled() -> bool:
 
 
 def stage_span(name: str, items: int | None = None, **attrs):
-    """A default-tracer span only under stage tracing; a nullcontext
-    otherwise, so hot call sites pay nothing when it is off."""
-    if not _stage_tracing:
-        return contextlib.nullcontext()
-    return _default.span(name, items=items, **attrs)
+    """A default-tracer span only under stage tracing; else, while a
+    profiler records, its ``record_function`` range alone; a nullcontext
+    otherwise, so hot call sites pay nothing when both are off."""
+    if _stage_tracing:
+        return _default.span(name, items=items, **attrs)
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def stage_block(x):
