@@ -755,11 +755,85 @@ def phase_kernel(dev):
             "bound_ms": bound_ms, "max_abs_err": err}, data
 
 
+#: The ``geolife-z16`` benchmark configuration: the bulk step's points,
+#: window and pyramid.
+BULK_CONFIG = os.path.join("benchmark", "configs", "geolife-z16.json")
+#: Least bytes a lane of the fused projection: float64 lat and lon read,
+#: int32 row and col and the bool mask written.
+PROJECT_LANE_BYTES = 8 + 8 + 4 + 4 + 1
+
+
+def phase_kernel_project_mercator(dev):
+    """The fused float64 projection kernel against its plain version (the
+    torch ops), on the card, bit for bit: rows, columns, validity and the
+    lanes rechecked on the host, on the projection cases of
+    ``kernel_cases`` and on one step of the ``geolife-z16.bulk`` cell's
+    points (``benchmark/generate.py``) at z16. Then timed at that size
+    beside the plain version, and the bulk step itself (``bench.step`` in
+    float64) run once with the kernel's launch count set to 0 just before
+    it. Returns the timing and that count."""
+    from benchmark import generate
+    from heatmap_tpu_torch import bench
+    from heatmap_tpu_torch import kernel_cases as kc
+    from heatmap_tpu_torch.ops.histogram import window_from_bounds
+    from heatmap_tpu_torch.tilemath import mercator as m
+
+    def check(name, lat, lon, zoom):
+        before = m.project_points.rechecked
+        want = m._project_plain(lat, lon, zoom)
+        k = m.project_points.rechecked - before
+        launches = m.project_points.fused_launches
+        before = m.project_points.rechecked
+        got = m.project_points(lat, lon, zoom)
+        torch.cuda.synchronize()
+        assert m.project_points.rechecked - before == k, name
+        assert_bit_equal(got, want, name)
+        return {"case": name, "n": int(lat.numel()), "zoom": zoom,
+                "rechecked": k,
+                "launches": m.project_points.fused_launches - launches}
+
+    checks = []
+    for case in kc.PROJECTION_CASES:
+        lat, lon, zoom = kc.projection_case(case)
+        checks.append(check(case, torch.as_tensor(lat, device=dev),
+                            torch.as_tensor(lon, device=dev), zoom))
+    with open(BULK_CONFIG) as f:
+        config = json.load(f)
+    n = int(config["points_per_step"])
+    zoom = config["window"]["zoom"]
+    lat, lon = generate.mixture_points(n, config["points"], 19,
+                                       "step-input-0", dev)
+    checks.append(check(f"geolife_bulk_z{zoom}", lat, lon, zoom))
+    ms = median_ms(lambda: m.project_points(lat, lon, zoom))
+    plain_ms = median_ms(lambda: m._project_plain(lat, lon, zoom))
+    by_kernel = device_us(lambda: m.project_points(lat, lon, zoom))
+    bytes_moved = PROJECT_LANE_BYTES * n
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    w = config["window"]
+    window = window_from_bounds(tuple(w["lat"]), tuple(w["lon"]), zoom,
+                                align_levels=w["align_levels"],
+                                pad_multiple=w["pad_multiple"])
+    m.project_points.fused_launches = 0
+    total, _ = bench.step(lat, lon, window, config["levels"],
+                          config["bin_backend"], proj_dtype=torch.float64)
+    total.item()
+    bulk_launches = m.project_points.fused_launches
+    assert bulk_launches == 1, bulk_launches
+    emit({"phase": "kernel_project_mercator", "bit_equal": True,
+          "checks": checks, "shape": {"n": n, "zoom": zoom},
+          "ms": ms, "plain_ms": plain_ms, "device_us": by_kernel,
+          "bound_ms": bound_ms, "bytes": bytes_moved, "max_abs_err": 0.0,
+          "bulk_step_launches": bulk_launches})
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "max_abs_err": 0.0}, bulk_launches
+
+
 def phase_run_job(dev):
     """The single-shot path: the default N_MAIN-point job on the card, with
     native decode and JSON egress; at N_PARALLEL points the same job
     equal to the scatter backend's and to adaptive capacities'. Returns
-    its launches, its blobs and the N_PARALLEL-point job's blobs."""
+    the fused projection's launches in the N_MAIN-point job, its blobs
+    and the N_PARALLEL-point job's blobs."""
     from heatmap_tpu_torch import native
     from heatmap_tpu_torch.devices import StageTimer
     from heatmap_tpu_torch.io import MemorySink, SyntheticSource
@@ -788,6 +862,7 @@ def phase_run_job(dev):
     tracer = get_tracer()
     tracer.reset()
     project_points.rechecked = 0
+    project_points.fused_launches = 0
     sp.aggregate_sorted_keys_partitioned.launches = 0
     t0 = time.perf_counter()
     blobs = run_job(SyntheticSource(n=N_MAIN, seed=0), sink, cfg,
@@ -796,6 +871,8 @@ def phase_run_job(dev):
     wall = time.perf_counter() - t0
     launches = sp.aggregate_sorted_keys_partitioned.launches
     rechecked = project_points.rechecked
+    projections = project_points.fused_launches
+    assert projections > 0, projections
     gc.callbacks.remove(on_gc)
     # Egress by tracer span: finalize, JSON formatting, sink writes.
     spans = _span_split(tracer)
@@ -833,6 +910,7 @@ def phase_run_job(dev):
           "segment_reduce_ms": timer.ms.get("segment_reduce"),
           "span_s": spans, "gc_ms_by_generation": gc_ms,
           "blobs": len(blobs), "launches": launches,
+          "projection_launches": projections,
           "projection_rechecked": rechecked, "native_egress": True,
           "peak_bytes": peak, "equal_to_scatter": True,
           "checks_points": N_PARALLEL,
@@ -846,7 +924,7 @@ def phase_run_job(dev):
                        "equal_to_single_shot": True},
           "cascade_ms": sum(timer.ms.get("segment_reduce", []))
           + sum(timer.ms.get("sort", []))})
-    return launches, blobs, ref
+    return projections, blobs, ref
 
 
 def _span_split(tracer):
@@ -1027,6 +1105,7 @@ def reference_projection(lat, lon, zoom):
 def phase_projection(data, dev):
     """The card's f64 projection against the reference's scalar rows:
     synthetic points, and latitudes within 3 ulps of z21 row edges."""
+    from heatmap_tpu_torch import kernel_cases as kc
     from heatmap_tpu_torch.tilemath.mercator import project_points
 
     def mismatches(lat, lon):
@@ -1042,18 +1121,8 @@ def phase_projection(data, dev):
     lat, lon = data["latitude"][:1_000_000], data["longitude"][:1_000_000]
     synthetic, synthetic_rechecked = mismatches(lat, lon)
     # Latitudes within a few ulps of z21 row edges.
-    rng = np.random.default_rng(1)
-    rows = rng.integers(0, 1 << 21, 100_000)
-    n = math.pi - 2.0 * math.pi * rows / float(1 << 21)
-    edge = 180.0 / math.pi * np.arctan(0.5 * (np.exp(n) - np.exp(-n)))
-    near = [edge]
-    up = down = edge
-    for _ in range(3):
-        up = np.nextafter(up, np.inf)
-        down = np.nextafter(down, -np.inf)
-        near += [up, down]
-    blat = np.concatenate(near)
-    blon = rng.uniform(-180, 180, blat.shape[0])
+    blat = kc.row_edge_latitudes()
+    blon = np.random.default_rng(1).uniform(-180, 180, blat.shape[0])
     boundary, boundary_rechecked = mismatches(blat, blon)
     emit({"phase": "projection", "reference": "CPython math",
           "points": int(lat.shape[0]), "mismatches": synthetic,
@@ -1468,8 +1537,10 @@ def phase_tiles(dev):
     PNG tree byte-identical to the same run with ``--device cpu``:
     defaults on synthetic points (the partitioned kernel), ``--weighted``
     on integer values (its weighted twin), and a one-tile window (the
-    histogram kernel)."""
+    histogram kernel). Returns the launches of each window kernel, and
+    of the fused projection over the three runs."""
     from heatmap_tpu_torch.cli import run_tiles
+    from heatmap_tpu_torch.tilemath.mercator import project_points
 
     runs = {
         "default": ((), None, "partitioned", "window_partitioned"),
@@ -1491,15 +1562,20 @@ def phase_tiles(dev):
                 source = make_source() if make_source else None
                 if side == "card":
                     zero_window_counters()
+                    project_points.fused_launches = 0
                 summaries[side], raster = run_tiles(args, source=source)
                 if side == "card":
                     torch.cuda.synchronize()
                     used = window_counters()
+                    projections = project_points.fused_launches
                 rasters[side] = raster.cpu()
                 trees[side] = read_tree(out)
             card = summaries["card"]
             assert card["bin_backend"] == backend, (name, card)
             assert used[kernel] > 0, (name, used)
+            assert projections > 0, (name, projections)
+            launches["project_mercator"] = (
+                launches.get("project_mercator", 0) + projections)
             # Counts, and integer weights with per-cell sums far below
             # 2^24, are exact on both sides: the rasters are bit-equal.
             assert rasters["card"].dtype == rasters["cpu"].dtype, name
@@ -1511,7 +1587,9 @@ def phase_tiles(dev):
                              "seconds": card["seconds"],
                              "stage_ms": card["stage_ms"],
                              "cpu_seconds": summaries["cpu"]["seconds"],
-                             "launches": used, "png_bytes": sum(
+                             "launches": used,
+                             "projection_launches": projections,
+                             "png_bytes": sum(
                                  len(b) for b in trees["card"].values()),
                              "raster_max": float(rasters["card"].max()),
                              "raster_equal_to_cpu": True,
@@ -3910,6 +3988,7 @@ def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
     the card's summary, launches, raster and PNG tree against the CPU's.
     Returns the record and both PNG trees."""
     from heatmap_tpu_torch.cli import run_stream_command
+    from heatmap_tpu_torch.tilemath.mercator import project_points
 
     snaps, trees, summaries = {}, {}, {}
     for side, device in (("card", dev.type), ("cpu", "cpu")):
@@ -3917,11 +3996,13 @@ def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
         args = stream_args(spec, out, device, *extra)
         if side == "card":
             zero_window_counters()
+            project_points.fused_launches = 0
         summaries[side], snaps[side], _ = run_stream_command(args,
                                                              source=source)
         if side == "card":
             torch.cuda.synchronize()
             used = window_counters()
+            projections = project_points.fused_launches
         trees[side] = read_tree(out)
     card, host = snaps["card"], snaps["cpu"]
     summary = summaries["card"]
@@ -3930,6 +4011,7 @@ def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
     assert np.isfinite(card).all() and card.sum() > 0, name
     assert used[kernel] == ticks > 0, (name, used, ticks)
     assert sum(used.values()) == ticks, (name, used)
+    assert projections > 0, (name, projections)
     nz = (card != 0) | (host != 0)
     rel = float((np.abs(card.astype(np.float64) - host)[nz]
                  / np.abs(host.astype(np.float64))[nz].clip(
@@ -3939,6 +4021,7 @@ def run_stream_pair(dev, tmp, name, spec, source, extra, kernel):
     update_ms = summary["stage_ms"]["update"]
     rec = {"ticks": ticks, "window": summary["window"],
            "bin_backend": summary["bin_backend"], "launches": used,
+           "projection_launches": projections,
            "launches_per_tick": used[kernel] / ticks,
            "ms_per_tick": update_ms / ticks,
            "wall_ms_per_tick": summary["seconds"] * 1e3 / ticks,
@@ -3968,7 +4051,9 @@ def phase_stream(dev, csv_path):
     number of batches, so the replay lines up at the checkpoint),
     resumed over the whole file, bit-equal to an uninterrupted run. The
     window kernels are held against their plain versions at (a)'s and
-    (b)'s tick shapes first, beside the split of one update's time."""
+    (b)'s tick shapes first, beside the split of one update's time.
+    Returns the fused projection's launches over the cases' card runs
+    (the resume runs left out)."""
     from heatmap_tpu_torch.cli import run_stream_command
     from heatmap_tpu_torch.ops import pallas_kernels as pk
     from heatmap_tpu_torch.ops import partitioned as pt
@@ -4052,6 +4137,8 @@ def phase_stream(dev, csv_path):
     emit({"phase": "stream", "points": N_TILES, "rtol": STREAM_RTOL,
           "kernel_checks": kernel_checks, "update_split": update_split,
           "runs": runs})
+    return sum(r["projection_launches"] for name, r in runs.items()
+               if name != "resume")
 
 
 def phase_stream_bench(dev):
@@ -5323,8 +5410,9 @@ def main() -> int:
     kernel, data = phase_kernel(dev)
     histogram = phase_kernel_window_histogram(dev)
     part_counts, part_weighted = phase_kernel_window_partitioned(dev)
+    projection, bulk_projections = phase_kernel_project_mercator(dev)
     torch.cuda.empty_cache()
-    _, single, single_ref = phase_run_job(dev)
+    job_projections, single, single_ref = phase_run_job(dev)
     phase_projection(data, dev)
     del data
     bounded_launches = phase_bounded(dev, single)
@@ -5356,7 +5444,7 @@ def main() -> int:
         shutil.rmtree(plane_root)
         temporal_launches = phase_temporal(dev, tmp)
         tiles_launches = phase_tiles(dev)
-        phase_stream(dev, csv_path)
+        stream_projections = phase_stream(dev, csv_path)
     stream_rows = phase_stream_bench(dev)
     phase_splat(dev)
     phase_headline(dev)
@@ -5408,11 +5496,21 @@ def main() -> int:
         "tiles": tiles_launches["window_partitioned"],
         "tools": tools_launches["window_partitioned"],
         **twins_launches["window_partitioned"]}
+    project_entry = kernel_entry(
+        "project_mercator", "project_mercator.cu",
+        "none (XLA fuses heatmap_tpu/tilemath/mercator.py project_points)",
+        bulk_projections, projection)
+    project_entry["launches_by_path"] = {
+        "bulk": bulk_projections,
+        "job": job_projections,
+        "tiles": tiles_launches["project_mercator"],
+        "stream": stream_projections}
     emit({"kernels": [
         segment_reduce,
         window_histogram,
         counts_entry,
         weighted_entry,
+        project_entry,
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Edge-case inputs of the segment-reduce and window-binning kernels.
+"""Edge-case inputs of the segment-reduce, window-binning and projection
+kernels.
 
 Made with numpy from a seed, so the same inputs reach the card
 (``chip_smoke.py`` holds each kernel bit-equal to its plain version on
@@ -9,10 +10,15 @@ tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys; points placed
 against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE`` cells and
 split into work items of ``ops.partitioned.ITEM_POINTS``; and windows of
 the histogram kernel at its bands' limits, with points where the bands
-of ``ops.pallas_kernels.SLICE_BYTES`` meet.
+of ``ops.pallas_kernels.SLICE_BYTES`` meet; and points whose Mercator
+rows sit on z21 row edges, at the world's edges and poles, non-finite,
+on the antimeridian, and batches with ragged ends against the blocks of
+the projection kernel.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -254,3 +260,122 @@ def histogram_case(name: str, seed: int = 0):
     if name == "hot_cell":
         valid[:HOT_CELL_COUNT] = True
     return fields, row.astype(np.int32), col.astype(np.int32), valid
+
+
+PROJECTION_CASES = (
+    "row_edges_z21",
+    "mercator_edge",
+    "beyond_poles",
+    "non_finite",
+    "antimeridian",
+    "geolife_z16",
+    "geolife_z21",
+    "empty",
+    "one",
+    "below_one_block",
+    "ragged",
+)
+#: Lanes that one block of ``csrc/project_mercator.cu`` takes (256
+#: threads of 4 lanes).
+PROJECT_BLOCK_LANES = 1024
+#: Latitude of the square Web-Mercator world's edge, atan(sinh(pi)).
+_MAX_LATITUDE = math.degrees(math.atan(math.sinh(math.pi)))
+
+
+def row_edge_latitudes(seed: int = 1):
+    """700,000 float64 latitudes: 100,000 z21 row edges and the three
+    doubles on either side of each."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 1 << 21, 100_000)
+    n = math.pi - 2.0 * math.pi * rows / float(1 << 21)
+    edge = 180.0 / math.pi * np.arctan(0.5 * (np.exp(n) - np.exp(-n)))
+    near = [edge]
+    up = down = edge
+    for _ in range(3):
+        up = np.nextafter(up, np.inf)
+        down = np.nextafter(down, -np.inf)
+        near += [up, down]
+    return np.concatenate(near)
+
+
+def _ulps(x: float, k: int):
+    """``x`` and the ``k`` doubles on either side of it."""
+    out = [x]
+    up = down = x
+    for _ in range(k):
+        up = np.nextafter(up, np.inf)
+        down = np.nextafter(down, -np.inf)
+        out += [up, down]
+    return np.array(out)
+
+
+def _city_points(n: int, rng):
+    """``n`` float64 points in the manner of GeoLife's traces: three in
+    four spread over a city (Beijing), one in four in a hot spot at its
+    center. A plain seeded mixture; the benchmark's own points come from
+    ``benchmark/generate.py``."""
+    n_hot = n // 4
+    cols = []
+    for c, wide, hot in ((39.9, 0.12, 0.01), (116.4, 0.16, 0.015)):
+        cols.append(np.concatenate([rng.normal(c, wide, n - n_hot),
+                                    rng.normal(c, hot, n_hot)]))
+    return cols[0], cols[1]
+
+
+def projection_case(name: str, seed: int = 0):
+    """``(lat float64, lon float64, zoom)`` of one named case."""
+    rng = np.random.default_rng([seed, 200 + PROJECTION_CASES.index(name)])
+    if name == "row_edges_z21":
+        # Every lane lies within a few ulps of a row edge: all flagged,
+        # far more than the kernel's first list holds.
+        lat = row_edge_latitudes()
+        return lat, np.linspace(-179.0, 179.0, lat.size), 21
+    if name == "mercator_edge":
+        # The world's edge: rows 0 and -1 (and 2^zoom - 1 and 2^zoom)
+        # meet there.
+        edges = np.concatenate([
+            _ulps(s * x, 3) for s in (1.0, -1.0)
+            for x in (_MAX_LATITUDE, 85.0511, 85.06, 85.05)])
+        lat = np.concatenate([np.repeat(edges, 40),
+                              rng.uniform(-85.06, -85.04, 500),
+                              rng.uniform(85.04, 85.06, 500)])
+        return lat, rng.uniform(-180.0, 180.0, lat.size), 21
+    if name == "beyond_poles":
+        # |lat| >= 90: no pole clamping, so some rows come out valid.
+        far = np.array([90.0, 90.5, 95.0, 135.0, 180.0, 270.0, 360.0,
+                        720.0, 1e4])
+        lat = np.concatenate([np.repeat(np.concatenate(
+            [_ulps(90.0, 2), far, -far]), 30),
+            rng.uniform(90.0, 400.0, 500), rng.uniform(-400.0, -90.0, 500)])
+        return lat, rng.uniform(-180.0, 180.0, lat.size), 16
+    if name == "non_finite":
+        bad = np.array([np.nan, np.inf, -np.inf, 40.0])
+        lat, lon = np.meshgrid(bad, np.array([np.nan, np.inf, -np.inf,
+                                              116.0]))
+        lat = np.repeat(lat.ravel(), 70)
+        lon = np.repeat(lon.ravel(), 70)
+        mixed = rng.random(lat.size) < 0.5
+        lat[mixed] = rng.uniform(-80.0, 80.0, int(mixed.sum()))
+        return lat, lon, 10
+    if name == "antimeridian":
+        # lon == 180 gives column 2^zoom (invalid); -180 gives column 0.
+        edges = np.concatenate([_ulps(180.0, 2), _ulps(-180.0, 2),
+                                [179.9999999, -179.9999999, 0.0, -0.0,
+                                 200.0, -200.0]])
+        lon = np.concatenate([np.repeat(edges, 50),
+                              rng.uniform(179.99, 180.01, 500)])
+        return rng.uniform(-80.0, 80.0, lon.size), lon, 21
+    if name in ("geolife_z16", "geolife_z21"):
+        lat, lon = _city_points(200_000, rng)
+        return lat, lon, int(name[-2:])
+    if name == "empty":
+        return np.zeros(0), np.zeros(0), 16
+    if name == "one":
+        return np.array([51.5074]), np.array([-0.1278]), 10
+    if name in ("below_one_block", "ragged"):
+        # Not a multiple of the block's lanes, nor of a thread's 4.
+        n = (PROJECT_BLOCK_LANES - 3 if name == "below_one_block"
+             else 3 * PROJECT_BLOCK_LANES + 5)
+        return (rng.uniform(-85.0, 85.0, n), rng.uniform(-180.0, 180.0, n),
+                12)
+    raise ValueError(f"unknown projection case {name!r}")

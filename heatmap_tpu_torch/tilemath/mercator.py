@@ -27,15 +27,21 @@ the host's libm at the last ulp, which moves a point that lies within a
 few ulps of a row edge. So the float64 projection re-derives the rows of
 exactly those points with the scalar formula on the host
 (:func:`project_points`); every other row is already the reference's.
+
+On a CUDA device the float64 projection is one hand-written kernel
+(``csrc/project_mercator.cu``) whose plain version is the chain of torch
+ops that every other device and float32 take (:func:`_project_plain`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
+from heatmap_tpu_torch import _build
 from heatmap_tpu_torch.tilemath import tile as _tile
 from heatmap_tpu_torch.utils.trace import (get_tracer, stage_block,
                                            stage_span,
@@ -177,12 +183,31 @@ def project_points(latitude, longitude, zoom: int, dtype=torch.float64):
     ``project_points.rechecked`` counts the lanes it recomputed.
     ``torch.float32`` is the fast path and gets no recheck; its rows
     are held to the JAX package's documented f32 mismatch rates.
+
+    Float64 points on a CUDA device take one fused kernel
+    (``csrc/project_mercator.cu``, :func:`_project_fused`; its launches
+    are counted in ``project_points.fused_launches``); everything else
+    takes the chain of torch ops (:func:`_project_plain`), the kernel's
+    plain version. Both give the same rows, columns, validity and
+    rechecked lanes.
     """
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"dtype must be torch.float64 or torch.float32, "
                          f"got {dtype}")
     lat = torch.as_tensor(latitude, dtype=dtype)
     lon = torch.as_tensor(longitude, dtype=dtype, device=lat.device)
+    if dtype == torch.float64 and lat.device.type == "cuda":
+        return _project_fused(lat, lon, zoom)
+    return _project_plain(lat, lon, zoom)
+
+
+project_points.rechecked = 0
+project_points.fused_launches = 0
+
+
+def _project_plain(lat, lon, zoom: int):
+    """The projection as torch ops, on any device and dtype: the floored
+    rows (with the float64 recheck), then the columns and the mask."""
     n = float(1 << zoom)
     frow = _floored_rows(lat, zoom)
     with stage_span("project.cols", items=lat.numel()):
@@ -203,9 +228,6 @@ def project_points(latitude, longitude, zoom: int, dtype=torch.float64):
         col = torch.clamp(fcol, 0.0, n - 1.0).to(torch.int32)
         stage_block(None)
     return row, col, valid
-
-
-project_points.rechecked = 0
 
 
 def _floored_rows(lat, zoom: int):
@@ -234,17 +256,129 @@ def _recheck_row_edges(lat, ny, frow, t, s, u, log_u, n, zoom):
         margin = _row_edge_margin(t, s, u, log_u, n)
         # A NaN margin (u <= 0) flags the lane too.
         near = torch.isfinite(ny) & ~((ny - torch.round(ny)).abs() > margin)
-        idx = torch.nonzero(near).squeeze(1)
+        # Flat lane indices, so that inputs of any shape recheck alike.
+        idx = torch.nonzero(near.reshape(-1)).squeeze(1)
         k = int(idx.shape[0])
-        project_points.rechecked += k
-        if stage_tracing_enabled():
-            get_tracer().add_items("project.recheck", k)
+        _count_rechecked(k)
         if k:
-            host = [_host_row(x, zoom) for x in lat[idx].tolist()]
-            frow[idx] = torch.tensor(host, dtype=frow.dtype,
-                                     device=frow.device)
+            # ``frow`` keeps the strides of ``lat`` (a transposed input
+            # gives a transposed ``frow``); a flat view in lane order
+            # writes through only on a contiguous tensor.
+            frow = frow.contiguous()
+            host = [_host_row(x, zoom) for x in lat.reshape(-1)[idx].tolist()]
+            frow.view(-1)[idx] = torch.tensor(host, dtype=frow.dtype,
+                                              device=frow.device)
         stage_block(None)
     return frow
+
+
+def _count_rechecked(k: int) -> None:
+    project_points.rechecked += k
+    if stage_tracing_enabled():
+        get_tracer().add_items("project.recheck", k)
+
+
+#: Entries of the fused kernel's list of flagged lanes in a first launch.
+#: On the card, 24,876,978 points of the GeoLife mixture flag none at z16
+#: and 2 at z21 (PERF.md); a launch that flags more than this runs again
+#: with a list of the size it counted.
+FLAGGED_CAPACITY = 4096
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: (function, argtypes) of csrc/project_mercator.cu's C interface: lat,
+#: lon, n_lanes, zoom, row, col, valid, count, flagged, capacity, stream.
+_SIGNATURES = (
+    ("hm_project_mercator", (_P, _P, _I64, _I, _P, _P, _P, _P, _P, _I64, _P)),
+)
+
+
+def _project_fused(lat, lon, zoom: int):
+    """The float64 projection on a CUDA device: one kernel launch
+    (``project.rows``), then the count of flagged lanes read back and
+    their host rows written in (``project.recheck``)."""
+    lat, lon = torch.broadcast_tensors(lat, lon)
+    shape = lat.shape
+    lat = lat.reshape(-1).contiguous()
+    lon = lon.reshape(-1).contiguous()
+    with stage_span("project.rows", items=lat.numel()):
+        out = _launch(lat, lon, zoom, FLAGGED_CAPACITY)
+        stage_block(None)
+    with stage_span("project.recheck"):
+        row, col, valid, k = _recheck_flagged(
+            lat, zoom, out, lambda capacity: _launch(lat, lon, zoom,
+                                                     capacity))
+        _count_rechecked(k)
+        stage_block(None)
+    return row.reshape(shape), col.reshape(shape), valid.reshape(shape)
+
+
+def _launch(lat, lon, zoom: int, capacity: int):
+    """One launch of the fused kernel over flat contiguous float64 CUDA
+    tensors: ``(row, col, valid, count, flagged)``, where ``count`` (a
+    device int64) counts the lanes near a row edge and ``flagged`` holds
+    the first ``capacity`` of their indices, in no order. A flagged lane
+    comes out with row 0 and with ``col`` and ``valid`` of its column
+    alone (:func:`_recheck_flagged` finishes it)."""
+    dev = lat.device
+    n = lat.shape[0]
+    if not (lat.dtype == lon.dtype == torch.float64
+            and lat.dim() == lon.dim() == 1 and lon.shape[0] == n
+            and lat.is_contiguous() and lon.is_contiguous()
+            and lon.device == dev and dev.type == "cuda"):
+        raise ValueError("the fused projection takes flat contiguous "
+                         "float64 CUDA tensors of one length")
+    row = torch.empty(n, dtype=torch.int32, device=dev)
+    col = torch.empty(n, dtype=torch.int32, device=dev)
+    valid = torch.empty(n, dtype=torch.bool, device=dev)
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    flagged = torch.empty(capacity, dtype=torch.int64, device=dev)
+    lib = _build.load("project_mercator", _SIGNATURES)
+    with torch.cuda.device(dev):
+        rc = lib.hm_project_mercator(
+            lat.data_ptr(), lon.data_ptr(), n, zoom, row.data_ptr(),
+            col.data_ptr(), valid.data_ptr(), count.data_ptr(),
+            flagged.data_ptr(), capacity,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"hm_project_mercator failed to launch: "
+                           f"cudaError {rc}")
+    if n:
+        # With no lanes the library only zeroes the count.
+        _build.count_launch(project_points, "fused_launches")
+    return row, col, valid, count, flagged
+
+
+def _recheck_flagged(lat, zoom: int, out, relaunch):
+    """Finish a fused launch's output ``out`` (see :func:`_launch`):
+    read the count of flagged lanes (the call's one sync), run
+    ``relaunch(count)`` when the list overflowed, and write the flagged
+    lanes' rows, columns and validity from the host's scalar rows
+    (:func:`_host_lanes`). Returns ``(row, col, valid, count)``."""
+    row, col, valid, count, flagged = out
+    k = int(count.item())
+    if k > flagged.shape[0]:
+        row, col, valid, count, flagged = relaunch(k)
+    if k:
+        idx = flagged[:k]
+        r, c, v = _host_lanes(lat[idx].tolist(), col[idx].cpu().numpy(),
+                              valid[idx].cpu().numpy(), zoom)
+        row[idx] = torch.from_numpy(r).to(row.device)
+        col[idx] = torch.from_numpy(c).to(col.device)
+        valid[idx] = torch.from_numpy(v).to(valid.device)
+    return row, col, valid, k
+
+
+def _host_lanes(lat: list, col, col_valid, zoom: int):
+    """``(row, col, valid)`` numpy arrays of lanes near a row edge, from
+    their latitudes (a list of floats), their columns and the validity
+    of their columns alone: the rows are the host's scalar rows, and the
+    mask, zeroing and casts are :func:`_project_plain`'s."""
+    n = float(1 << zoom)
+    rows = np.array([_host_row(x, zoom) for x in lat], dtype=np.float64)
+    with np.errstate(invalid="ignore"):
+        valid = np.asarray(col_valid, bool) & (rows >= 0.0) & (rows < n)
+    return (np.where(valid, rows, 0.0).astype(np.int32),
+            np.where(valid, col, 0).astype(np.int32), valid)
 
 
 def project_points_np(latitude, longitude, zoom):

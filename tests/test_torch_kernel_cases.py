@@ -8,12 +8,16 @@ sub-block grid of windows with ragged edges, chunking, work items and
 the one scratch allocation of the bucketed passes, checked by a numpy
 model of those passes (counts and weights) that must bin every case as
 the JAX package does; and the histogram's bands and grid, checked by a
-numpy model of the banded build.
+numpy model of the banded build. The projection cases through the
+port's projection on the CPU (its plain version) against the JAX
+package's float64 projection and the reference's scalar formula: rows,
+columns and validity exactly equal.
 
 The CUDA kernels run only on the card.
 """
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +29,14 @@ from heatmap_tpu.ops import pallas_kernels as jpk
 from heatmap_tpu.ops import partitioned as jpt
 from heatmap_tpu.ops import sparse_partitioned as jsp
 from heatmap_tpu.ops.sparse import aggregate_sorted_keys as j_agg
+from heatmap_tpu.tilemath import mercator as jmerc
 from heatmap_tpu_torch import interop
 from heatmap_tpu_torch import kernel_cases as kc
 from heatmap_tpu_torch.ops import pallas_kernels as tpk
 from heatmap_tpu_torch.ops import partitioned as tpt
 from heatmap_tpu_torch.ops import sparse_partitioned as tsp
+from heatmap_tpu_torch.tilemath import mercator as tmerc
+import oracle
 
 SENTINEL = kc.SENTINEL
 TILE = tsp.TILE_KEYS
@@ -528,3 +535,41 @@ def test_plan_histogram_refusals(n, sms):
                                         width=64)
     with pytest.raises(ValueError, match="no histogram plan"):
         tpk.plan_histogram(window, n, sms)
+
+
+# --- projection -----------------------------------------------------------
+
+def _oracle_projection(lat, lon, zoom):
+    """The reference's scalar rows and columns (NaN where CPython's math
+    refuses the point) and the validity they give."""
+    def scalar(f, x):
+        try:
+            return float(f(x, zoom))
+        except (ValueError, OverflowError):
+            return math.nan
+
+    rows = np.array([scalar(oracle.row_from_latitude, x) for x in lat])
+    cols = np.array([scalar(oracle.column_from_longitude, x) for x in lon])
+    n = 1 << zoom
+    with np.errstate(invalid="ignore"):
+        valid = (rows >= 0) & (rows < n) & (cols >= 0) & (cols < n)
+    return rows, cols, valid
+
+
+@pytest.mark.parametrize("case", kc.PROJECTION_CASES)
+def test_projection_cases_match_jax_and_reference(case):
+    lat, lon, zoom = kc.projection_case(case)
+    row, col, valid = (x.numpy() for x in tmerc.project_points(
+        torch.as_tensor(lat), torch.as_tensor(lon), zoom))
+    assert row.dtype == np.int32 and col.dtype == np.int32
+    assert row.shape == col.shape == valid.shape == lat.shape
+    jr, jc, jv = jmerc.project_points(jnp.asarray(lat), jnp.asarray(lon),
+                                      zoom, dtype=jnp.float64)
+    np.testing.assert_array_equal(valid, np.asarray(jv))
+    np.testing.assert_array_equal(row, np.asarray(jr))
+    np.testing.assert_array_equal(col, np.asarray(jc))
+    wr, wc, wv = _oracle_projection(lat, lon, zoom)
+    np.testing.assert_array_equal(valid, wv)
+    np.testing.assert_array_equal(row[wv], wr[wv])
+    np.testing.assert_array_equal(col[wv], wc[wv])
+    assert not row[~wv].any() and not col[~wv].any()
