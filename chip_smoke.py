@@ -4758,15 +4758,12 @@ TOOLS_MEM_CHUNK = 1 << 18
 #: points at the JAX default (weighted (b)'s kernel at 2^20 points;
 #: ``streaming``'s tick of n // 50 points must split over the 8 shards,
 #: which 2^20 // 50 does not), the job checks at 2^17. ``resume`` (day
-#: timespans: ~30 blobs a point, three runs) at TOOLS_SOAK_RESUME_N is
-#: refused on the card (ROADMAP F9).
+#: timespans: ~30 blobs a point, three runs) at TOOLS_SOAK_RESUME_N
+#: needs keys of 61 bits, which the partitioned backend takes on the card
+#: (ROADMAP F9, closed).
 TOOLS_SOAK_RUNS = ((2_000_000, "mesh,streaming,weighted"),
                    (1 << 17, "fast-vs-bounded,dp-job"))
 TOOLS_SOAK_RESUME_N = 1 << 14
-#: The refusal of F9: "auto" sends the count job to the partitioned
-#: segment reduce, whose keys hold at most 60 bits.
-F9_REFUSAL = ("ValueError: cascade backend 'partitioned' reconstructs keys "
-              "from three 20-bit channels (60-bit limit)")
 TOOLS_LOAD_SECONDS = 2.0  # [10 s, 8 workers, 512 tiles]
 TOOLS_LOAD_WORKERS = 4
 TOOLS_LOAD_TILES = 128
@@ -4974,9 +4971,9 @@ def measuring_tools(dev, tmp, store, rec):
       to the scatter path at 2^20 points (one launch), ``streaming``
       the row-sharded stream (one window launch per shard a tick, the
       bucketed counts kernel at its 1024x1024 window); then
-      ``resume``, which the card refuses before any launch where the
-      cascade resolves to the partitioned backend (F9_REFUSAL, ROADMAP
-      F9) and which passes where it resolves to scatter.
+      ``resume``, whose keys of 61 bits run on the partitioned backend
+      on a card, and its job once on each backend
+      (:func:`soak_resume_backends`): equal bytes.
 
     Every launch of every kernel in these twins is held to its plain
     version on its own inputs (``_run_twin``). Adds each twin's numbers
@@ -5163,24 +5160,68 @@ def measuring_tools(dev, tmp, store, rec):
         soaks.append({"n": n, "seconds": seconds, "launches": counts,
                       "checks": lines})
     # resume: the count job with day timespans needs keys of more than
-    # 60 bits, and "auto" still picks the partitioned backend on a card,
-    # which refuses it (F9, as the JAX package does on a TPU).
-    refused = BatchJobConfig(
+    # 60 bits; "auto" picks the partitioned backend on a card, which
+    # takes them (ROADMAP F9, closed; the JAX package refuses them).
+    partitioned = BatchJobConfig(
         timespans=("alltime", "day"),
         data_parallel=False).resolved_cascade_backend(dev) == "partitioned"
     path = os.path.join(out_dir, "soak_resume.json")
     seconds, counts = run(soak, [
         "--n", str(TOOLS_SOAK_RESUME_N), "--checks", "resume", *dargs,
-        "--out", path], "soak resume", expect_rc=1 if refused else 0)
+        "--out", path], "soak resume")
     (line,) = _load(path)["results"]
-    if refused:
-        assert not line["ok"] and line["error"].startswith(F9_REFUSAL), line
-        assert counts["segment_reduce"] == 0, counts
+    assert line["ok"] and "skipped" not in line, line
+    if partitioned:
+        assert counts["segment_reduce"] > 0, counts
+    backends, held = soak_resume_backends(dev, tmp)
+    launches["segment_reduce"] += backends["partitioned"]["launches"]
+    held_total["segment_reduce"] += held
     soaks.append({"n": TOOLS_SOAK_RESUME_N, "seconds": seconds,
                   "launches": counts, "checks": {"resume": line},
-                  "known_fault": "F9" if refused else None})
+                  "backends": backends})
     rec["soak"] = {"seconds": time.perf_counter() - t0, "runs": soaks}
     return launches, held_total
+
+
+def soak_resume_backends(dev, tmp):
+    """The soak twin's ``resume`` job (its dated table of
+    TOOLS_SOAK_RESUME_N points, the alltime and day timespans) once on
+    each cascade backend: keys of more than 60 bits (ROADMAP F9), the
+    partitioned job's blobs equal to the scatter job's, and on a card one
+    segment-reduce launch per level on the partitioned backend (none on
+    scatter), each held to its plain version. Returns the record by
+    backend and the number of calls held."""
+    from heatmap_tpu_torch.io.hmpb import HMPBSource
+    from heatmap_tpu_torch.ops import sparse_partitioned as sp
+    from heatmap_tpu_torch.pipeline import cascade
+    from heatmap_tpu_torch.pipeline.batch import BatchJobConfig, run_job_fast
+    from heatmap_tpu_torch.tools import soak
+
+    hmpb = soak._synth_hmpb(os.path.join(tmp, "soak_resume_backends.hmpb"),
+                            TOOLS_SOAK_RESUME_N, dated=True)
+    seg = sp.aggregate_sorted_keys_partitioned
+    blobs, rec, held_n = {}, {}, 0
+    for backend in ("partitioned", "scatter"):
+        cfg = BatchJobConfig(timespans=("alltime", "day"),
+                             data_parallel=False, cascade_backend=backend)
+        seg.launches = 0
+        with segment_calls_held_to_plain(f"soak resume {backend}") as held:
+            t0 = time.perf_counter()
+            blobs[backend] = run_job_fast(HMPBSource(hmpb), config=cfg,
+                                          device=dev)
+            seconds = time.perf_counter() - t0
+        held_n += len(held)
+        rec[backend] = {"seconds": seconds, "blobs": len(blobs[backend]),
+                        "n_slots": cascade.build_cascade.n_slots,
+                        "key_bits": cascade.build_cascade.key_bits,
+                        "launches": seg.launches}
+    assert blobs["partitioned"] == blobs["scatter"], rec
+    assert rec["partitioned"]["key_bits"] > 60, rec
+    if dev.type == "cuda":
+        levels = cfg.cascade_config().n_levels + 1
+        assert rec["partitioned"]["launches"] == held_n == levels, rec
+        assert rec["scatter"]["launches"] == 0, rec
+    return rec, held_n
 
 
 #: The last six tool twins (their JAX defaults in brackets). The chaos

@@ -6,11 +6,12 @@ Made with numpy from a seed, so the same inputs reach the card
 them) and the CPU tests (``tests/test_torch_*.py`` hold the plain
 versions equal to the JAX package on them). The shapes follow the
 kernels' own geometry: segment runs and sentinel tails placed against
-tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys; points placed
-against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE`` cells and
-split into work items of ``ops.partitioned.ITEM_POINTS``; and windows of
-the histogram kernel at its bands' limits, with points where the bands
-of ``ops.pallas_kernels.SLICE_BYTES`` meet; and points whose Mercator
+tile edges of ``ops.sparse_partitioned.TILE_KEYS`` keys, and cascade keys
+of 61 and 62 bits (a dated z21 job's, and the widest the cascade packs);
+points placed against the ragged sub-blocks of ``ops.partitioned.SUB_SIDE``
+cells and split into work items of ``ops.partitioned.ITEM_POINTS``; and
+windows of the histogram kernel at its bands' limits, with points where
+the bands of ``ops.pallas_kernels.SLICE_BYTES`` meet; and points whose Mercator
 rows sit on z21 row edges, at the world's edges and poles, non-finite,
 on the antimeridian, and batches with ragged ends against the blocks of
 the projection kernel.
@@ -40,6 +41,8 @@ SEGMENT_CASES = (
     "one_key",
     "all_sentinel",
     "many_tiles",
+    "keys_61_bits",
+    "keys_62_bits",
 )
 #: The cascade's shifts are 2 * level: level 1, 5 and 15 (the last
 #: level of the default z21 -> z6 job), beside 0.
@@ -59,6 +62,25 @@ def _short_runs(rng, n):
     lengths = lengths[: np.searchsorted(np.cumsum(lengths), n) + 1]
     lengths[-1] -= lengths.sum() - n
     return lengths[lengths > 0]
+
+
+def _wide_runs(rng, n, key_bits):
+    """``n`` sorted cascade keys of at most ``key_bits`` bits, in runs of
+    1 to 4: slots above 42 bits of z21 Morton code, as
+    ``pipeline.cascade.composite_keys`` packs them, four fifths of the
+    slots with their top bit set. Keys come in fours that share their
+    slot and the top 12 bits of their code, so the cascade's shifts
+    merge them."""
+    lengths = _short_runs(rng, n)
+    groups = lengths.size // 4 + 1
+    top = 1 << (key_bits - 43)
+    slots = np.where(rng.random(groups) < 0.8,
+                     rng.integers(top, 2 * top, groups),
+                     rng.integers(0, top, groups))
+    parents = (slots << 42) | (rng.integers(0, 1 << 12, groups) << 30)
+    keys = np.unique(np.repeat(parents, 4)
+                     | rng.integers(0, 1 << 30, 4 * groups))[:lengths.size]
+    return np.repeat(keys, lengths[:keys.size])
 
 
 def segment_case(name: str, tile: int = TILE_KEYS, seed: int = 0):
@@ -107,6 +129,20 @@ def segment_case(name: str, tile: int = TILE_KEYS, seed: int = 0):
                              3 * tile)
         keys = _runs(rng, lengths)[: 12 * tile + 5]
         return keys, len(np.unique(keys)) // 2
+    if name == "keys_61_bits":
+        # The widest keys of a dated z21 job (ROADMAP F9), ending with a
+        # sentinel tail in the middle of a tile.
+        keys = _wide_runs(rng, 2 * tile + tile // 2 + 3, 61)
+        keys = np.concatenate([keys, np.full(tile + 11, SENTINEL)])
+        return keys, keys.size
+    if name == "keys_62_bits":
+        # The widest keys composite_keys packs, the largest of them
+        # (2^62 - 1) last before a sentinel tail that starts on a tile
+        # edge.
+        keys = _wide_runs(rng, 3 * tile - 3, 62)
+        keys = np.concatenate([keys, np.full(3, (1 << 62) - 1),
+                               np.full(tile, SENTINEL)])
+        return keys, keys.size
     raise ValueError(f"unknown segment case {name!r}")
 
 

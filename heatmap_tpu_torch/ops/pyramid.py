@@ -133,8 +133,8 @@ def pyramid_sparse_morton_partitioned(codes, valid=None, levels: int = 0,
     level: level ``l`` reduces the sorted stream read as ``key >> 2l``.
     Counts (``weights=None``, int32 sums) or bounded-integer weights
     (``weights`` with ``weight_bound``; float64 sums; a weight outside
-    the contract poisons ``n_unique``). Keys must fit 60 bits, which the
-    cascade checks.
+    the contract poisons ``n_unique``). Keys are int64 below the
+    sentinel; the cascade packs them in at most 62 bits.
 
     ``adaptive=True`` cuts each level's output capacity to
     :func:`adaptive_keep` of the previous level's real unique count (a

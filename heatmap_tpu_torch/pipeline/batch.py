@@ -454,7 +454,10 @@ def build_emissions(codes, valid, group_ids, timestamps,
     timespans = (
         config.timespans[:1] if config.first_timespan_only else config.timespans
     )
-    per_ts_ids = [ts_vocab.label_ids(t, timestamps) for t in timespans]
+    with stage_span("emissions.timespans",
+                    items=int(codes.shape[0]) * len(timespans),
+                    types=len(timespans)):
+        per_ts_ids = [ts_vocab.label_ids(t, timestamps) for t in timespans]
     n_groups = int(group_ids.max(initial=ALL_GROUP)) + 1
     dev = codes.device
     keep = group_ids != EXCLUDED
@@ -487,11 +490,13 @@ def build_emissions(codes, valid, group_ids, timestamps,
 
 def _slot_names(vocab, ts_vocab, n_groups):
     """slot id -> (user name, timespan label) (slot = timespan*G + group)."""
-    return {
-        t * n_groups + g: (vocab.name_for(g), ts_vocab.label_for(t))
-        for t in range(len(ts_vocab))
-        for g in range(n_groups)
-    }
+    with stage_span("egress.slot_names", items=len(ts_vocab) * n_groups,
+                    labels=len(ts_vocab)):
+        return {
+            t * n_groups + g: (vocab.name_for(g), ts_vocab.label_for(t))
+            for t in range(len(ts_vocab))
+            for g in range(n_groups)
+        }
 
 
 def run_job(source, sink=None, config: BatchJobConfig | None = None,

@@ -106,17 +106,11 @@ def build_cascade(codes, slots, config: CascadeConfig, n_slots: int,
     agree to float64 summation order.
     """
     if backend == "partitioned":
-        # Refusal parity with the JAX package: its kernel rebuilds keys
-        # from three 20-bit channels, so it takes keys of <= 60 bits.
-        slot_bits = _slot_bits(n_slots)
-        if 2 * config.detail_zoom + slot_bits > 60:
-            raise ValueError(
-                f"cascade backend 'partitioned' reconstructs keys from "
-                f"three 20-bit channels (60-bit limit); zoom "
-                f"{config.detail_zoom} with {n_slots} slots needs "
-                f"{2 * config.detail_zoom + slot_bits} bits — use the "
-                "scatter backend"
-            )
+        # The segment-reduce kernel reduces int64 keys directly, so both
+        # backends take every key that composite_keys packs (at most 62
+        # bits). The JAX package's kernel rebuilds keys from three 20-bit
+        # channels and refuses keys of more than 60 bits: a deliberate
+        # difference (ROADMAP F9).
         if weights is not None and weight_bound is None:
             raise ValueError(
                 "cascade backend 'partitioned' takes weighted jobs "
@@ -129,6 +123,8 @@ def build_cascade(codes, slots, config: CascadeConfig, n_slots: int,
     elif backend != "scatter":
         raise ValueError(f"unknown cascade backend {backend!r}")
     ck = composite_keys(codes, slots, config.detail_zoom, n_slots)
+    build_cascade.n_slots = n_slots
+    build_cascade.key_bits = 2 * config.detail_zoom + _slot_bits(n_slots)
     # Zoom-clamped per-level capacities: level l's key space holds at
     # most n_slots * 4^(detail_zoom - l) keys, so coarse levels get small
     # arrays instead of n-sized padding.
@@ -159,6 +155,12 @@ def build_cascade(codes, slots, config: CascadeConfig, n_slots: int,
         capacity=capacity, acc_dtype=acc_dtype, timer=timer,
         adaptive=adaptive,
     )
+
+
+#: The slot count and key width of the last cascade built (counters the
+#: benchmark reads; 0 before the first).
+build_cascade.n_slots = 0
+build_cascade.key_bits = 0
 
 
 def _build_cascade_sharded(ck, config: CascadeConfig, mesh, weights=None,

@@ -192,12 +192,28 @@ def test_backend_resolution_and_refusals(monkeypatch):
             tbatch.BatchJobConfig(**kw)
         with pytest.raises(ValueError, match=match):
             jbatch.BatchJobConfig(**kw)
-    # The 60-bit key limit of the partitioned backend.
-    with pytest.raises(ValueError, match="60-bit limit"):
-        tcascade.build_cascade(
-            torch.zeros(4, dtype=torch.int64), torch.zeros(4, dtype=torch.int64),
-            tcascade.CascadeConfig(detail_zoom=29, min_detail_zoom=20),
-            n_slots=8, backend="partitioned")
+    # Keys of 61 bits (zoom 29, 8 slots) run on the partitioned backend,
+    # which the JAX package refuses above 60 bits (ROADMAP F9), and give
+    # the scatter backend's levels; 63 bits (32 slots) overflow int64 and
+    # are refused on both.
+    ccfg = tcascade.CascadeConfig(detail_zoom=29, min_detail_zoom=20)
+    gen = torch.Generator().manual_seed(29)
+    codes = torch.randint(0, 1 << 58, (64,), generator=gen)
+    codes[32:] = codes[:32] ^ 1
+    slots = torch.randint(0, 8, (64,), generator=gen)
+    slots[-1] = 7
+    levels = {b: tcascade.build_cascade(codes, slots, ccfg, n_slots=8,
+                                        backend=b)
+              for b in ("partitioned", "scatter")}
+    assert tcascade.build_cascade.key_bits == 61
+    assert int(levels["scatter"][0][0].max()).bit_length() == 61
+    for got, want in zip(levels["partitioned"], levels["scatter"]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    for backend in ("partitioned", "scatter"):
+        with pytest.raises(ValueError, match="overflow int64"):
+            tcascade.build_cascade(codes, slots, ccfg, n_slots=32,
+                                   backend=backend)
     # CUDA by default, with no quiet fallback to the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

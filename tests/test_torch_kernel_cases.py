@@ -86,7 +86,8 @@ def test_segment_cases_match_jax_scatter(case, weighted):
 
 @pytest.mark.parametrize("shift", [s for s in kc.SEGMENT_SHIFTS if s])
 @pytest.mark.parametrize("case", ["run_over_three_tiles",
-                                  "sentinel_tail_mid_tile", "many_tiles"])
+                                  "sentinel_tail_mid_tile", "many_tiles",
+                                  "keys_61_bits", "keys_62_bits"])
 def test_segment_shifts_match_jax(case, shift):
     keys, capacity = kc.segment_case(case)
     _assert_same(_port(keys, capacity, shift), _jax_scatter(

@@ -170,6 +170,40 @@ def test_stage_tracing_records_the_new_spans():
     assert report["stream.pad"]["items"] == 2 * (1024 - 1000)
 
 
+DATED = ("alltime", "year", "month", "day")
+
+
+def _dated_job():
+    return tbatch.run_job(SyntheticSource(n=3000, seed=4), device="cpu",
+                          max_points_in_flight=0,
+                          config=tbatch.BatchJobConfig(timespans=DATED))
+
+
+def test_dated_job_spans_are_profiler_annotations(tmp_path):
+    _, names = _annotations(_dated_job, tmp_path)
+    assert {"emissions.timespans", "egress.slot_names"} <= names
+
+
+def test_dated_job_span_items_and_counters():
+    """Under stage tracing ``emissions.timespans`` counts rows times
+    timespan types and ``egress.slot_names`` the slots; the counters
+    keep the job's slots and its key width (the z21 code's 42 bits and
+    the slots')."""
+    from heatmap_tpu_torch.pipeline import cascade as tcascade
+
+    ttrace.enable_stage_tracing(True)
+    ttrace.get_tracer().reset()
+    assert _dated_job()
+    report = ttrace.get_tracer().report()
+    rows = report["cascade.project"]["items"]
+    assert report["emissions.timespans"]["count"] == 1
+    assert report["emissions.timespans"]["items"] == rows * len(DATED)
+    n_slots = tcascade.build_cascade.n_slots
+    assert n_slots >= len(DATED)
+    assert report["egress.slot_names"]["items"] == n_slots
+    assert tcascade.build_cascade.key_bits == 42 + (n_slots - 1).bit_length()
+
+
 # ---- (c) the same answers with the profiler on and off ---------------------
 
 def test_profiler_changes_no_answer(tmp_path):
