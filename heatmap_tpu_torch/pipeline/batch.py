@@ -1432,11 +1432,15 @@ def _finish_blobs(decoded_levels, ccfg, slot_names, as_json, sink=None,
                 rows = sink.write_levels(finalized)
             return {"egress": "levels", "levels": len(finalized),
                     "rows": rows}
-        with tracer.span("egress.blobs"):
+        with tracer.span("egress.blobs") as attrs:
             if as_json:
                 blobs = cascade_mod.json_blobs_from_level_arrays(finalized)
+                attrs["backend"] = cascade_mod.egress_path()
             else:
                 blobs = cascade_mod.blobs_from_level_arrays(finalized)
+        # Items in the tracer's report only: a stage_items series would
+        # leave the telemetry of the JAX package's run.
+        tracer.add_items("egress.blobs", len(blobs))
         if sink is not None:
             with tracer.span("egress"):
                 sink.write(blobs.items())

@@ -20,12 +20,14 @@ post-pass over the correct per-level aggregates.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
-from heatmap_tpu_torch import native
+from heatmap_tpu_torch import _build, native
 from heatmap_tpu_torch.ops import pyramid as pyramid_ops
+from heatmap_tpu_torch.pipeline import blob_dict
 from heatmap_tpu_torch.tilemath.morton import morton_decode_np
 
 
@@ -397,12 +399,17 @@ def json_blobs_from_level_arrays(levels):
     blobs_from_level_arrays(levels).items()}``: numpy's shortest
     round-trip float repr matches ``json.dumps`` for doubles, and entry
     order within a blob is kept. Level arrays arrive sorted by
-    (slot, code), so blob runs are contiguous and blob-id strings are
-    built only at run starts, by the native formatter where the library
-    loads and by numpy otherwise.
+    (slot, code), so blob runs are contiguous. Where the native library
+    and the blob dict library load, the levels whose values are integral
+    below 1e15 (every count job) go to :func:`blob_dict.build`, which
+    makes the ids, the bodies and the dict in one native pass; other
+    levels are formatted by numpy. Blobs made each way are counted in
+    ``json_blobs_from_level_arrays.dict_blobs`` and ``.numpy_blobs``, and
+    the way this thread's last call took in :func:`egress_path`.
     """
-    sep = "|"
-    out: dict[str, str] = {}
+    use_dict = native.available() and blob_dict.available()
+    out, run = None, []
+    n_dict = n_numpy = 0
     for lvl in levels:
         if len(lvl["slot"]) == 0:
             continue
@@ -413,35 +420,60 @@ def json_blobs_from_level_arrays(levels):
             | (lvl["coarse_col"][1:] != lvl["coarse_col"][:-1])
         )])
         sidx = np.flatnonzero(is_start)
-        if native.available():
-            ids = native.format_blob_ids(
-                lvl["user_idx"][sidx], lvl["timespan_idx"][sidx],
-                lvl["coarse_row"][sidx], lvl["coarse_col"][sidx],
-                int(lvl["coarse_zoom"]), lvl["user_names"],
-                lvl["timespan_names"])
-        else:
-            users, tss = level_strings(lvl, sidx)
-            ids = np.char.add(
-                np.char.add(users, sep + tss + sep),
-                _tile_id_strings(lvl["coarse_zoom"], lvl["coarse_row"][sidx],
-                                 lvl["coarse_col"][sidx]),
-            ).tolist()
+        values = lvl["value"]
+        if use_dict and bool(np.all((values == np.floor(values))
+                                    & (np.abs(values) < 1e15))):
+            run.append((lvl, sidx))
+            n_dict += len(sidx)
+            continue
+        if run:
+            out = _dict_blobs(run, out)
+            run = []
+        users, tss = level_strings(lvl, sidx)
+        ids = np.char.add(
+            np.char.add(users, "|" + tss + "|"),
+            _tile_id_strings(lvl["coarse_zoom"], lvl["coarse_row"][sidx],
+                             lvl["coarse_col"][sidx]),
+        ).tolist()
+        if out is None:
+            out = {}
         out.update(zip(ids, _blob_bodies(lvl, is_start)))
+        _build.count_launch(_counted, "numpy_blobs", len(sidx))
+        n_numpy += len(sidx)
+    if run:
+        out = _dict_blobs(run, out)
+    _last_egress.path = ("dict+numpy" if n_dict and n_numpy
+                         else "numpy" if n_numpy or not use_dict else "dict")
+    return {} if out is None else out
+
+
+json_blobs_from_level_arrays.dict_blobs = 0
+json_blobs_from_level_arrays.numpy_blobs = 0
+#: The counters' owner, even while a caller has patched the module's name.
+_counted = json_blobs_from_level_arrays
+_last_egress = threading.local()
+
+
+def egress_path() -> str | None:
+    """How this thread's last :func:`json_blobs_from_level_arrays` made
+    its blobs: ``"dict"`` (the native builder), ``"numpy"``, or
+    ``"dict+numpy"`` when its levels took both; None before any call."""
+    return getattr(_last_egress, "path", None)
+
+
+def _dict_blobs(run, out):
+    """:func:`blob_dict.build` of consecutive levels ``run``, into
+    ``out`` (None: a new dict presized for them)."""
+    out = blob_dict.build(run, out)
+    _build.count_launch(_counted, "dict_blobs",
+                        sum(len(sidx) for _, sidx in run))
     return out
 
 
 def _blob_bodies(lvl, is_start):
-    """Per-blob '{...}' JSON documents for one level, in order.
-
-    The native formatter takes integral values below 1e15 (every count
-    job, and weighted jobs whose sums are whole); the numpy join/split
-    below formats fractional sums and is the formatting oracle.
-    """
+    """Per-blob '{...}' JSON documents for one level, in order, by numpy:
+    the formatter of fractional sums and the formatting oracle."""
     values = lvl["value"]
-    if native.available() and bool(
-            np.all((values == np.floor(values)) & (np.abs(values) < 1e15))):
-        return native.format_blob_bodies(lvl["row"], lvl["col"], values,
-                                         is_start, int(lvl["zoom"]))
     frag = np.char.add(
         np.char.add(
             np.char.add(

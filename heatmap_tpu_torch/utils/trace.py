@@ -88,7 +88,8 @@ class Tracer:
     def span(self, name: str, items: int | None = None, **attrs):
         """Time the body under ``name``. Keyword ``attrs`` (e.g.
         ``backend="partitioned"``) ride along on the stage_end event when
-        an event log is installed."""
+        an event log is installed. Yields that ``attrs`` dict: the body
+        may add what only the work finds (the path an egress took)."""
         begin = _tree_begin
         tree_span = (begin(name, attrs or None)
                      if begin is not None and self is _default else None)
@@ -98,11 +99,14 @@ class Tracer:
             rf.__enter__()
         t0 = time.perf_counter()
         try:
-            yield self
+            yield attrs
         finally:
             dt = time.perf_counter() - t0
             if rf is not None:
                 rf.__exit__(None, None, None)
+            tree_attrs = getattr(tree_span, "attrs", None)
+            if isinstance(tree_attrs, dict) and tree_attrs is not attrs:
+                tree_attrs.update(attrs)
             with self._lock:
                 s = self._stat(name)
                 s.count += 1

@@ -204,6 +204,51 @@ def test_dated_job_span_items_and_counters():
     assert tcascade.build_cascade.key_bits == 42 + (n_slots - 1).bit_length()
 
 
+def _blob_counters(monkeypatch):
+    from heatmap_tpu_torch.pipeline import cascade as tcascade
+
+    f = tcascade.json_blobs_from_level_arrays
+    monkeypatch.setattr(f, "dict_blobs", 0)
+    monkeypatch.setattr(f, "numpy_blobs", 0)
+    return f
+
+
+def test_count_job_blobs_come_from_the_dict_builder(monkeypatch):
+    f = _blob_counters(monkeypatch)
+    blobs = _job()
+    assert f.dict_blobs == len(blobs) > 0
+    assert f.numpy_blobs == 0
+
+
+def test_fractional_weighted_job_blobs_come_from_numpy(monkeypatch):
+    f = _blob_counters(monkeypatch)
+    rows = list(SyntheticSource(n=1500, seed=3).rows())
+    fractions = np.random.default_rng(3).random(len(rows)) * 10
+    for r, v in zip(rows, fractions):
+        r["value"] = float(v)
+    blobs = tbatch.run_batch(rows, tbatch.BatchJobConfig(weighted=True),
+                             as_json=True, device="cpu")
+    assert f.numpy_blobs == len(blobs) > 0
+    assert f.dict_blobs == 0
+
+
+def test_egress_blobs_span_carries_items_and_path(tmp_path):
+    """``egress.blobs`` counts the job's blobs in the tracer's report,
+    and the ``backend`` of its ``stage_end`` event names the path that
+    made them."""
+    ttrace.get_tracer().reset()
+    log_path = tmp_path / "events.jsonl"
+    events.set_event_log(events.EventLog(str(log_path)))
+    blobs = _job()
+    events.get_event_log().close()
+    events.set_event_log(None)
+    assert ttrace.get_tracer().report()["egress.blobs"]["items"] == len(
+        blobs) > 0
+    ends = [r for r in events.read_events(str(log_path))
+            if r["event"] == "stage_end" and r["stage"] == "egress.blobs"]
+    assert [r["backend"] for r in ends] == ["dict"]
+
+
 # ---- (c) the same answers with the profiler on and off ---------------------
 
 def test_profiler_changes_no_answer(tmp_path):
@@ -300,8 +345,8 @@ def test_cascade_device_span_closes_after_the_card_finishes(monkeypatch):
     def span(self, name, items=None, **attrs):
         open_spans.append(name)
         try:
-            with real_span(self, name, items=items, **attrs):
-                yield self
+            with real_span(self, name, items=items, **attrs) as span_attrs:
+                yield span_attrs
         finally:
             open_spans.pop()
 
