@@ -6,9 +6,6 @@ runtime that the JAX package loads:
 - ``parse_csv_batches``: threaded CSV point decoder with batch prefetch
   (native/pointcodec.cpp), in the compat layout or the integer fast
   layout;
-- ``format_blob_bodies`` and ``format_blob_ids``: threaded formatters of
-  the JSON blob documents and their ``user|timespan|z_r_c`` ids
-  (native/blobfmt.cpp);
 - ``decode_keys``: the fused composite-key split and Morton decode
   (native/leveldecode.cpp);
 - ``StagingPool``: a bounded pool of page-aligned host buffers
@@ -105,15 +102,6 @@ def _declare(lib) -> None:
         "hm_pool_buf_bytes": (ctypes.c_int64, [ctypes.c_void_p]),
         "hm_pool_size": (ctypes.c_int, [ctypes.c_void_p]),
         "hm_pool_destroy": (None, [ctypes.c_void_p]),
-        "hm_format_blob_bodies": (ctypes.c_int64, [
-            _c_i64, _c_i64, _c_dbl, _c_u8, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_int32, ctypes.POINTER(ctypes.c_char_p)]),
-        "hm_format_blob_ids": (ctypes.c_int64, [
-            _c_i32, _c_i32, _c_i32, _c_i32, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_char_p, _c_i64, ctypes.c_int32, ctypes.c_char_p,
-            _c_i64, ctypes.c_int32, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_char_p)]),
-        "hm_blobfmt_free": (None, [ctypes.c_char_p]),
         "hm_decode_keys": (ctypes.c_int32, [
             _c_i64, ctypes.c_int64, ctypes.c_int32, _c_i32, _c_i64, _c_i32,
             _c_i32, ctypes.c_int32]),
@@ -341,87 +329,6 @@ class StagingPool:
 
     def __exit__(self, *exc):
         self.close()
-
-
-def _take_buffer(lib, out, length) -> bytes:
-    try:
-        return ctypes.string_at(out, length)
-    finally:
-        lib.hm_blobfmt_free(out)
-
-
-def format_blob_bodies(rows, cols, values, is_start, zoom: int,
-                       n_threads: int | None = None) -> list:
-    """The '{...}' JSON documents of one sorted level, one per blob
-    start, aggregate order kept. ``values`` must be integral doubles with
-    |v| < 1e15 (the caller checks): "%lld.0" is then exactly repr(float).
-    """
-    n = len(rows)
-    if n == 0:
-        return []
-    lib = _require()
-    rows = np.ascontiguousarray(rows, np.int64)
-    cols = np.ascontiguousarray(cols, np.int64)
-    values = np.ascontiguousarray(values, np.float64)
-    starts = np.ascontiguousarray(is_start, np.uint8)
-    if not (len(cols) == len(values) == len(starts) == n):
-        raise ValueError("column length mismatch")
-    if n_threads is None:
-        n_threads = min(8, os.cpu_count() or 1)
-    out = ctypes.c_char_p()
-    length = lib.hm_format_blob_bodies(
-        rows.ctypes.data_as(_c_i64), cols.ctypes.data_as(_c_i64),
-        values.ctypes.data_as(_c_dbl), starts.ctypes.data_as(_c_u8),
-        n, zoom, n_threads, ctypes.byref(out))
-    if length < 0:
-        raise MemoryError("native blob formatter allocation failed")
-    return _take_buffer(lib, out, length).decode("ascii").split("\x00")
-
-
-def _name_table(names):
-    """UTF-8 concat buffer + int64 offsets for a small name array."""
-    encoded = [str(s).encode("utf-8") for s in names]
-    offs = np.zeros(len(encoded) + 1, np.int64)
-    np.cumsum([len(b) for b in encoded], out=offs[1:])
-    return b"".join(encoded), offs
-
-
-def format_blob_ids(user_idx, ts_idx, coarse_row, coarse_col,
-                    coarse_zoom: int, user_names, ts_names,
-                    n_threads: int | None = None) -> list:
-    """'user|timespan|z_r_c' blob ids, dictionary-decoded and formatted
-    in one threaded C pass (reference key codec heatmap.py:54-55)."""
-    n = len(user_idx)
-    if not (len(ts_idx) == len(coarse_row) == len(coarse_col) == n):
-        raise ValueError(
-            f"column length mismatch: user_idx={n} ts_idx={len(ts_idx)} "
-            f"coarse_row={len(coarse_row)} coarse_col={len(coarse_col)}")
-    if n == 0:
-        return []
-    lib = _require()
-    user_idx = np.ascontiguousarray(user_idx, np.int32)
-    ts_idx = np.ascontiguousarray(ts_idx, np.int32)
-    coarse_row = np.ascontiguousarray(coarse_row, np.int32)
-    coarse_col = np.ascontiguousarray(coarse_col, np.int32)
-    ubuf, uoffs = _name_table(user_names)
-    tbuf, toffs = _name_table(ts_names)
-    if n_threads is None:
-        n_threads = min(8, os.cpu_count() or 1)
-    out = ctypes.c_char_p()
-    length = lib.hm_format_blob_ids(
-        user_idx.ctypes.data_as(_c_i32), ts_idx.ctypes.data_as(_c_i32),
-        coarse_row.ctypes.data_as(_c_i32), coarse_col.ctypes.data_as(_c_i32),
-        n, coarse_zoom, ubuf, uoffs.ctypes.data_as(_c_i64), len(user_names),
-        tbuf, toffs.ctypes.data_as(_c_i64), len(ts_names), n_threads,
-        ctypes.byref(out))
-    if length == -1:
-        raise MemoryError("native blob-id formatter allocation failed")
-    if length == -2:
-        raise ValueError(
-            "blob-id dictionary index out of range for its name table")
-    if length < 0:
-        raise ValueError(f"coarse_zoom out of range: {coarse_zoom}")
-    return _take_buffer(lib, out, length).decode("utf-8").split("\x00")[:-1]
 
 
 def decode_keys(keys, code_bits: int, n_threads: int | None = None,

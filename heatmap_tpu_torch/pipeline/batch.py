@@ -28,6 +28,7 @@ plain PyTorch versions of the kernels).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
@@ -353,54 +354,23 @@ def load_columns(batch):
     return out
 
 
-def _require_value_column(cols):
-    """Weighted string-path ingest: the batch must carry a 'value'
-    column."""
-    if "value" not in cols:
-        raise ValueError(
-            "weighted job needs a 'value' column in the source "
-            "(CSV/JSONL column named 'value')"
-        )
-
-
-def _require_fast_weights(values):
-    """Weighted fast ingest: fast batches must carry a 'value' column
-    (HMPB with a value section)."""
-    if values is None:
-        raise ValueError(
-            "weighted fast job needs a 'value' column in the fast "
-            "batches (convert the source to HMPB from an input with a "
-            "'value' column)"
-        )
-
-
 def ingest_columns(batches, config: BatchJobConfig):
     """Accumulate source batches into the ``_run_loaded`` data dict, or
     None when the batches carried no rows."""
     tracer = get_tracer()
-    lats, lons, users, stamps, vals = [], [], [], [], []
+    ing = _Ingest(config)
     for batch in batches:
         with tracer.span("ingest.batch"):
-            cols = load_columns(batch)
-            lats.append(cols["latitude"])
-            lons.append(cols["longitude"])
-            users.extend(cols["user_id"])
-            stamps.extend(cols["timestamp"])
-            if config.weighted:
-                _require_value_column(cols)
-                vals.append(cols["value"])
-        tracer.add_items("ingest.batch", len(cols["latitude"]))
-    if not lats or sum(len(a) for a in lats) == 0:
+            m = ing.append(ing.read(batch))
+        tracer.add_items("ingest.batch", m)
+    if not len(ing):
         return None
     with stage_span("ingest.concat"):
-        data = {
-            "latitude": np.concatenate(lats),
-            "longitude": np.concatenate(lons),
-            "user_id": users,
-            "timestamp": stamps,
-        }
+        lat, lon, users, stamps, values = ing.take()
+        data = {"latitude": lat, "longitude": lon, "user_id": users,
+                "timestamp": stamps}
         if config.weighted:
-            data["value"] = np.concatenate(vals)
+            data["value"] = values
     return data
 
 
@@ -455,8 +425,7 @@ def build_emissions(codes, valid, group_ids, timestamps,
         config.timespans[:1] if config.first_timespan_only else config.timespans
     )
     with stage_span("emissions.timespans",
-                    items=int(codes.shape[0]) * len(timespans),
-                    types=len(timespans)):
+                    items=int(codes.shape[0]) * len(timespans)):
         per_ts_ids = [ts_vocab.label_ids(t, timestamps) for t in timespans]
     n_groups = int(group_ids.max(initial=ALL_GROUP)) + 1
     dev = codes.device
@@ -490,8 +459,7 @@ def build_emissions(codes, valid, group_ids, timestamps,
 
 def _slot_names(vocab, ts_vocab, n_groups):
     """slot id -> (user name, timespan label) (slot = timespan*G + group)."""
-    with stage_span("egress.slot_names", items=len(ts_vocab) * n_groups,
-                    labels=len(ts_vocab)):
+    with stage_span("egress.slot_names", items=len(ts_vocab) * n_groups):
         return {
             t * n_groups + g: (vocab.name_for(g), ts_vocab.label_for(t))
             for t in range(len(ts_vocab))
@@ -826,18 +794,227 @@ class _FastRouter:
                 ts64, vals)
 
 
-def _check_checkpoint_weighted(meta, config: BatchJobConfig,
-                               checkpoint_dir: str):
-    """Refuse to resume a checkpoint under the other ingest mode: mixing
-    counted and weighted rows in one accumulation would corrupt every
-    blob. Checkpoints without the key are counted ones."""
-    ck = bool(meta.get("weighted", False))
-    if ck != bool(config.weighted):
-        raise RuntimeError(
-            f"checkpoint at {checkpoint_dir!r} was written by a "
-            f"{'weighted' if ck else 'counted'} job; resume with the "
-            f"matching weighted setting or a fresh checkpoint dir"
+def _stamps_to_checkpoint(flat_stamps) -> dict:
+    """The timestamp arrays of a string-path checkpoint: none when every
+    stamp is None; an i64 epoch-ms column (TS_MISSING for None) when the
+    stamps are numbers or datetimes/dates; their strings plus a validity
+    mask otherwise. Resumed runs then bucket dated timespans exactly as
+    an uninterrupted run."""
+    if not flat_stamps or all(s is None for s in flat_stamps):
+        return {}
+    import datetime as _dt
+
+    valid = np.asarray([s is not None for s in flat_stamps], bool)
+    present = [s for s in flat_stamps if s is not None]
+    try:
+        ms_present = np.asarray(present, np.int64)
+    except (ValueError, TypeError):
+        def to_ms(s):
+            if isinstance(s, _dt.datetime):
+                if s.tzinfo is None:
+                    s = s.replace(tzinfo=_dt.timezone.utc)
+                return int(s.timestamp() * 1000)
+            if isinstance(s, _dt.date):
+                return int(_dt.datetime(
+                    s.year, s.month, s.day, tzinfo=_dt.timezone.utc,
+                ).timestamp() * 1000)
+            return None
+
+        ms = [to_ms(s) for s in present]
+        ms_present = (np.asarray(ms, np.int64)
+                      if all(m is not None for m in ms) else None)
+    if ms_present is not None:
+        full = np.full(len(flat_stamps), TS_MISSING, np.int64)
+        full[valid] = ms_present
+        return {"timestamps_ms": full}
+    return {
+        "timestamps_str": np.asarray(
+            ["" if s is None else str(s) for s in flat_stamps]),
+        "timestamps_valid": valid,
+    }
+
+
+def _stamps_from_checkpoint(arrays, n) -> list:
+    """Inverse of :func:`_stamps_to_checkpoint` for ``n`` rows."""
+    if "timestamps_ms" in arrays:
+        return [None if t == TS_MISSING else int(t)
+                for t in arrays["timestamps_ms"]]
+    if "timestamps_str" in arrays:
+        if "timestamps_valid" in arrays:
+            return [s if v else None
+                    for s, v in zip(arrays["timestamps_str"],
+                                    arrays["timestamps_valid"])]
+        return list(arrays["timestamps_str"])
+    return [None] * n
+
+
+#: Why a checkpoint of the other job path is refused, per resuming path:
+#: batch indices mean the same rows only under the reader that wrote them.
+_RESUME_ELSEWHERE = {
+    "fast": "resume it with the same path (run_job_resumable / drop "
+            "--fast) or point --fast at a fresh checkpoint dir",
+    "string": "resume it with run_job_fast (--fast) or point this run at "
+              "a fresh checkpoint dir",
+}
+
+
+class _Ingest:
+    """A job's ingest: reads source batches into their kept rows, holds
+    those rows' columns across batches, and writes and restores the
+    job's ingest checkpoint (the JAX package's npz keys, dtypes and
+    metadata).
+
+    The string reader filters with :func:`load_columns` and keeps the
+    user strings, or with a ``vocab`` maps them to group ids per batch;
+    the fast reader (``fast``) routes run_job_fast's batches into
+    ``vocab`` through a :class:`_FastRouter`. The columns are latitude,
+    longitude, users (strings or group ids), timestamps (a list on the
+    string path, i64 epoch ms on the fast path) and, for weighted jobs,
+    the 'value' weights. Arrays are kept as pieces and joined once;
+    lists grow flat.
+    """
+
+    def __init__(self, config: BatchJobConfig, vocab: UserVocab | None = None,
+                 fast: bool = False):
+        self.weighted = config.weighted
+        self.vocab = vocab
+        self.router = _FastRouter(vocab) if fast else None
+        self.job_path = "fast" if fast else "string"
+        self._hold()
+
+    def _hold(self, arrays=None, stamps=None):
+        """Hold nothing, or the columns of checkpoint ``arrays`` (and the
+        timestamps ``stamps``) as one piece each."""
+        arrays = arrays or {}
+        self._lat, self._lon, self._users, self._vals = (
+            [arrays[k]] if k in arrays else []
+            for k in ("latitude", "longitude", "group_ids", "values"))
+        self._stamps = [] if stamps is None else stamps
+        self._n = len(arrays.get("latitude", ()))
+
+    def __len__(self) -> int:
+        return self._n
+
+    def read(self, batch):
+        """-> (lat, lon, users, stamps, values_or_None): ``batch``'s kept
+        rows; a weighted job refuses a batch without a 'value' column."""
+        if self.router is not None:
+            self.router.observe(batch)
+            rows = self.router.route(batch)
+            if self.weighted and rows[4] is None:
+                raise ValueError(
+                    "weighted fast job needs a 'value' column in the fast "
+                    "batches (convert the source to HMPB from an input "
+                    "with a 'value' column)"
+                )
+            return rows
+        cols = load_columns(batch)
+        if self.weighted and "value" not in cols:
+            raise ValueError(
+                "weighted job needs a 'value' column in the source "
+                "(CSV/JSONL column named 'value')"
+            )
+        users = cols["user_id"]
+        if self.vocab is not None:
+            users = self.vocab.group_ids(users)
+        return (cols["latitude"], cols["longitude"], users,
+                cols["timestamp"], cols.get("value"))
+
+    def skip(self, batch):
+        """A batch whose rows an earlier run checkpointed: the fast
+        reader's name table still grows, since later batches may
+        reference ids first named in it."""
+        if self.router is not None:
+            self.router.observe(batch)
+
+    def append(self, rows) -> int:
+        """Hold :meth:`read`'s ``rows``; -> their count."""
+        lat, lon, users, stamps, values = rows
+        self._lat.append(lat)
+        self._lon.append(lon)
+        if self.vocab is None:
+            self._users.extend(users)
+        else:
+            self._users.append(users)
+        if self.router is None:
+            self._stamps.extend(stamps)
+        else:
+            self._stamps.append(stamps)
+        if self.weighted:
+            self._vals.append(values)
+        self._n += len(lat)
+        return len(lat)
+
+    def take(self):
+        """-> the held columns joined, as (lat, lon, users, stamps,
+        values_or_None), and nothing held after."""
+        out = (
+            np.concatenate(self._lat),
+            np.concatenate(self._lon),
+            self._users if self.vocab is None
+            else np.concatenate(self._users).astype(np.int32, copy=False),
+            np.concatenate(self._stamps) if self.router is not None
+            else self._stamps,
+            np.concatenate(self._vals) if self.weighted else None,
         )
+        self._hold()
+        return out
+
+    def save(self, mgr: CheckpointManager, step: int):
+        """Write the held columns as checkpoint ``step`` and collapse
+        each to one piece, so later checkpoints do not recopy a growing
+        list."""
+        def joined(pieces, dtype=np.float64):
+            return np.concatenate(pieces) if pieces else np.empty(0, dtype)
+
+        arrays = {
+            "latitude": joined(self._lat),
+            "longitude": joined(self._lon),
+            "group_ids": joined(self._users, np.int32),
+        }
+        if self.router is not None:
+            arrays["timestamps_ms"] = joined(self._stamps, np.int64)
+        if self.weighted:
+            arrays["values"] = joined(self._vals)
+        if self.router is None:
+            arrays.update(_stamps_to_checkpoint(self._stamps))
+        mgr.save(step, arrays, {
+            "group_names": list(self.vocab.names),
+            "batches_done": step,
+            "job_path": self.job_path,
+            "weighted": self.weighted,
+        })
+        self._hold(arrays, [arrays["timestamps_ms"]]
+                   if self.router is not None else self._stamps)
+
+    def restore(self, mgr: CheckpointManager, checkpoint_dir: str) -> int:
+        """Hold the rows of ``mgr``'s newest checkpoint and name its
+        groups in the vocab; -> the batches it covers (0 without one).
+        A checkpoint of the other job path or ingest mode is refused:
+        mixing counted and weighted rows would corrupt every blob, and
+        checkpoints without the key are counted ones."""
+        if mgr.latest_step() is None:
+            return 0
+        arrays, meta = mgr.load()
+        kind = meta.get("job_path", "string")
+        if kind != self.job_path:
+            raise RuntimeError(
+                f"checkpoint at {checkpoint_dir!r} was written by the "
+                f"{kind!r} job path; {_RESUME_ELSEWHERE[self.job_path]}"
+            )
+        ck = bool(meta.get("weighted", False))
+        if ck != bool(self.weighted):
+            raise RuntimeError(
+                f"checkpoint at {checkpoint_dir!r} was written by a "
+                f"{'weighted' if ck else 'counted'} job; resume with the "
+                f"matching weighted setting or a fresh checkpoint dir"
+            )
+        self._hold(arrays, [arrays["timestamps_ms"]] if self.router is not None
+                   else _stamps_from_checkpoint(arrays,
+                                                len(arrays["latitude"])))
+        for name in meta["group_names"][1:]:  # [0] is always 'all'
+            self.vocab.id_for(name)
+        return meta["batches_done"]
 
 
 def _fast_batches_for(source, batch_size, checkpointing=False):
@@ -961,66 +1138,27 @@ def _run_job_bounded(source, sink, config: BatchJobConfig,
     def chunks():
         """Sequential chunk builder: ingest batches, cut at max_points.
 
-        A chunk is (lat, lon, gids, stamps, weights): stamps an i64
-        array (fast) or a list (string path), weights an f64 array for
-        weighted jobs and None otherwise.
+        A chunk is :meth:`_Ingest.take`'s (lat, lon, gids, stamps,
+        weights).
         """
-        lats, lons, gids, stamps, vals = [], [], [], [], []
-        pending = 0
-
-        def cut():
-            nonlocal pending
-            chunk = (
-                np.concatenate(lats),
-                np.concatenate(lons),
-                np.concatenate(gids).astype(np.int32),
-                np.concatenate(stamps) if fast
-                else [s for b in stamps for s in b],
-                np.concatenate(vals) if config.weighted else None,
-            )
-            lats.clear(); lons.clear(); gids.clear(); stamps.clear()
-            vals.clear()
-            pending = 0
-            return chunk
-
-        if fast:
-            router = _FastRouter(vocab)
-            batches = _fast_batches_for(source, min(batch_size, max_points))
-        else:
-            batches = source.batches(min(batch_size, max_points))
+        ing = _Ingest(config, vocab, fast=fast)
+        size = min(batch_size, max_points)
+        batches = (_fast_batches_for(source, size) if fast
+                   else source.batches(size))
         for batch in batches:
             with tracer.span("ingest.batch"):
-                if fast:
-                    router.observe(batch)
-                    lat, lon, g, ts, v = router.route(batch)
-                    if config.weighted:
-                        _require_fast_weights(v)
-                else:
-                    cols = load_columns(batch)
-                    lat = cols["latitude"]
-                    lon = cols["longitude"]
-                    g = vocab.group_ids(cols["user_id"])
-                    ts = cols["timestamp"]
-                    v = cols.get("value")
-                    if config.weighted:
-                        _require_value_column(cols)
-                m = len(lat)
+                rows = ing.read(batch)
+                m = len(rows[0])
                 # Cut before appending when the batch would overshoot,
                 # so a chunk never exceeds max_points.
-                if pending and pending + m > max_points:
-                    yield cut()
-                lats.append(lat)
-                lons.append(lon)
-                gids.append(g)
-                stamps.append(ts)
-                if config.weighted:
-                    vals.append(v)
-                pending += m
+                if len(ing) and len(ing) + m > max_points:
+                    yield ing.take()
+                ing.append(rows)
             tracer.add_items("ingest.batch", m)
-            if pending >= max_points:
-                yield cut()
-        if pending:
-            yield cut()
+            if len(ing) >= max_points:
+                yield ing.take()
+        if len(ing):
+            yield ing.take()
 
     def process(chunk):
         nonlocal spill, spill_runs, spill_is_auto, auto_spill_dir
@@ -1517,154 +1655,10 @@ def run_job_fast(source, sink=None, config: BatchJobConfig | None = None,
             spill_dir=merge_spill_dir, device=device, timer=timer,
             feeder_stats=feeder_stats,
         )
-    vocab = UserVocab()
-    router = _FastRouter(vocab)
-    tracer = get_tracer()
-    lats, lons, gids, tss, vals = [], [], [], [], []
-    mgr = None
-    done = 0
-    if checkpoint_dir is not None:
-        mgr = CheckpointManager(checkpoint_dir)
-        if mgr.latest_step() is not None:
-            arrays, meta = mgr.load()
-            # Batch indices mean the same rows only under the reader
-            # that wrote them: refuse checkpoints of the string path.
-            kind = meta.get("job_path", "string")
-            if kind != "fast":
-                raise RuntimeError(
-                    f"checkpoint at {checkpoint_dir!r} was written by the "
-                    f"{kind!r} job path; resume it with the same path "
-                    "(run_job_resumable / drop --fast) or point --fast at "
-                    "a fresh checkpoint dir"
-                )
-            _check_checkpoint_weighted(meta, config, checkpoint_dir)
-            lats = [arrays["latitude"]]
-            lons = [arrays["longitude"]]
-            gids = [arrays["group_ids"]]
-            tss = [arrays["timestamps_ms"]]
-            if config.weighted:
-                vals = [arrays["values"]]
-            for name in meta["group_names"][1:]:  # [0] is always 'all'
-                vocab.id_for(name)
-            done = meta["batches_done"]
-
-    def checkpoint(step):
-        arrays = {
-            "latitude": np.concatenate(lats) if lats else np.empty(0),
-            "longitude": np.concatenate(lons) if lons else np.empty(0),
-            "group_ids": (
-                np.concatenate(gids) if gids else np.empty(0, np.int32)
-            ),
-            "timestamps_ms": (
-                np.concatenate(tss) if tss else np.empty(0, np.int64)
-            ),
-        }
-        if config.weighted:
-            arrays["values"] = np.concatenate(vals) if vals else np.empty(0)
-        mgr.save(step, arrays, {
-            "group_names": list(vocab.names),
-            "batches_done": step,
-            "job_path": "fast",
-            "weighted": config.weighted,
-        })
-        # Collapse the accumulated pieces so later checkpoints do not
-        # recopy a growing list.
-        lats[:] = [arrays["latitude"]]
-        lons[:] = [arrays["longitude"]]
-        gids[:] = [arrays["group_ids"]]
-        tss[:] = [arrays["timestamps_ms"]]
-        if config.weighted:
-            vals[:] = [arrays["values"]]
-
-    with tracer.span("ingest.fast"), stage(timer, "ingest"):
-        batches = _fast_batches_for(source, batch_size,
-                                    checkpointing=checkpoint_dir is not None)
-        for i, b in enumerate(batches):
-            # The name table grows even for skipped batches: a batch
-            # after the resume point may reference reader ids first
-            # named before it.
-            router.observe(b)
-            if i < done:
-                continue  # rows already checkpointed by an earlier run
-            if fault_injector is not None:
-                fault_injector.check(i)
-            tracer.add_items("ingest.fast", len(b["latitude"]))
-            lat, lon, g, ts64, v = router.route(b)
-            if config.weighted:
-                _require_fast_weights(v)
-                vals.append(v)
-            lats.append(lat)
-            lons.append(lon)
-            gids.append(g)
-            tss.append(ts64)
-            done = i + 1
-            if mgr is not None and done % checkpoint_every == 0:
-                with tracer.span("checkpoint"):
-                    checkpoint(done)
-    if not lats or sum(len(a) for a in lats) == 0:
-        return {}
-    lat = np.concatenate(lats)
-    with tracer.span("cascade", items=len(lat)):
-        return _run_grouped(
-            lat, np.concatenate(lons), np.concatenate(gids),
-            np.concatenate(tss), vocab, config, as_json=True, sink=sink,
-            weights=np.concatenate(vals) if config.weighted else None,
-            device=device, timer=timer,
-        )
-
-
-def _stamps_to_checkpoint(flat_stamps) -> dict:
-    """The timestamp arrays of a string-path checkpoint: none when every
-    stamp is None; an i64 epoch-ms column (TS_MISSING for None) when the
-    stamps are numbers or datetimes/dates; their strings plus a validity
-    mask otherwise. Resumed runs then bucket dated timespans exactly as
-    an uninterrupted run."""
-    if not flat_stamps or all(s is None for s in flat_stamps):
-        return {}
-    import datetime as _dt
-
-    valid = np.asarray([s is not None for s in flat_stamps], bool)
-    present = [s for s in flat_stamps if s is not None]
-    try:
-        ms_present = np.asarray(present, np.int64)
-    except (ValueError, TypeError):
-        def to_ms(s):
-            if isinstance(s, _dt.datetime):
-                if s.tzinfo is None:
-                    s = s.replace(tzinfo=_dt.timezone.utc)
-                return int(s.timestamp() * 1000)
-            if isinstance(s, _dt.date):
-                return int(_dt.datetime(
-                    s.year, s.month, s.day, tzinfo=_dt.timezone.utc,
-                ).timestamp() * 1000)
-            return None
-
-        ms = [to_ms(s) for s in present]
-        ms_present = (np.asarray(ms, np.int64)
-                      if all(m is not None for m in ms) else None)
-    if ms_present is not None:
-        full = np.full(len(flat_stamps), TS_MISSING, np.int64)
-        full[valid] = ms_present
-        return {"timestamps_ms": full}
-    return {
-        "timestamps_str": np.asarray(
-            ["" if s is None else str(s) for s in flat_stamps]),
-        "timestamps_valid": valid,
-    }
-
-
-def _stamps_from_checkpoint(arrays, n) -> list:
-    """Inverse of :func:`_stamps_to_checkpoint` for ``n`` rows."""
-    if "timestamps_ms" in arrays:
-        return [None if t == TS_MISSING else int(t)
-                for t in arrays["timestamps_ms"]]
-    if "timestamps_str" in arrays:
-        if "timestamps_valid" in arrays:
-            return [s if v else None
-                    for s, v in zip(arrays["timestamps_str"],
-                                    arrays["timestamps_valid"])]
-        return list(arrays["timestamps_str"])
-    return [None] * n
+    return _run_checkpointed(
+        source, _Ingest(config, UserVocab(), fast=True), batch_size,
+        checkpoint_dir, checkpoint_every, fault_injector, sink, config,
+        device, timer)
 
 
 def run_job_resumable(source, checkpoint_dir: str, sink=None,
@@ -1686,85 +1680,52 @@ def run_job_resumable(source, checkpoint_dir: str, sink=None,
     device = resolve_device(device)
     if checkpoint_every < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+    return _run_checkpointed(
+        source, _Ingest(config, UserVocab()), batch_size, checkpoint_dir,
+        checkpoint_every, fault_injector, sink, config, device, timer)
+
+
+def _run_checkpointed(source, ing: _Ingest, batch_size: int,
+                      checkpoint_dir: str | None, checkpoint_every: int,
+                      fault_injector, sink, config: BatchJobConfig,
+                      device, timer):
+    """run_job_fast's and run_job_resumable's single-shot job: ingest
+    ``source`` with ``ing`` from where the checkpoint under
+    ``checkpoint_dir`` (None: no checkpoints) left off, checkpoint every
+    ``checkpoint_every`` batches, then run the cascade once."""
     tracer = get_tracer()
-    mgr = CheckpointManager(checkpoint_dir)
-    vocab = UserVocab()
-    lats, lons, gids, stamps, vals = [], [], [], [], []
-    done = 0
-    if mgr.latest_step() is not None:
-        arrays, meta = mgr.load()
-        kind = meta.get("job_path", "string")
-        if kind != "string":
-            raise RuntimeError(
-                f"checkpoint at {checkpoint_dir!r} was written by the "
-                f"{kind!r} job path; resume it with run_job_fast "
-                "(--fast) or point this run at a fresh checkpoint dir"
-            )
-        _check_checkpoint_weighted(meta, config, checkpoint_dir)
-        lats, lons = [arrays["latitude"]], [arrays["longitude"]]
-        gids = [arrays["group_ids"]]
-        if config.weighted:
-            vals = [arrays["values"]]
-        stamps = [_stamps_from_checkpoint(arrays, len(arrays["latitude"]))]
-        for name in meta["group_names"][1:]:  # [0] is always 'all'
-            vocab.id_for(name)
-        done = meta["batches_done"]
-
-    def checkpoint(step):
-        flat_stamps = [s for chunk in stamps for s in chunk]
-        arrays = {
-            "latitude": np.concatenate(lats) if lats else np.empty(0),
-            "longitude": np.concatenate(lons) if lons else np.empty(0),
-            "group_ids": (np.concatenate(gids) if gids
-                          else np.empty(0, np.int32)),
-        }
-        if config.weighted:
-            arrays["values"] = np.concatenate(vals) if vals else np.empty(0)
-        arrays.update(_stamps_to_checkpoint(flat_stamps))
-        mgr.save(step, arrays, {
-            "group_names": list(vocab.names),
-            "batches_done": step,
-            "job_path": "string",
-            "weighted": config.weighted,
-        })
-        lats[:] = [arrays["latitude"]]
-        lons[:] = [arrays["longitude"]]
-        gids[:] = [arrays["group_ids"]]
-        stamps[:] = [flat_stamps]
-        if config.weighted:
-            vals[:] = [arrays["values"]]
-
-    with stage(timer, "ingest"):
-        for i, batch in enumerate(source.batches(batch_size)):
+    mgr = None if checkpoint_dir is None else CheckpointManager(checkpoint_dir)
+    done = 0 if mgr is None else ing.restore(mgr, checkpoint_dir)
+    fast = ing.router is not None
+    with (tracer.span("ingest.fast") if fast else contextlib.nullcontext()), \
+            stage(timer, "ingest"):
+        batches = (_fast_batches_for(source, batch_size,
+                                     checkpointing=mgr is not None)
+                   if fast else source.batches(batch_size))
+        for i, batch in enumerate(batches):
             if i < done:
-                continue  # already checkpointed by an earlier run
+                ing.skip(batch)  # rows already checkpointed by an earlier run
+                continue
             if fault_injector is not None:
                 fault_injector.check(i)
-            with tracer.span("ingest.batch"):
-                cols = load_columns(batch)
-                lats.append(cols["latitude"])
-                lons.append(cols["longitude"])
-                gids.append(vocab.group_ids(cols["user_id"]))
-                stamps.append(cols["timestamp"])
-                if config.weighted:
-                    _require_value_column(cols)
-                    vals.append(cols["value"])
-            tracer.add_items("ingest.batch", len(cols["latitude"]))
+            if fast:
+                tracer.add_items("ingest.fast", len(batch["latitude"]))
+                ing.append(ing.read(batch))
+            else:
+                with tracer.span("ingest.batch"):
+                    m = ing.append(ing.read(batch))
+                tracer.add_items("ingest.batch", m)
             done = i + 1
-            if done % checkpoint_every == 0:
+            if mgr is not None and done % checkpoint_every == 0:
                 with tracer.span("checkpoint"):
-                    checkpoint(done)
-    if not lats or sum(len(a) for a in lats) == 0:
+                    ing.save(mgr, done)
+    if not len(ing):
         return {}
-    with tracer.span("cascade"):
-        return _run_grouped(
-            np.concatenate(lats), np.concatenate(lons),
-            np.concatenate(gids).astype(np.int32),
-            [s for chunk in stamps for s in chunk], vocab, config,
-            as_json=True, sink=sink,
-            weights=np.concatenate(vals) if config.weighted else None,
-            device=device, timer=timer,
-        )
+    lat, lon, gids, stamps, values = ing.take()
+    with tracer.span("cascade", items=len(lat)):
+        return _run_grouped(lat, lon, gids, stamps, ing.vocab, config,
+                            as_json=True, sink=sink, weights=values,
+                            device=device, timer=timer)
 
 
 def run_batch(rows, config: BatchJobConfig | None = None,

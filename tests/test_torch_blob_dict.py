@@ -1,13 +1,14 @@
 """The one-pass blob dict builder (``csrc/blob_dict.cpp``,
 ``pipeline/blob_dict.py``) on the CPU: the job's ``{blob_id: json}`` dict
-equal, key order included, to the per-level native formatters joined by
-``dict.update`` and to the numpy oracle; its reference counts, its memory
+equal, key order included, to the JAX package's per-level native
+formatters joined by ``dict.update`` and to the numpy oracle; its reference counts, its memory
 over repeated calls and its refusals; and the ``g++`` route of
 ``_build`` that builds it (hash-named, cached, rebuilt on an edit, built
 once by parallel first users)."""
 
 import ctypes
 import hashlib
+import importlib
 import json
 import os
 import pathlib
@@ -19,6 +20,7 @@ import tracemalloc
 import numpy as np
 import pytest
 
+from heatmap_tpu import native as jnative
 from heatmap_tpu_torch import _build, native
 from heatmap_tpu_torch.pipeline import blob_dict
 from heatmap_tpu_torch.pipeline import cascade as tcascade
@@ -26,6 +28,20 @@ from heatmap_tpu_torch.pipeline import cascade as tcascade
 REPO = pathlib.Path(__file__).resolve().parent.parent
 USERS = np.array(["all", "user-1", "rt-4", "ünï", "用户-é", "🗺-x"])
 TIMESPANS = np.array(["alltime", "2017-07", "2017-07-04"])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_native_loaded():
+    """The JAX package's formatters, loaded. heatmap_tpu.native builds at
+    import without a lock, so under ``pytest -n`` on a fresh checkout a
+    worker can lose that race and import it without its library; it
+    then loads the port's locked build (``HEATMAP_TPU_NATIVE_LIB``)."""
+    if jnative._lib is None:
+        path = native.build()
+        assert path, "the native library does not build"
+        os.environ["HEATMAP_TPU_NATIVE_LIB"] = path
+        importlib.reload(jnative)
+    assert jnative.available()
 
 
 def _level(n, zoom=14, delta=5, seed=0, users=USERS, tss=TIMESPANS,
@@ -87,21 +103,21 @@ def _integral(lvl):
 
 
 def _per_level_update(levels):
-    """The egress before the builder: the native id and body formatters
-    per level (numpy bodies for fractional sums), joined by
-    ``dict.update``."""
+    """The egress before the one-pass dict: the JAX package's native id and
+    body formatters per level (numpy bodies for fractional sums), joined
+    by ``dict.update``."""
     out = {}
     for lvl in levels:
         if len(lvl["slot"]) == 0:
             continue
         is_start, sidx = _starts(lvl)
-        ids = native.format_blob_ids(
+        ids = jnative.format_blob_ids(
             lvl["user_idx"][sidx], lvl["timespan_idx"][sidx],
             lvl["coarse_row"][sidx], lvl["coarse_col"][sidx],
             int(lvl["coarse_zoom"]), lvl["user_names"],
             lvl["timespan_names"])
         if _integral(lvl):
-            bodies = native.format_blob_bodies(
+            bodies = jnative.format_blob_bodies(
                 lvl["row"], lvl["col"], lvl["value"], is_start,
                 int(lvl["zoom"]))
         else:

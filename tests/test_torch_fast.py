@@ -3,7 +3,8 @@ against heatmap_tpu on the same seeded inputs: ``run_job_fast`` on CSV
 files (native decoder) and HMPB files, dated timespans, weighted HMPB,
 HMPB files byte-equal and readable across the two packages, the chunked
 fast path, the fault-then-resume cycle of both resumable paths, resume
-from a checkpoint the JAX package wrote, and every refusal. Blob dicts
+from a checkpoint the other package wrote, in both directions, and
+every refusal. Blob dicts
 are byte-identical; fractional weighted sums within ``rtol=1e-12``."""
 
 import csv
@@ -276,16 +277,35 @@ def test_fault_then_resume(data, tmp_path, kind):
     assert got == jax_fast(data["csv"], key(DATED))
 
 
-@pytest.mark.parametrize("kind", ["fast", "string"])
-def test_resume_from_jax_checkpoint(data, tmp_path, kind):
-    """A checkpoint the JAX package wrote before its injected failure
-    resumes in the port to the uninterrupted blobs."""
+@pytest.mark.parametrize("writer,kind", [
+    pytest.param("jax", "fast", id="fast"),
+    pytest.param("jax", "string", id="string"),
+    pytest.param("jax", "weighted_string", id="weighted_string"),
+    pytest.param("port", "fast", id="to_jax-fast"),
+    pytest.param("port", "string", id="to_jax-string"),
+    pytest.param("port", "weighted_string", id="to_jax-weighted_string"),
+])
+def test_resume_from_jax_checkpoint(data, tmp_path, writer, kind):
+    """A checkpoint one package wrote before its injected failure
+    resumes in the other to the uninterrupted blobs: the JAX package's
+    in the port, and the port's in the JAX package."""
+    weighted = kind == "weighted_string"
+    path = data["int_csv"] if weighted else data["csv"]
+    cfg = dict(DATED, weighted=True) if weighted else DATED
+    kind = "string" if weighted else kind
+    injector = (JaxFaultInjector if writer == "jax" else FaultInjector)(
+        {3: 1})
     ckpt = tmp_path / "ckpt"
     with pytest.raises(RuntimeError, match="injected fault"):
-        _resumable(kind, data["csv"], ckpt, DATED, JaxFaultInjector({3: 1}),
-                   port=False)
-    got = _resumable(kind, data["csv"], ckpt, DATED)
-    assert got == jax_fast(data["csv"], key(DATED))
+        _resumable(kind, path, ckpt, cfg, injector, port=writer == "port")
+    got = _resumable(kind, path, ckpt, cfg, port=writer == "jax")
+    if weighted:
+        want = jbatch.run_job(JaxCSVSource(path),
+                              config=jbatch.BatchJobConfig(**cfg),
+                              batch_size=200, max_points_in_flight=0)
+    else:
+        want = jax_fast(path, key(DATED))
+    assert got == want
 
 
 def test_resume_weighted_string_path(data, tmp_path):

@@ -1,8 +1,9 @@
 """The port's bindings to the native runtime library on the CPU:
-``decode_keys``, ``format_blob_ids`` and ``format_blob_bodies`` equal to
-the numpy path and to the JAX package's bindings; the cascade's egress
-through them equal to its numpy egress (and to the numpy path beside the
-int32-slot guard); the ``TS_MISSING`` agreement; the CSV decoder; the
+``decode_keys`` equal to the numpy path and to the JAX package's
+bindings; the port's numpy blob ids and bodies equal to the JAX
+package's native formatters; the cascade's egress through the library
+equal to its numpy egress (and to the numpy path beside the int32-slot
+guard); the ``TS_MISSING`` agreement; the CSV decoder; the
 staging pool; and the locked build, which parallel first users run
 once."""
 
@@ -94,37 +95,48 @@ def _level(n=5000, seed=0, fractional=False):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_format_blob_bodies_equal_numpy_and_jax(seed, monkeypatch):
+def test_format_blob_bodies_equal_numpy_and_jax(seed):
+    """The port formats fractional levels with numpy: its documents equal
+    the JAX package's native formatter on the same level."""
     row, col, value, is_start = _level(seed=seed)
     lvl = {"row": row, "col": col, "value": value, "zoom": 21}
-    got = native.format_blob_bodies(row, col, value, is_start, 21)
+    got = tcascade._blob_bodies(lvl, is_start)
     assert got == jnative.format_blob_bodies(row, col, value, is_start, 21)
-    monkeypatch.setattr(native, "available", lambda: False)
-    want = tcascade._blob_bodies(lvl, is_start)
-    assert got == want
     assert all(json.loads(d) for d in got)
-    assert native.format_blob_bodies([], [], [], [], 21) == []
+    empty = {"row": row[:0], "col": col[:0], "value": value[:0], "zoom": 21}
+    assert tcascade._blob_bodies(empty, is_start[:0]) == []
+    assert jnative.format_blob_bodies([], [], [], [], 21) == []
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_format_blob_ids_equal_numpy_and_jax(seed, monkeypatch):
+    """The blob ids of the port's numpy egress (the library forced away)
+    equal the JAX package's native id formatter and the f-string."""
     rng = np.random.default_rng(seed)
     n = 3000
     users = np.array(["all", "user-1", "route", "ünï"])
     tss = np.array(["alltime", "2017-07"])
-    ui = rng.integers(0, len(users), n).astype(np.int32)
-    ti = rng.integers(0, len(tss), n).astype(np.int32)
-    cr = rng.integers(0, 1 << 16, n).astype(np.int32)
-    cc = rng.integers(0, 1 << 16, n).astype(np.int32)
-    got = native.format_blob_ids(ui, ti, cr, cc, 16, users, tss)
+    ui = rng.integers(0, len(users), n)
+    ti = rng.integers(0, len(tss), n)
+    cr = rng.integers(0, 1 << 16, n)
+    cc = rng.integers(0, 1 << 16, n)
+    # One entry per blob, in the (slot, coarse tile) order of a level.
+    slot = ui * len(tss) + ti
+    key = np.unique(np.stack([slot, cr, cc], 1), axis=0)
+    slot, cr, cc = (key[:, i].astype(np.int32) for i in range(3))
+    ui, ti = slot // len(tss), slot % len(tss)
+    m = len(slot)
+    lvl = {"zoom": 21, "slot": slot, "row": cr << 5, "col": cc << 5,
+           "value": np.ones(m), "user_idx": ui, "timespan_idx": ti,
+           "user_names": users, "timespan_names": tss, "coarse_zoom": 16,
+           "coarse_row": cr, "coarse_col": cc}
+    monkeypatch.setattr(native, "available", lambda: False)
+    got = list(tcascade.json_blobs_from_level_arrays([lvl]))
+    assert len(got) == m > 2000
     assert got == jnative.format_blob_ids(ui, ti, cr, cc, 16, users, tss)
     want = [f"{users[u]}|{tss[t]}|16_{r}_{c}"
             for u, t, r, c in zip(ui, ti, cr, cc)]
     assert got == want
-    with pytest.raises(ValueError, match="out of range"):
-        native.format_blob_ids(ui, ti, cr, cc, 16, users[:1], tss)
-    with pytest.raises(ValueError, match="length mismatch"):
-        native.format_blob_ids(ui[:5], ti, cr, cc, 16, users, tss)
 
 
 @pytest.mark.parametrize("fractional", [False, True])

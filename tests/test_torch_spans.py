@@ -204,6 +204,25 @@ def test_dated_job_span_items_and_counters():
     assert tcascade.build_cascade.key_bits == 42 + (n_slots - 1).bit_length()
 
 
+def test_dated_job_stage_events_validate(tmp_path):
+    """A dated job under stage tracing with an event log installed
+    completes, and the ``stage_end`` events of its timespan and
+    slot-name spans carry only the schema's fields."""
+    ttrace.enable_stage_tracing(True)
+    log_path = tmp_path / "events.jsonl"
+    events.set_event_log(events.EventLog(str(log_path)))
+    assert _dated_job()
+    events.get_event_log().close()
+    events.set_event_log(None)
+    ends = [r for r in events.read_events(str(log_path))
+            if r["event"] == "stage_end"
+            and r["stage"] in ("emissions.timespans", "egress.slot_names")]
+    assert sorted(r["stage"] for r in ends) == ["egress.slot_names",
+                                                "emissions.timespans"]
+    for rec in ends:
+        events.validate_event(rec)
+
+
 def _blob_counters(monkeypatch):
     from heatmap_tpu_torch.pipeline import cascade as tcascade
 
