@@ -93,7 +93,9 @@ just before it and read just after:
   --serve-port`` whose bucket roll drops exactly the retiring window
   tiles (16 segment-reduce launches per applied batch);
 - the headline step, ``python -m heatmap_tpu_torch.bench`` at its
-  defaults (with its stage split), checked against the plain scatter;
+  defaults (with its stage split), checked against the plain scatter,
+  every dense pyramid it builds held to the plain version (two kernel
+  launches a pyramid, as in the bulk step);
 - the reference's own ends: ``CassandraSource`` over a stand-in
   ``rhom.locations`` of 524,288 rows (64 token ranges), ``run_job`` at
   the default z21 -> z6 cascade and ``CassandraBlobSink`` into the
@@ -512,6 +514,37 @@ def window_calls_held_to_plain(what):
     del calls
 
 
+@contextlib.contextmanager
+def pyramid_calls_held_to_plain(what):
+    """``segment_calls_held_to_plain`` for the dense pyramid kernel:
+    every launching call of ``pyramid_from_raster`` in the path run
+    inside is kept (references, as there) and, after the body, held bit
+    for bit to ``pyramid._plain`` on its own raster. Returns the list of
+    checked calls (shape, levels)."""
+    from heatmap_tpu_torch.ops import pyramid as pyr
+
+    launch = pyr._launch
+    calls, checked = [], []
+
+    def recorded(raster, levels):
+        got = launch(raster, levels)
+        calls.append((raster, levels, got))
+        return got
+
+    pyr._launch = recorded
+    try:
+        yield checked
+    finally:
+        pyr._launch = launch
+    torch.cuda.synchronize()
+    for i, (raster, levels, got) in enumerate(calls):
+        want = pyr._plain(raster, levels)[1:]
+        assert_bit_equal(got, want, f"{what}: dense pyramid call {i} "
+                         f"({tuple(raster.shape)}, {levels} levels)")
+        checked.append({"shape": list(raster.shape), "levels": levels})
+    del calls
+
+
 class ValuedSource:
     """The synthetic stream plus an integer ``value`` column in
     [0, WEIGHT_BOUND], made from the seed."""
@@ -814,9 +847,11 @@ def phase_kernel_project_mercator(dev):
                                 align_levels=w["align_levels"],
                                 pad_multiple=w["pad_multiple"])
     m.project_points.fused_launches = 0
-    total, _ = bench.step(lat, lon, window, config["levels"],
-                          config["bin_backend"], proj_dtype=torch.float64)
-    total.item()
+    with pyramid_calls_held_to_plain("projection's bulk step"):
+        total, _ = bench.step(lat, lon, window, config["levels"],
+                              config["bin_backend"],
+                              proj_dtype=torch.float64)
+        total.item()
     bulk_launches = m.project_points.fused_launches
     assert bulk_launches == 1, bulk_launches
     emit({"phase": "kernel_project_mercator", "bit_equal": True,
@@ -825,6 +860,92 @@ def phase_kernel_project_mercator(dev):
           "bound_ms": bound_ms, "bytes": bytes_moved, "max_abs_err": 0.0,
           "bulk_step_launches": bulk_launches})
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "max_abs_err": 0.0}, bulk_launches
+
+
+def reshape_sum_chain(raster, levels):
+    """The chain of torch reshape-sums, one reduction a level, that the
+    port rolled the dense pyramid up with before ``csrc/dense_pyramid.cu``
+    (the yardstick ``library_ms``; the port no longer calls it)."""
+    out = [raster]
+    for _ in range(levels):
+        *batch, h, w = out[-1].shape
+        out.append(out[-1].reshape(*batch, h // 2, 2, w // 2, 2).sum(
+            dim=(-3, -1), dtype=raster.dtype))
+    return out
+
+
+def phase_kernel_dense_pyramid(dev):
+    """The dense pyramid kernel against its plain version, on the card,
+    bit for bit, on the pyramid cases of ``kernel_cases`` (the bulk
+    step's 8192 x 4096 int32 window and 10 levels first), with its
+    launches counted. Then timed at the bulk shape beside the plain
+    version and the torch reshape-sum chain, and one bulk step
+    (``bench.step`` on the ``geolife-z16.bulk`` cell's points) run with
+    its pyramid held to the plain version and its launches counted.
+    Returns the timing and that count."""
+    from benchmark import generate
+    from heatmap_tpu_torch import bench
+    from heatmap_tpu_torch import kernel_cases as kc
+    from heatmap_tpu_torch.ops import pyramid as pyr
+    from heatmap_tpu_torch.ops.histogram import window_from_bounds
+
+    checks = []
+    for case in kc.PYRAMID_CASES:
+        base, index, levels = kc.pyramid_case(case)
+        raster = torch.as_tensor(base, device=dev)[index]
+        want = pyr._plain(raster, levels)
+        before = pyr.pyramid_from_raster.launches
+        got = pyr.pyramid_from_raster(raster, levels)
+        torch.cuda.synchronize()
+        launches = pyr.pyramid_from_raster.launches - before
+        assert launches == math.ceil(levels / pyr.KERNEL_LEVELS), case
+        assert all(g.is_contiguous() for g in got[1:]), case
+        assert_bit_equal(got, want, case)
+        checks.append({"case": case, "shape": list(raster.shape),
+                       "dtype": str(raster.dtype), "levels": levels,
+                       "launches": launches})
+    base, index, levels = kc.pyramid_case("bulk")
+    raster = torch.as_tensor(base, device=dev)[index]
+    got = pyr.pyramid_from_raster(raster, levels)
+    assert_bit_equal(got, reshape_sum_chain(raster, levels),
+                     "reshape-sum chain")
+    ms = median_ms(lambda: pyr.pyramid_from_raster(raster, levels))
+    plain_ms = median_ms(lambda: pyr._plain(raster, levels))
+    library_ms = median_ms(lambda: reshape_sum_chain(raster, levels))
+    by_kernel = device_us(lambda: pyr.pyramid_from_raster(raster, levels))
+    library_us = device_us(lambda: reshape_sum_chain(raster, levels))
+    # Least bytes: level 0 read once, every coarser level written once.
+    bytes_moved = sum(lvl.numel() * lvl.element_size() for lvl in got)
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    del raster, base, got
+
+    with open(BULK_CONFIG) as f:
+        config = json.load(f)
+    w = config["window"]
+    window = window_from_bounds(tuple(w["lat"]), tuple(w["lon"]), w["zoom"],
+                                align_levels=w["align_levels"],
+                                pad_multiple=w["pad_multiple"])
+    lat, lon = generate.mixture_points(int(config["points_per_step"]),
+                                       config["points"], 23, "step-input-0",
+                                       dev)
+    pyr.pyramid_from_raster.launches = 0
+    with pyramid_calls_held_to_plain("bulk step") as held:
+        total, _ = bench.step(lat, lon, window, config["levels"],
+                              config["bin_backend"],
+                              proj_dtype=torch.float64)
+        total.item()
+    bulk_launches = pyr.pyramid_from_raster.launches
+    assert bulk_launches == 2 and len(held) == 1, (bulk_launches, held)
+    emit({"phase": "kernel_dense_pyramid", "bit_equal": True,
+          "checks": checks, "shape": {"height": window.height,
+                                      "width": window.width,
+                                      "levels": levels},
+          "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+          "device_us": by_kernel, "library_device_us": library_us,
+          "bound_ms": bound_ms, "bytes": bytes_moved, "max_abs_err": 0.0,
+          "bulk_step_launches": bulk_launches})
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "max_abs_err": 0.0}, bulk_launches
 
 
@@ -1619,7 +1740,18 @@ def phase_headline(dev):
     """``python -m heatmap_tpu_torch.bench`` at its defaults, and its step
     on the card against the plain scatter at the same points."""
     from heatmap_tpu_torch import bench
+    from heatmap_tpu_torch.ops import pyramid as pyr
 
+    pyr.pyramid_from_raster.launches = 0
+    with pyramid_calls_held_to_plain("headline") as held:
+        rec = _headline(bench, dev)
+    rec["pyramid_launches"] = pyr.pyramid_from_raster.launches
+    assert rec["pyramid_launches"] == 2 * len(held) > 0, rec
+    emit({"phase": "headline", **rec})
+    return rec
+
+
+def _headline(bench, dev):
     rec = bench.run(device=dev)
     assert rec["bin_backend_resolved"] == "partitioned", rec
     assert rec["launches_per_step"] == 1, rec
@@ -1636,7 +1768,6 @@ def phase_headline(dev):
     assert all(torch.equal(a, b) for a, b in zip(pyr, plain))
     assert int(pyr[-1].sum()) == rec["total"] > 0
     rec["equal_to_plain_scatter"] = True
-    emit({"phase": "headline", **rec})
     return rec
 
 
@@ -5452,6 +5583,7 @@ def main() -> int:
     histogram = phase_kernel_window_histogram(dev)
     part_counts, part_weighted = phase_kernel_window_partitioned(dev)
     projection, bulk_projections = phase_kernel_project_mercator(dev)
+    dense_pyramid, bulk_pyramids = phase_kernel_dense_pyramid(dev)
     torch.cuda.empty_cache()
     job_projections, single, single_ref = phase_run_job(dev)
     phase_projection(data, dev)
@@ -5488,7 +5620,7 @@ def main() -> int:
         stream_projections = phase_stream(dev, csv_path)
     stream_rows = phase_stream_bench(dev)
     phase_splat(dev)
-    phase_headline(dev)
+    headline = phase_headline(dev)
     cassandra_launches = phase_cassandra(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tools_launches = phase_tools(dev, tmp, serve_store)
@@ -5546,12 +5678,20 @@ def main() -> int:
         "job": job_projections,
         "tiles": tiles_launches["project_mercator"],
         "stream": stream_projections}
+    pyramid_entry = kernel_entry(
+        "dense_pyramid", "dense_pyramid.cu",
+        "none (XLA fuses heatmap_tpu/ops/pyramid.py coarsen_raster)",
+        bulk_pyramids, dense_pyramid)
+    pyramid_entry["launches_by_path"] = {
+        "bulk": bulk_pyramids,
+        "headline": headline["pyramid_launches"]}
     emit({"kernels": [
         segment_reduce,
         window_histogram,
         counts_entry,
         weighted_entry,
         project_entry,
+        pyramid_entry,
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -6,7 +6,7 @@ The twin of the repo's ``bench.py``: the same clustered synthetic
 points (2^25 by default, float32), the same z15 window
 (``window_from_bounds((44, 51), (-127, -117), 15, align_levels=12,
 pad_multiple=256)``, 4096 x 4096 cells), the same step (float32
-projection, window binning, reshape-sum pyramid up to z0) and the same
+projection, window binning, 2x2-sum pyramid up to z0) and the same
 single-core numpy baseline. It runs on the device it is given, with no
 probe and no fallback, and prints ONE JSON line of what actually ran:
 points/s, ``vs_baseline``, the device's name, the requested and the
@@ -36,7 +36,7 @@ from heatmap_tpu_torch.ops.histogram import (
     bin_rowcol_window,
     window_from_bounds,
 )
-from heatmap_tpu_torch.ops.pyramid import coarsen_raster
+from heatmap_tpu_torch.ops.pyramid import pyramid_from_raster
 from heatmap_tpu_torch.tilemath import mercator
 from heatmap_tpu_torch.utils.trace import stage_block, stage_span
 
@@ -90,14 +90,15 @@ def headline_window(zoom: int = 15):
 
 
 def pyramid_capped(raster, levels: int):
-    """[raster, coarsened once, ...]: up to ``levels`` 2x2 reshape-sums,
-    stopping where a side would drop below 2 (bench.py's rollup)."""
-    out = [raster]
+    """[raster, coarsened once, ...]: up to ``levels`` 2x2 sums, stopping
+    where a side would drop below 2 (bench.py's rollup), all from one
+    :func:`pyramid_from_raster`."""
+    h, w = raster.shape[-2:]
+    n = 0
+    while n < levels and min(h >> n, w >> n) >= 2:
+        n += 1
     with stage_span("pyramid.coarsen", items=raster.numel()):
-        for _ in range(levels):
-            if min(out[-1].shape) < 2:
-                break
-            out.append(coarsen_raster(out[-1]))
+        out = pyramid_from_raster(raster, n)
         stage_block(None)
     return out
 

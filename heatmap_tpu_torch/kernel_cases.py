@@ -1,5 +1,5 @@
-"""Edge-case inputs of the segment-reduce, window-binning and projection
-kernels.
+"""Edge-case inputs of the segment-reduce, window-binning, projection and
+dense pyramid kernels.
 
 Made with numpy from a seed, so the same inputs reach the card
 (``chip_smoke.py`` holds each kernel bit-equal to its plain version on
@@ -14,7 +14,9 @@ windows of the histogram kernel at its bands' limits, with points where
 the bands of ``ops.pallas_kernels.SLICE_BYTES`` meet; and points whose Mercator
 rows sit on z21 row edges, at the world's edges and poles, non-finite,
 on the antimeridian, and batches with ragged ends against the blocks of
-the projection kernel.
+the projection kernel; and rasters against the dense pyramid kernel's
+tiles of ``PYRAMID_TILE`` cells, its launches of ``PYRAMID_TILE_LEVELS``
+levels, its 16-byte loads and the wrap of an int32 sum.
 """
 
 from __future__ import annotations
@@ -415,3 +417,71 @@ def projection_case(name: str, seed: int = 0):
         return (rng.uniform(-85.0, 85.0, n), rng.uniform(-180.0, 180.0, n),
                 12)
     raise ValueError(f"unknown projection case {name!r}")
+
+
+PYRAMID_CASES = (
+    "bulk",
+    "headline",
+    "tile_ragged",
+    "small_ragged",
+    "one_cell",
+    "batch",
+    "float32",
+    "int32_wrap",
+    "row_block",
+    "unaligned_block",
+)
+#: Side of the level-0 tile that one block of ``csrc/dense_pyramid.cu``
+#: owns, and the levels one launch rolls up.
+PYRAMID_TILE = 128
+PYRAMID_TILE_LEVELS = 7
+
+
+def pyramid_case(name: str, seed: int = 0):
+    """``(base, index, levels)`` of one named case: the raster is
+    ``base[index]`` (a view; on a device, index the device copy), rolled
+    up ``levels`` times."""
+    rng = np.random.default_rng([seed, 300 + PYRAMID_CASES.index(name)])
+    whole = (slice(None),)
+    if name == "bulk":
+        # The geolife-z16.bulk cell's window: 8192 x 4096 counts, z16 to
+        # z6; two launches (7 + 3 levels).
+        return rng.integers(0, 64, (8192, 4096), dtype=np.int32), whole, 10
+    if name == "headline":
+        # The headline's z15 window rolled to 1 x 1: 7 + 5 levels.
+        return rng.integers(0, 64, (4096, 4096), dtype=np.int32), whole, 12
+    if name == "tile_ragged":
+        # One row and one column of level 0 past the tiles' edges.
+        return (rng.integers(0, 9, (PYRAMID_TILE + 2, 2 * PYRAMID_TILE + 2),
+                             dtype=np.int32), whole, 1)
+    if name == "small_ragged":
+        # Below one tile, and a width that is no multiple of 4: no
+        # 16-byte loads.
+        return rng.integers(0, 9, (6, 10), dtype=np.int32), whole, 1
+    if name == "one_cell":
+        return np.array([[1, 2], [3, 4]], np.int32), whole, 1
+    if name == "batch":
+        # Three rasters of 4 x 6 tiles, 8 levels: the second launch rolls
+        # each raster's 4 x 6 level 7.
+        return rng.integers(0, 9, (3, 512, 768), dtype=np.int32), whole, 8
+    if name == "float32":
+        # Non-integer values of both signs: every add rounds, so only the
+        # same order of adds gives the same bits.
+        base = (rng.standard_normal((1024, 2048)) * 1000.0).astype(np.float32)
+        return base, whole, 10
+    if name == "int32_wrap":
+        # Cells near both ends of int32: sums wrap.
+        big = rng.integers(2**31 - 2**20, 2**31, (512, 512), dtype=np.int64)
+        sign = np.where(rng.random((512, 512)) < 0.25, -1, 1)
+        return (sign * big).astype(np.int32), whole, 9
+    if name == "row_block":
+        # A block of a wider raster: row stride 1536 cells, 16-byte
+        # aligned.
+        base = rng.integers(0, 9, (1024, 1536), dtype=np.int32)
+        return base, (slice(256, 768), slice(512, 1024)), 9
+    if name == "unaligned_block":
+        # A block that starts 6 cells into a row: rows not 16-byte
+        # aligned, so the kernel loads cell by cell.
+        base = (rng.random((300, 400)) * 10.0).astype(np.float32)
+        return base, (slice(2, 258), slice(6, 262)), 8
+    raise ValueError(f"unknown pyramid case {name!r}")

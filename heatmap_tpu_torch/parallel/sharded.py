@@ -219,18 +219,13 @@ def pyramid_rowsharded(raster, levels: int, mesh: Mesh):
     local_levels = 0
     while local_levels < levels and (block_h >> local_levels) % 2 == 0:
         local_levels += 1
-    blocks = mesh_mod.split(raster, devices)
-    outs = [blocks]
-    for _ in range(local_levels):
-        blocks = [pyramid_ops.coarsen_raster(b) for b in blocks]
-        outs.append(blocks)
+    per_block = [pyramid_ops.pyramid_from_raster(b, local_levels)
+                 for b in mesh_mod.split(raster, devices)]
     first = devices[0]
-    outs = [torch.cat([b.to(first) for b in level]) for level in outs]
-    full = outs[-1]
-    for _ in range(levels - local_levels):
-        full = pyramid_ops.coarsen_raster(full)
-        outs.append(full)
-    return outs
+    outs = [torch.cat([p[lvl].to(first) for p in per_block])
+            for lvl in range(local_levels + 1)]
+    return outs + pyramid_ops.pyramid_from_raster(
+        outs[-1], levels - local_levels)[1:]
 
 
 def _key_shards(mesh, keys, weights, valid, acc_dtype):
