@@ -5,7 +5,8 @@ Each step is ``heatmap_tpu_torch.bench.step`` over the configuration's
 configuration's window and rolls the dense pyramid up ``levels`` times;
 ``.item()`` of the top-level sum ends it.
 The steps cycle through ``distinct_inputs`` point sets made on the card
-from the seed. The check holds every level of the last step's pyramid,
+from the seed; set-up runs each twice, holding pyramids as the window's
+keeper does. The check holds every level of the last step's pyramid,
 and of one earlier step's drawn from the seed, to the reference's, cell
 by cell.
 """
@@ -37,11 +38,22 @@ class Driver(drivers.Driver):
                                     f"step-input-{i}", self.device)
             for i in range(int(self.traffic["distinct_inputs"]))]
         self.proj = DTYPES[self.config["projection"]]
+        h, w = self.window.height, self.window.width
+        levels = 0
+        while (levels < self.config["levels"]
+               and min(h >> levels, w >> levels) >= 2):
+            levels += 1
         self.counters.update(points_per_unit=n, bucketed_points=n,
-                             window_cells=self.window.height * self.window.width)
+                             window_cells=h * w, window_shape=[h, w],
+                             pyramid_levels=levels)
         self.mark("inputs")
-        for i in range(len(self.inputs)):
-            self._step(i)
+        # Two rounds of the inputs, holding the two pyramids that the
+        # keeper holds in the window, so that the window (traced too)
+        # finds every block it needs already in the caching allocator.
+        held = []
+        for i in range(2 * len(self.inputs)):
+            held = [*held[-1:], self._step(i)]
+        del held
         self.mark("warm-up")
 
     def _step(self, i: int):
@@ -60,10 +72,13 @@ class Driver(drivers.Driver):
         self.n_units += 1
 
     def program_counters(self):
-        from heatmap_tpu_torch.ops import partitioned
+        from heatmap_tpu_torch.ops import partitioned, pyramid
+        from heatmap_tpu_torch.tilemath import mercator
 
         return {"bucketed_calls":
-                partitioned.bin_rowcol_window_partitioned.launches}
+                partitioned.bin_rowcol_window_partitioned.launches,
+                "pyramid_launches": pyramid.pyramid_from_raster.launches,
+                "project_launches": mercator.project_points.fused_launches}
 
     def instrumented(self):
         if self.device.type != "cuda":

@@ -50,6 +50,9 @@ def mixture_points(n: int, dist: dict, seed: int, label: str, device,
         x = torch.empty(n, dtype=dtype, device=device)
         x[:n_wide].normal_(c, sd_wide, generator=gen)
         x[n_wide:].normal_(c, sd_hot, generator=gen)
+        if "decimals" in dist:
+            scale = 10.0 ** int(dist["decimals"])
+            x.mul_(scale).round_().div_(scale)
         cols.append(x)
     return cols[0], cols[1]
 

@@ -1,10 +1,10 @@
 """Peaks of the card and the least bytes a kernel's call must move.
 
-A copy of the arithmetic of ``chip_smoke.py`` (its window kernels' and
-segment reduce's ``bytes_moved``), kept here so that the yardstick does
-not move with the program, with one correction: a segment reduce is
-counted as writing the unique keys and sums that its inputs give, not
-its whole output ``capacity``.
+A copy of the arithmetic of ``chip_smoke.py`` (the ``bytes_moved`` of its
+window kernels, segment reduce, projection and dense pyramid), kept here
+so that the yardstick does not move with the program, with one
+correction: a segment reduce is counted as writing the unique keys and
+sums that its inputs give, not its whole output ``capacity``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,21 @@ def segment_reduce_bytes(keys: int, unique: int) -> int:
     return 8 * keys + 12 * unique + 4
 
 
+def project_mercator_bytes(points: int) -> int:
+    """One float64 projection call: each point's latitude and longitude
+    (float64) read once; its row and column (int32) and validity (1 byte)
+    written once: 25 bytes a lane."""
+    return points * (8 + 8 + 4 + 4 + 1)
+
+
+def dense_pyramid_bytes(height: int, width: int, levels: int) -> int:
+    """One dense pyramid of an int32 raster: the raster (4 bytes a cell)
+    read once; each cell of levels 1 to ``levels``, every one half the
+    height and width of the level below, written once."""
+    coarser = sum((height >> i) * (width >> i) for i in range(1, levels + 1))
+    return 4 * (height * width + coarser)
+
+
 def share_pct(bytes_moved: float, device_s: float):
     """Least time over measured time, in percent, bound by HBM bandwidth;
     None where nothing was measured."""
@@ -46,3 +61,21 @@ def kernel_names(source: str) -> set:
     """The ``__global__`` functions of ``csrc/<source>.cu``: the kernels
     that one of the program's CUDA sources launches."""
     return global_functions((CSRC / f"{source}.cu").read_text())
+
+
+def traced_share(ctx, source: str, counter: str, bytes_per_call: int):
+    """Share of its roofline that ``csrc/<source>.cu`` reaches in a
+    traced run that makes one call of it a unit: ``bytes_per_call`` a
+    unit over the profiler's device time of its calls
+    (``Trace.op_calls``). None where the calls seen are not one a unit,
+    or their launches of the source's kernels are not the launches that
+    the program counted in ``traced_counters[counter]``."""
+    tr, c = ctx.trace, ctx.counters
+    launches = c.get("traced_counters", {}).get(counter, 0)
+    units = c.get("units", 0)
+    if tr is None or not launches or not units:
+        return None
+    calls = tr.op_calls(kernel_names(source))
+    if len(calls) != units or sum(k for _, k in calls) != launches:
+        return None
+    return share_pct(units * bytes_per_call, sum(s for s, _ in calls))

@@ -21,6 +21,24 @@ def test_segment_reduce_bytes():
     assert roofline.segment_reduce_bytes(1000, 10) == 8000 + 120 + 4
 
 
+def test_project_mercator_bytes():
+    # Latitude and longitude (float64) read once; row, column (int32)
+    # and validity (1 byte) written once: 25 bytes a lane, 621,924,450 B
+    # for the bulk step's 24,876,978 points (185.6 us at 3.35 TB/s).
+    assert roofline.project_mercator_bytes(1) == 25
+    assert roofline.project_mercator_bytes(24_876_978) == 621_924_450
+
+
+def test_dense_pyramid_bytes():
+    # A 4 x 4 int32 raster read once, its 2 x 2 and 1 x 1 levels
+    # written once.
+    assert roofline.dense_pyramid_bytes(4, 4, 2) == 4 * (16 + 4 + 1)
+    assert roofline.dense_pyramid_bytes(4, 4, 0) == 4 * 16
+    # The bulk window: 8192 x 4096 cells and 10 levels, 178,956,928 B
+    # (53.4 us at 3.35 TB/s).
+    assert roofline.dense_pyramid_bytes(4096, 8192, 10) == 178_956_928
+
+
 def test_share_pct():
     # 3.35 GB moved in 1 ms is the whole HBM bandwidth.
     assert roofline.share_pct(3.35e9, 1e-3) == pytest.approx(100.0)
@@ -33,6 +51,8 @@ def test_kernel_names_from_the_sources():
         "count_kernel", "scan_kernel", "scatter_kernel", "bin_kernel"}
     assert roofline.kernel_names("segment_reduce") == {
         "segment_kernel", "pad_kernel"}
+    assert roofline.kernel_names("dense_pyramid") == {"pyramid_kernel"}
+    assert roofline.kernel_names("project_mercator") == {"project_kernel"}
 
 
 def test_short_name():
@@ -77,15 +97,23 @@ def test_trace_busy_idle_and_kernels():
     assert ops["count_kernel"] == pytest.approx(20e-6)
 
 
+def _rt(name, ts, corr):
+    return {"ph": "X", "name": name, "cat": "cuda_runtime", "ts": ts,
+            "dur": 1, "tid": 1, "args": {"correlation": corr}}
+
+
+def _dev(name, cat, ts, dur, corr):
+    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
+            "args": {"device": 0, "correlation": corr}}
+
+
+def _span(name, ts, dur):
+    return {"ph": "X", "name": name, "cat": "user_annotation", "ts": ts,
+            "dur": dur, "tid": 1, "args": {}}
+
+
 def test_op_time_counts_a_c_launch_run_with_its_memsets():
-    def rt(name, ts, corr):
-        return {"ph": "X", "name": name, "cat": "cuda_runtime", "ts": ts,
-                "dur": 1, "tid": 1, "args": {"correlation": corr}}
-
-    def dev(name, cat, ts, dur, corr):
-        return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
-                "args": {"device": 0, "correlation": corr}}
-
+    rt, dev = _rt, _dev
     events = [
         _x(trace.WINDOW, "user_annotation", 0, 1000),
         # A PyTorch operator's launch: enclosed, not part of any C call.
@@ -112,3 +140,67 @@ def test_op_time_counts_a_c_launch_run_with_its_memsets():
     s, calls = tr.op_time({"count_kernel", "bin_kernel"})
     assert calls == 2
     assert s == pytest.approx((7 + 10 + 20 + 10) * 1e-6)
+
+
+def _two_spans_events():
+    """Binning's C call (a memset and two kernels) under ``bin.window``,
+    then the pyramid's C call (two launches) under ``pyramid.coarsen``,
+    with no operator between them, as a bulk step makes them; then an
+    operator and its kernel."""
+    return [
+        _x(trace.WINDOW, "user_annotation", 0, 1000),
+        _span("bin.window", 10, 50),
+        _rt("cudaMemsetAsync", 12, 1),
+        _rt("cudaLaunchKernel", 14, 2),
+        _rt("cudaLaunchKernel", 16, 3),
+        _span("pyramid.coarsen", 70, 20),
+        _rt("cudaLaunchKernel", 72, 4),
+        _rt("cudaLaunchKernel", 74, 5),
+        {"ph": "X", "name": "aten::sum", "cat": "cpu_op", "ts": 95,
+         "dur": 10, "tid": 1, "args": {}},
+        _rt("cudaLaunchKernel", 97, 6),
+        _dev("Memset (Device)", "gpu_memset", 100, 3, 1),
+        _dev("(anonymous namespace)::count_kernel(int)", "kernel", 105, 40,
+             2),
+        _dev("(anonymous namespace)::bin_kernel(int)", "kernel", 150, 60, 3),
+        _dev("void (anonymous namespace)::pyramid_kernel<int, true>(int)",
+             "kernel", 215, 30, 4),
+        _dev("void (anonymous namespace)::pyramid_kernel<int, false>(int)",
+             "kernel", 250, 5, 5),
+        _dev("at::native::reduce_kernel", "kernel", 260, 2, 6),
+    ]
+
+
+def test_op_time_ends_a_call_where_the_span_changes():
+    """Two C calls under two spans, with no operator between them, are
+    two calls: binning's time leaves out the pyramid's, and the
+    pyramid's leaves out binning's."""
+    tr = trace.Trace(_two_spans_events())
+    s, calls = tr.op_time({"count_kernel", "bin_kernel"})
+    assert calls == 1
+    assert s == pytest.approx((3 + 40 + 60) * 1e-6)
+    assert tr.op_calls({"pyramid_kernel"}) == [(pytest.approx(35e-6), 2)]
+    # Without the spans the two C calls run together, as before.
+    bare = trace.Trace([e for e in _two_spans_events()
+                        if e["name"] not in ("bin.window", "pyramid.coarsen")])
+    assert bare.op_calls({"pyramid_kernel"}) == [(pytest.approx(138e-6), 2)]
+
+
+class _Ctx:
+    def __init__(self, tr, counters):
+        self.trace, self.counters = tr, counters
+
+
+@pytest.mark.parametrize("launches, units, share", [
+    (2, 1, 100.0 * 1000 / roofline.HBM_BYTES_PER_S / 35e-6),
+    (3, 1, None),  # the program counted a launch the trace lacks
+    (2, 2, None),  # a unit whose call the trace lacks
+    (0, 1, None),  # nothing launched
+])
+def test_traced_share_holds_calls_to_the_counts(launches, units, share):
+    ctx = _Ctx(trace.Trace(_two_spans_events()),
+               {"traced_counters": {"pyramid_launches": launches},
+                "units": units})
+    got = roofline.traced_share(ctx, "dense_pyramid", "pyramid_launches",
+                                1000)
+    assert got == (None if share is None else pytest.approx(share))

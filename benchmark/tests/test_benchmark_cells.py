@@ -58,3 +58,29 @@ def test_same_seed_same_inputs(name):
     assert any(not np.array_equal(np.asarray(a), np.asarray(c))
                for a, c in zip(made[0], made[2]))
     assert [np.shape(a) for a in made[0]] == [np.shape(c) for c in made[2]]
+
+
+def test_bulk_points_are_recorded_to_six_decimals_and_need_no_recheck():
+    """The bulk cell's points hold 6 decimal places, as GeoLife records
+    them, and no latitude of that kind within 1 degree of the mixture's
+    center (over 8 of its standard deviations) lies near enough to a z16
+    row edge for the float64 projection to recheck it: every seed gives
+    the same work."""
+    import numpy as np
+
+    from benchmark import generate
+    from heatmap_tpu_torch.tilemath import mercator
+
+    cfg = spec.cell("geolife-z16.bulk").config
+    dist = cfg["points"]
+    lat, lon = generate.mixture_points(10_000, dist, 2**31 + 5, "x",
+                                       torch.device("cpu"))
+    for x in (lat, lon):
+        assert np.array_equal(x.numpy(), np.round(x.numpy(), 6))
+    center = round(dist["center"][0] * 1e6)
+    every = torch.arange(center - 1_000_000, center + 1_000_001,
+                         dtype=torch.float64) / 1e6
+    before = mercator.project_points.rechecked
+    mercator.project_points(every, torch.full_like(every, dist["center"][1]),
+                            cfg["window"]["zoom"], dtype=torch.float64)
+    assert mercator.project_points.rechecked == before

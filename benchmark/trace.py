@@ -90,6 +90,7 @@ class Trace:
         self._corr = {}
         self._runtime = []
         self._ops = {}
+        self._spans = []
         for e in xs:
             cat = e.get("cat", "")
             ts, dur = float(e["ts"]), float(e["dur"])
@@ -102,7 +103,9 @@ class Trace:
                         len(self.device) - 1)
             elif cat in HOST_CATS and e is not w:
                 self.host.append((ts, ts + dur, e["name"]))
-                if cat in ("cuda_runtime", "cuda_driver"):
+                if cat == "user_annotation":
+                    self._spans.append((ts, ts + dur))
+                elif cat in ("cuda_runtime", "cuda_driver"):
                     self._runtime.append((ts, ts + dur, e.get("tid"),
                                           args.get("correlation")))
                 elif cat == "cpu_op":
@@ -140,13 +143,34 @@ class Trace:
         return sum(sum(b - a for a, b in self._busy_intervals(d))
                    for d in devs) / len(devs) / 1e6
 
-    def op_time(self, names: set):
-        """``(seconds, calls)`` of the device work of a kernel wrapper
+    def _innermost_spans(self) -> list:
+        """For each CUDA runtime call, in order, the index of the innermost
+        program span (a ``record_function`` range other than the window)
+        open when it was made, or -1 where none was. Spans nest on the one
+        thread that opens them, so the innermost is the last opened of
+        those still open; they are matched by time alone, as
+        ``benchmark/spans.py`` matches them."""
+        spans = sorted(self._spans, key=lambda s: (s[0], -s[1]))
+        out, stack, j = [], [], 0
+        for ts, *_ in self._runtime:
+            while j < len(spans) and spans[j][0] <= ts:
+                stack.append((spans[j][1], j))
+                j += 1
+            while stack and stack[-1][0] < ts:
+                stack.pop()
+            out.append(stack[-1][1] if stack else -1)
+        return out
+
+    def op_calls(self, names: set) -> list:
+        """``[(seconds, kernels)]``, one entry a call of a kernel wrapper
         that launches from C (through ctypes) rather than from a PyTorch
-        operator: a call is a run of CUDA runtime calls made outside any
-        profiled operator, one of whose kernels is in ``names``, and its
-        time is that of every kernel, copy and memset the run launched
-        (the memsets that zero its outputs too)."""
+        operator. A call is a run of CUDA runtime calls made outside any
+        profiled operator and inside one program span, one of whose
+        kernels is in ``names``: an operator, or the innermost span
+        changing (``bin.window`` to ``pyramid.coarsen``), ends it. Its
+        seconds are those of every kernel, copy and memset the run
+        launched (the memsets that zero its outputs too); ``kernels``
+        counts its launches of the kernels in ``names``."""
         inside = {}
         for tid, ivs in self._ops.items():
             merged = []
@@ -163,24 +187,33 @@ class Trace:
             i = int(np.searchsorted(starts, ts, side="right")) - 1
             return i >= 0 and ts <= ends[i]
 
-        groups, cur = [], []
-        for ts, _, tid, corr in self._runtime:
-            if enclosed(ts, tid):
-                if cur:
-                    groups.append(cur)
-                    cur = []
-            elif corr is not None:
+        groups, cur, cur_span = [], [], None
+        for (ts, _, tid, corr), span in zip(self._runtime,
+                                            self._innermost_spans()):
+            in_op = enclosed(ts, tid)
+            if cur and (in_op or span != cur_span):
+                groups.append(cur)
+                cur = []
+            if corr is not None and not in_op:
                 cur.append(corr)
+                cur_span = span
         if cur:
             groups.append(cur)
-        total, calls = 0.0, 0
+        calls = []
         for g in groups:
             evs = [self.device[k] for c in g for k in self._corr.get(c, ())]
-            if any(cat == "kernel" and short_name(n).split("::")[-1] in names
-                   for _, _, cat, n, _ in evs):
-                total += sum(b - a for a, b, *_ in evs)
-                calls += 1
-        return total / 1e6, calls
+            kernels = sum(cat == "kernel"
+                          and short_name(n).split("::")[-1] in names
+                          for _, _, cat, n, _ in evs)
+            if kernels:
+                calls.append((sum(b - a for a, b, *_ in evs) / 1e6, kernels))
+        return calls
+
+    def op_time(self, names: set):
+        """``(seconds, calls)`` of the device work of the calls of
+        :meth:`op_calls`."""
+        calls = self.op_calls(names)
+        return sum(s for s, _ in calls), len(calls)
 
     def copy_time(self, kind: str) -> float:
         """Seconds of the copies whose name holds ``kind`` (``HtoD``)."""
